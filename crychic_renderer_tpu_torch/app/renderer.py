@@ -1,0 +1,342 @@
+"""Host-side renderer orchestration (torch counterpart of
+``crychic_renderer_tpu.app.renderer``).
+
+Builds the device scene once on an explicit device, computes per-frame
+constants (camera matrices, cascade fits, culling masks) on the host, and
+calls ``passes.frame.render_frame``. PyTorch queues the frame's kernels
+asynchronously, so the host runs ahead until something reads a frame —
+the reference's fence-wait pattern without explicit fences. Capacity
+overflows are flagged on the device and OR-ed across frames;
+``check_overflow`` reads them when the caller chooses to wait.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+
+import numpy as np
+import torch
+
+from ..config import RenderConfig
+from ..models import cascades as casc
+from ..models.camera import BoundingFrustum, Camera, cull_instances
+from ..models.materials import build_reference_lights
+from ..models.scene import Scene
+from ..ops import sampling, ssao as ssao_ops
+from ..passes import frame as fr
+
+# Texture slot names -> DDS file stems (LoadTextures, CRYCHIC.cpp:939-974).
+_TEXTURE_FILES = {
+    "bricks2": "bricks2.dds",
+    "bricks2_nmap": "bricks2_nmap.dds",
+    "tile": "tile.dds",
+    "tile_nmap": "tile_nmap.dds",
+    "white1x1": "white1x1.dds",
+    "default_nmap": "default_nmap.dds",
+    "WoodCrate01": "WoodCrate01.dds",
+    "WoodCrate02": "WoodCrate02.dds",
+    "bricks": "bricks.dds",
+    "bricks_nmap": "bricks_nmap.dds",
+    "stone": "stone.dds",
+    "checkboard": "checkboard.dds",
+    "ice": "ice.dds",
+    "grass": "grass.dds",
+    "WireFence": "WireFence.dds",
+    "water1": "water1.dds",
+}
+
+# animated texture slots: name -> (frames dir, subsample step, fps)
+_ANIM_SLOTS = {
+    "bolt_anim": ("BoltAnim", 4, 30.0),
+    "fire_anim": ("FireAnim", 8, 30.0),
+}
+
+
+def load_texture_chains(names, asset_dir=None):
+    """The named texture slots as mip chains.
+
+    A missing asset falls back to a white 1x1 chain, exactly as the JAX
+    package does; asset_dir=None means no assets at all. A PRESENT asset
+    raises NotImplementedError naming the file: DDS/BMP decoding
+    (io/dds.py) is not ported yet.
+
+    Returns (chains, anim_frames): chains[slot] = [(H, W, 4) u8 mips];
+    anim_frames[slot] = ([per-frame chains], fps) for animated slots.
+    """
+    white = [np.full((1, 1, 4), 255, np.uint8)]
+    chains = []
+    anim_frames = {}
+    for slot, name in enumerate(names):
+        if name == "sky_cube":
+            chains.append(white)  # cube slots don't live in the 2D pool
+            continue
+        if name in _ANIM_SLOTS:
+            subdir, step, fps = _ANIM_SLOTS[name]
+            d = os.path.join(asset_dir, subdir) if asset_dir else None
+            if d and os.path.isdir(d) and os.listdir(d):
+                raise NotImplementedError(
+                    f"{d}: BMP animation frames need io/dds.py load_bmp, "
+                    f"which is not ported yet")
+            chains.append(white)  # slot shows frame 0
+            anim_frames[slot] = ([white], fps)
+            continue
+        fn = _TEXTURE_FILES.get(name)
+        if (fn is None or asset_dir is None
+                or not os.path.exists(os.path.join(asset_dir, fn))):
+            chains.append(white)
+            continue
+        from ..io.dds import load_dds
+
+        load_dds(os.path.join(asset_dir, fn))  # raises: not ported yet
+    return chains, anim_frames
+
+
+def build_pair_pool(scene: Scene, asset_dir=None, dual: bool = True):
+    """Build the (diffuse, normal) pair pool for a scene's materials (see
+    ops.sampling.PairPool). Static material pairs are deduplicated into
+    the big class; animated materials get one small-class pair per
+    animation frame.
+
+    Returns (pool (host numpy), mat_pair (M,) int32, anim_specs) where
+    anim_specs maps material index -> (first_pair_index, frame_count,
+    fps)."""
+    chains, anim_frames = load_texture_chains(scene.texture_names, asset_dir)
+    mb = scene.material_bank
+    dmap = np.asarray(mb.diffuse_map_index)
+    nmap = np.asarray(mb.normal_map_index)
+    M = len(dmap)
+
+    big_pairs = []  # (diffuse chain, normal chain)
+    key_to_idx = {}
+    small_pairs = []
+    mat_pair = np.zeros(M, np.int32)
+    anim_local = {}  # mat -> (local first index in small_pairs, count, fps)
+    for m in range(M):
+        d, n = int(dmap[m]), int(nmap[m])
+        if d in anim_frames:
+            frames, fps = anim_frames[d]
+            anim_local[m] = (len(small_pairs), len(frames), fps)
+            for fc in frames:
+                small_pairs.append((fc, chains[n]))
+        else:
+            key = (d, n)
+            if key not in key_to_idx:
+                key_to_idx[key] = len(big_pairs)
+                big_pairs.append((chains[d], chains[n]))
+            mat_pair[m] = key_to_idx[key]
+    n_big = len(big_pairs)
+    for m, (first, count, fps) in anim_local.items():
+        mat_pair[m] = n_big + first
+    anim_specs = {m: (n_big + first, count, fps)
+                  for m, (first, count, fps) in anim_local.items()}
+    pool = sampling.PairPool.build(big_pairs + small_pairs, n_big,
+                                   dual=dual)
+    return pool, mat_pair, anim_specs
+
+
+def build_device_scene(scene: Scene, asset_dir=None, lights=None,
+                       ssao_dims=(540, 960), dual_mip_rows: bool = True,
+                       device="cpu"):
+    """The scene's device containers on `device`, static tables attached.
+    Returns (DeviceScene, anim_specs)."""
+    if lights is None:
+        lights = build_reference_lights()
+    pool, mat_pair, anim_specs = build_pair_pool(scene, asset_dir,
+                                                 dual=dual_mip_rows)
+    mb = scene.material_bank
+    cubemap = sampling.pack_cubemap(sampling.procedural_sky_cubemap(256))
+
+    def t(x):
+        return fr._tensor(x, device)
+
+    return fr.attach_draw_statics(fr.DeviceScene(
+        opaque=fr.DeviceDraw.from_host(scene.opaque, device),
+        shadow=fr.DeviceDraw.from_host(scene.shadow, device),
+        alpha=(fr.DeviceDraw.from_host(scene.alpha, device)
+               if scene.alpha is not None else None),
+        mat_albedo=t(mb.diffuse_albedo),
+        mat_fresnel=t(mb.fresnel_r0),
+        mat_roughness=t(mb.roughness),
+        mat_metalness=t(mb.metalness),
+        mat_transform=t(mb.mat_transform),
+        mat_pair=t(mat_pair),
+        pair_data=t(pool.data),
+        cubemap=t(cubemap),
+        light_strength=t(lights.strength),
+        light_direction=t(lights.direction),
+        light_position=t(lights.position),
+        light_falloff_start=t(lights.falloff_start),
+        light_falloff_end=t(lights.falloff_end),
+        light_spot_power=t(lights.spot_power),
+        ambient=t(lights.ambient),
+        ssao_offsets=t(ssao_ops.build_offset_vectors()),
+        ssao_random_field=t(ssao_ops.build_random_field(
+            ssao_ops.build_random_vector_texture(), *ssao_dims)),
+        ssao_blur_weights=t(ssao_ops.calc_gauss_weights(2.5)),
+        n_big_pairs=pool.n_big,
+    )), anim_specs
+
+
+class Renderer:
+    """Owns the device scene; produces frames on `device`."""
+
+    def __init__(self, scene: Scene, cfg: RenderConfig,
+                 camera: Camera = None, asset_dir=None, lights=None,
+                 auto_capacity: bool = True, device="cpu"):
+        self.device = torch.device(device)
+        self.scene = scene
+        self.cfg = cfg
+        self.camera = camera or self._default_camera()
+        self.light_dir0 = (lights.direction[0] if lights is not None
+                           else build_reference_lights().direction[0])
+        self.device_scene, self.anim_specs = build_device_scene(
+            scene, asset_dir, lights,
+            ssao_dims=(cfg.ssao_height, cfg.ssao_width),
+            dual_mip_rows=cfg.dual_mip_rows, device=self.device)
+        self._base_mat_pair = self.device_scene.mat_pair.cpu().numpy()
+        if auto_capacity:
+            self._autosize_capacity()
+        self._main_overflow = torch.zeros((), dtype=torch.bool,
+                                          device=self.device)
+        self._shadow_overflow = torch.zeros_like(self._main_overflow)
+
+    def capacity_requirements(self, total_time: float = 0.0) -> dict:
+        """Exact (tile, triangle) pair counts of both raster launches for
+        the current camera (the atlas counted as it is binned)."""
+        consts = self.frame_constants(total_time)
+        req = fr.capacity_requirements(self.device_scene, consts, self.cfg)
+        return {k: int(v) for k, v in req.items()}
+
+    def _autosize_capacity(self):
+        """Size the static raster capacities from the initial camera's
+        exact pair counts: 1.5x headroom rounded up to 64k pairs, at least
+        16k, as the JAX package does."""
+        req = self.capacity_requirements(0.0)
+
+        def size(needed):
+            return max(1 << 14, -(-int(needed * 1.5) // 65536) * 65536)
+
+        self.cfg = dataclasses.replace(
+            self.cfg, pair_capacity=size(req["main_pairs"]),
+            shadow_pair_capacity=size(req["shadow_pairs"]))
+
+    def check_overflow(self):
+        """Raise if any frame since the last call dropped raster pairs
+        (its pose outran a sized capacity). This is the one place that
+        waits for the device; render() itself never does."""
+        main = bool(self._main_overflow)
+        shadow = bool(self._shadow_overflow)
+        self._main_overflow.zero_()
+        self._shadow_overflow.zero_()
+        if main or shadow:
+            which = [n for n, f in (("main", main), ("shadow", shadow)) if f]
+            raise RuntimeError(
+                f"raster overflow ({' and '.join(which)}): a frame expanded "
+                f"more pairs than pair_capacity {self.cfg.pair_capacity} / "
+                f"shadow_pair_capacity {self.cfg.shadow_pair_capacity}; "
+                f"geometry was dropped")
+
+    def _default_camera(self):
+        cam = Camera()
+        cam.set_position(0.0, 2.0, -15.0)  # CRYCHIC.cpp:46
+        cam.set_lens(0.25 * np.pi, self.cfg.width / self.cfg.height,
+                     1.0, 100.0)  # CRYCHIC.cpp:114
+        return cam
+
+    # -- per-frame host update (CRYCHIC::Update) ---------------------------
+    def frame_constants_np(self, total_time: float = 0.0) -> dict:
+        """Per-frame constants as HOST numpy leaves, keyed by the
+        FrameConstants field names."""
+        cam = self.camera
+        view = cam.view
+        proj = cam.proj
+        ct = casc.fit_cascades(cam, self.light_dir0, self.cfg.shadow_map_size)
+        return dict(
+            alpha_visibility=(self._visibility(self.scene.alpha)
+                              if self.scene.alpha is not None else None),
+            view=view.astype(np.float32),
+            proj=proj.astype(np.float32),
+            view_proj=(view @ proj).astype(np.float32),
+            inv_proj=np.linalg.inv(proj).astype(np.float32),
+            eye_pos=cam.position.astype(np.float32),
+            cascade_view_projs=ct.view_projs.astype(np.float32),
+            shadow_transforms=ct.shadow_transforms,
+            opaque_visibility=self._visibility(self.scene.opaque),
+            shadow_visibility=self._visibility(self.scene.shadow),
+            total_time=np.float32(total_time),
+        )
+
+    def frame_constants(self, total_time: float = 0.0) -> fr.FrameConstants:
+        return fr.FrameConstants.from_numpy(
+            self.frame_constants_np(total_time), self.device)
+
+    def _visibility(self, draw) -> np.ndarray:
+        """Per-instance frustum culling (UpdateInstanceData,
+        CRYCHIC.cpp:515-557), vectorized over all instances. Non-cullable
+        instances (the OpaqueShadow layer) always pass."""
+        if not self.cfg.frustum_culling:
+            return np.ones(draw.num_instances, np.float32)
+        frustum = BoundingFrustum(self.camera.proj)
+        inv_view = np.linalg.inv(self.camera.view)
+        inv_worlds = np.linalg.inv(draw.worlds)
+        vis = cull_instances(frustum, inv_view, inv_worlds,
+                             draw.bounds_center, draw.bounds_extents)
+        return (vis | ~draw.cullable).astype(np.float32)
+
+    # -- frame -------------------------------------------------------------
+    def _animate_materials(self, total_time: float):
+        """Cycle animated texture slots by rewriting material->pair
+        indices (host-side update)."""
+        if not self.anim_specs:
+            return
+        pair = self._base_mat_pair.copy()
+        for mat, (base, count, fps) in self.anim_specs.items():
+            pair[mat] = base + int(total_time * fps) % count
+        self.device_scene.mat_pair = fr._tensor(pair, self.device)
+
+    def render(self, total_time: float = 0.0) -> torch.Tensor:
+        """Queue one frame -> (H, W, 4) float32 tensor on the device."""
+        self._animate_materials(total_time)
+        stats = {}
+        img = fr.render_frame(self.device_scene,
+                              self.frame_constants(total_time), self.cfg,
+                              stats)
+        self._main_overflow |= stats["main_overflowed"]
+        if "shadow_overflowed" in stats:
+            self._shadow_overflow |= stats["shadow_overflowed"]
+        return img
+
+    def render_np(self, total_time: float = 0.0) -> np.ndarray:
+        img = self.render(total_time).cpu().numpy()
+        return np.clip(img, 0.0, 1.0)
+
+
+def write_png(path: str, img: np.ndarray):
+    """Minimal RGBA/gray PNG writer (no external deps)."""
+    import struct
+    import zlib
+
+    if img.dtype != np.uint8:
+        img = (np.clip(img, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+    if img.ndim == 2:
+        color_type = 0
+        img = img[..., None]
+    elif img.shape[2] == 3:
+        color_type = 2
+    else:
+        color_type = 6
+    h, w = img.shape[:2]
+    raw = b"".join(b"\x00" + img[i].tobytes() for i in range(h))
+
+    def chunk(tag, data):
+        c = tag + data
+        return struct.pack(">I", len(data)) + c + struct.pack(
+            ">I", zlib.crc32(c))
+
+    png = (b"\x89PNG\r\n\x1a\n"
+           + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color_type,
+                                        0, 0, 0))
+           + chunk(b"IDAT", zlib.compress(raw))
+           + chunk(b"IEND", b""))
+    with open(path, "wb") as f:
+        f.write(png)

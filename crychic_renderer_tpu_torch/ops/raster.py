@@ -1,0 +1,325 @@
+"""Tile rasterization: pair records, the CUDA raster kernel and its plain
+PyTorch version.
+
+This module is the port's counterpart of
+``crychic_renderer_tpu/ops/raster_pallas.py``. The Pallas kernel
+``_raster_kernel`` becomes the hand-written CUDA C++ kernel in
+``csrc/raster.cu`` (built for sm_90a at first use, bound with ctypes), and
+the XLA helpers around it (``tri_records``, ``build_records``) port as
+torch code that both the kernel and the plain version read.
+
+- ``rasterize`` is the entry point the frame calls: bin, build records,
+  raster. It returns (depth, tid, overflowed).
+- ``raster_tiles`` is the kernel wrapper. A CPU tensor goes to
+  ``rasterize_plain``; a CUDA tensor launches the kernel or raises.
+- ``rasterize_plain`` evaluates every pair against its tile's 1024 pixels
+  with plain tensor ops. On the card it equals the kernel bit for bit:
+  both evaluate ((A*px) + (B*py)) + C with each operation rounded on its
+  own.
+
+Record layout (``build_records``, one (16,) f32 row per sorted pair): 0-2
+edge A, 3-5 edge B, 6-8 TILE-LOCAL edge C (evaluated at the pair's tile
+origin, which keeps |E| small inside the tile; top-left bias folded in),
+9-11 tile-local depth plane (zA, zB, zC), 12 triangle id as f32, 13-14
+tile-local xlo/xhi column guard, 15 padding.
+
+Fill-rule note: vertex coordinates are snapped to 1/256-pixel fixed point
+in setup (like D3D's 8-bit subpixel rasterizer), so the top-left rule is an
+exact epsilon bias on C for in-tile coordinates.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+
+import torch
+
+from . import rasterizer as rz
+
+TILE_H = rz.TILE_H  # 8
+TILE_W = rz.TILE_W  # 128
+TRI_BLOCK = 128  # pair capacities are multiples of this
+# exact epsilon: snapped edge values are multiples of 1/SUBPIXEL^2
+EDGE_EPS = 0.5 / (rz.SUBPIXEL * rz.SUBPIXEL)
+REC_ROWS = 16
+
+# Launches of the CUDA kernel since import (or since a caller reset them),
+# in all and per variant: "ids" (depth + triangle id, the main view) and
+# "depth" (depth only, the shadow atlas). Incremented by raster_tiles where
+# it launches, and nowhere else.
+LAUNCHES = 0
+LAUNCHES_BY_VARIANT = {"ids": 0, "depth": 0}
+
+
+def tri_records(tris: rz.ScreenTris, xrange=None) -> torch.Tensor:
+    """Per-TRIANGLE records (T, 16) f32 with global-origin planes and the
+    top-left bias folded into C.
+
+    xrange: optional (xlo (T,), xhi (T,)) viewport columns — coverage is
+    masked to pixel centers with xlo <= x < xhi. Used by the shadow ATLAS,
+    where each cascade owns a column and triangles extending past their
+    cascade's viewport must not bleed into the neighbor."""
+    xy = rz.snap_xy(tris.xy)
+    A, B, C, area2, top_left = rz._edge_coeffs(xy)
+    inv_a2 = 1.0 / torch.where(area2 == 0, torch.ones_like(area2), area2)
+    zA = (A * tris.z * inv_a2[:, None]).sum(-1)
+    zB = (B * tris.z * inv_a2[:, None]).sum(-1)
+    zC = (C * tris.z * inv_a2[:, None]).sum(-1)
+    Cb = C - torch.where(top_left, 0.0, EDGE_EPS)
+    ids = torch.arange(A.shape[0], dtype=torch.float32, device=A.device)
+    pad = torch.zeros_like(ids)
+    if xrange is None:
+        xlo = torch.full_like(ids, -3e7)
+        xhi = torch.full_like(ids, 3e7)
+    else:
+        xlo, xhi = xrange
+    return torch.stack(
+        [A[:, 0], A[:, 1], A[:, 2],
+         B[:, 0], B[:, 1], B[:, 2],
+         Cb[:, 0], Cb[:, 1], Cb[:, 2],
+         zA, zB, zC, ids, xlo, xhi, pad], dim=-1)  # (T, 16)
+
+
+def build_records(tris: rz.ScreenTris, bins: rz.Bins, ntx: int,
+                  num_tiles: int, xrange=None) -> torch.Tensor:
+    """Tile-anchored pair records (P, 16), in sorted pair order.
+
+    One row gather per pair from the per-triangle records, then C, zC and
+    the column guard are re-anchored at the pair's tile origin. Rows past
+    the valid pairs ride along; no tile run reaches them."""
+    trecs = tri_records(tris, xrange)
+    rec = trecs[bins.order.long()]  # (P, 16)
+    tile_of = torch.clamp(bins.sorted_tile, max=num_tiles - 1)
+    x0 = (torch.remainder(tile_of, ntx) * TILE_W).to(torch.float32)[:, None]
+    y0 = (torch.div(tile_of, ntx, rounding_mode="floor")
+          * TILE_H).to(torch.float32)[:, None]
+    A, B = rec[:, 0:3], rec[:, 3:6]
+    C = rec[:, 6:9] + A * x0 + B * y0
+    zC = rec[:, 11:12] + rec[:, 9:10] * x0 + rec[:, 10:11] * y0
+    xr = rec[:, 13:15] - x0  # xlo/xhi re-anchored at the tile origin
+    rec = torch.cat([A, B, C, rec[:, 9:11], zC, rec[:, 12:13], xr,
+                     torch.zeros_like(rec[:, :1])], dim=-1)
+    if rec.shape[0] % TRI_BLOCK:
+        raise ValueError(f"pair capacity {rec.shape[0]} is not a multiple "
+                         f"of {TRI_BLOCK}")
+    return rec.contiguous()
+
+
+def binned_records(tris: rz.ScreenTris, width: int, height: int,
+                   pair_capacity: int, xrange=None):
+    """Bin + record build: the raster kernel's inputs.
+
+    Returns (records (P, 16) f32, starts (tiles,) i32, counts (tiles,) i32,
+    overflowed () bool)."""
+    ntx = -(-width // TILE_W)
+    nty = -(-height // TILE_H)
+    bins = rz.bin_triangles(tris, width, height, pair_capacity)
+    records = build_records(tris, bins, ntx, ntx * nty, xrange)
+    return records, bins.starts, bins.counts, bins.overflowed
+
+
+def rasterize(tris: rz.ScreenTris, width: int, height: int,
+              pair_capacity: int, with_ids: bool = True, xrange=None):
+    """Full pipeline: bin + record build + raster (kernel on CUDA).
+
+    Returns (depth (H, W) f32, tid (H, W) i32 or None, overflowed () bool
+    — True when pairs beyond pair_capacity were dropped)."""
+    records, starts, counts, overflowed = binned_records(
+        tris, width, height, pair_capacity, xrange)
+    depth, tid = raster_tiles(records, starts, counts, width, height,
+                              with_ids, xrange is not None)
+    return depth, tid, overflowed
+
+
+# ---------------------------------------------------------------------------
+# The plain version
+# ---------------------------------------------------------------------------
+
+# pairs per evaluation chunk: 16k pairs x 1024 pixels = 16M elements per
+# temporary, so the 1080p shadow atlas stays within a few GB
+_PLAIN_CHUNK = 1 << 14
+
+
+def _assemble(flat: torch.Tensor, ntx: int, nty: int, width: int,
+              height: int) -> torch.Tensor:
+    img = flat.reshape(nty, ntx, TILE_H, TILE_W).permute(0, 2, 1, 3)
+    return img.reshape(nty * TILE_H, ntx * TILE_W)[:height, :width]
+
+
+def rasterize_plain(records: torch.Tensor, starts: torch.Tensor,
+                    counts: torch.Tensor, width: int, height: int,
+                    with_ids: bool = True, with_xrange: bool = False):
+    """What the raster kernel computes, in plain tensor ops.
+
+    Every valid pair is evaluated against its tile's pixels in chunks of
+    pairs; the per-pixel min z (clear 1.0) is a scatter_reduce(amin), and
+    the id is the smallest id among the pairs whose z equals that min
+    (below the 1.0 clear). Reads the valid-pair count back to the host."""
+    dev = records.device
+    ntx = -(-width // TILE_W)
+    nty = -(-height // TILE_H)
+    num_tiles = ntx * nty
+    P = TILE_H * TILE_W
+    lane = torch.arange(P, device=dev)
+    px = (lane % TILE_W).to(torch.float32) + 0.5
+    py = torch.div(lane, TILE_W, rounding_mode="floor").to(torch.float32) \
+        + 0.5
+    ends = starts + counts
+    n_valid = int(ends[-1]) if num_tiles else 0
+
+    def chunks():
+        for c0 in range(0, n_valid, _PLAIN_CHUNK):
+            c1 = min(c0 + _PLAIN_CHUNK, n_valid)
+            j = torch.arange(c0, c1, dtype=torch.int32, device=dev)
+            tile = torch.searchsorted(ends, j, right=True).long()
+            r = records[c0:c1]
+
+            def col(k):
+                return r[:, k:k + 1]
+
+            E0 = col(0) * px + col(3) * py + col(6)
+            E1 = col(1) * px + col(4) * py + col(7)
+            E2 = col(2) * px + col(5) * py + col(8)
+            cov = (E0 >= 0.0) & (E1 >= 0.0) & (E2 >= 0.0)
+            if with_xrange:
+                cov = cov & (px >= col(13)) & (px < col(14))
+            z = col(9) * px + col(10) * py + col(11)
+            hit = cov & (z >= 0.0) & (z <= 1.0)
+            pix = tile[:, None] * P + lane  # flat (tile, lane) index
+            yield r, z, hit, pix
+
+    depth = torch.ones(num_tiles * P, dtype=torch.float32, device=dev)
+    for _, z, hit, pix in chunks():
+        zm = torch.where(hit, z, torch.full_like(z, float("inf")))
+        depth.scatter_reduce_(0, pix.reshape(-1), zm.reshape(-1), "amin")
+    tid = None
+    if with_ids:
+        none = torch.iinfo(torch.int32).max
+        best = torch.full((num_tiles * P,), none, dtype=torch.int32,
+                          device=dev)
+        for r, z, hit, pix in chunks():
+            win = hit & (z == depth[pix]) & (z < 1.0)
+            ids = r[:, 12:13].to(torch.int32).expand_as(z)
+            cand = torch.where(win, ids, torch.full_like(ids, none))
+            best.scatter_reduce_(0, pix.reshape(-1), cand.reshape(-1),
+                                 "amin")
+        tid = torch.where(best == none, torch.full_like(best, -1), best)
+        tid = _assemble(tid, ntx, nty, width, height)
+    return _assemble(depth, ntx, nty, width, height), tid
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel: build, bind, launch
+# ---------------------------------------------------------------------------
+
+_SOURCE = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "csrc", "raster.cu")
+_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+
+_lib = None
+BUILD_SECONDS = None  # wall time of the nvcc build in this process
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    return os.path.join(home, "bin", "nvcc")
+
+
+def library_path() -> str:
+    """build/kernels/<hash of source + flags>/libcrychic_raster.so at the
+    repo root: a changed source or flag never loads a stale library."""
+    with open(_SOURCE, "rb") as f:
+        src = f.read()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return os.path.join(_REPO_ROOT, "build", "kernels", key[:16],
+                        "libcrychic_raster.so")
+
+
+def load_kernel(rebuild: bool = False):
+    """Build (first use only, or always with rebuild=True) and load the
+    kernel library."""
+    global _lib, BUILD_SECONDS
+    if _lib is not None and not rebuild:
+        return _lib
+    import time
+
+    path = library_path()
+    if rebuild or not os.path.exists(path):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        t0 = time.perf_counter()
+        subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, _SOURCE],
+                       check=True)
+        BUILD_SECONDS = time.perf_counter() - t0
+        os.replace(tmp, path)
+    lib = ctypes.CDLL(path)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.crychic_raster.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp, vp, ci,
+                                   vp]
+    lib.crychic_raster.restype = ci
+    lib.crychic_raster_error.argtypes = [ci]
+    lib.crychic_raster_error.restype = ctypes.c_char_p
+    _lib = lib
+    return lib
+
+
+def raster_tiles(records: torch.Tensor, starts: torch.Tensor,
+                 counts: torch.Tensor, width: int, height: int,
+                 with_ids: bool = True, with_xrange: bool = False):
+    """The raster kernel's wrapper: (depth (H, W) f32, tid (H, W) i32 or
+    None). CPU tensors take rasterize_plain; CUDA tensors launch the
+    kernel of csrc/raster.cu on the current stream, or raise."""
+    if records.device.type == "cpu":
+        return rasterize_plain(records, starts, counts, width, height,
+                               with_ids, with_xrange)
+    if records.device.type != "cuda":
+        raise ValueError(f"raster_tiles: unsupported device {records.device}")
+    global LAUNCHES
+    ntx = -(-width // TILE_W)
+    num_tiles = ntx * -(-height // TILE_H)
+    if (records.dtype != torch.float32 or records.dim() != 2
+            or records.shape[1] != REC_ROWS or not records.is_contiguous()
+            or records.data_ptr() % 16):
+        raise ValueError("records must be a contiguous, 16-byte aligned "
+                         f"(P, {REC_ROWS}) float32 tensor")
+    if records.shape[0] % TRI_BLOCK:
+        raise ValueError(f"pair capacity {records.shape[0]} is not a "
+                         f"multiple of {TRI_BLOCK}")
+    for name, t in (("starts", starts), ("counts", counts)):
+        if (t.dtype != torch.int32 or t.shape != (num_tiles,)
+                or not t.is_contiguous() or t.device != records.device):
+            raise ValueError(f"{name} must be a contiguous ({num_tiles},) "
+                             f"int32 tensor on {records.device}")
+    lib = load_kernel()
+    dev = records.device
+    depth = torch.empty((height, width), dtype=torch.float32, device=dev)
+    tid = (torch.empty((height, width), dtype=torch.int32, device=dev)
+           if with_ids else None)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.crychic_raster(
+            records.data_ptr(), starts.data_ptr(), counts.data_ptr(),
+            num_tiles, ntx, width, height, depth.data_ptr(),
+            tid.data_ptr() if with_ids else None, int(with_xrange), stream)
+    if rc != 0:
+        raise RuntimeError("raster kernel launch failed: "
+                           + lib.crychic_raster_error(rc).decode())
+    LAUNCHES += 1
+    LAUNCHES_BY_VARIANT["ids" if with_ids else "depth"] += 1
+    return depth, tid
+
+
+def reset_launches():
+    global LAUNCHES
+    LAUNCHES = 0
+    for k in LAUNCHES_BY_VARIANT:
+        LAUNCHES_BY_VARIANT[k] = 0

@@ -1,0 +1,107 @@
+"""The raster kernel (csrc/raster.cu) against its plain version, on the
+card. Tolerance: none — depth and tid must be equal (torch.equal).
+
+Imports torch and the port only (the card's machine has no jax). The
+cases marked ``cuda`` skip without a CUDA device; run them on the card
+with ``python -m pytest tests/test_torch_cuda.py -m cuda``.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from crychic_renderer_tpu_torch.ops import raster
+from crychic_renderer_tpu_torch.ops import rasterizer as rz
+
+
+def _random_tris(W, H, T, seed, device):
+    """Random clip-space triangles (test_raster_pallas.py's recipe)."""
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(-1, 1, size=(T, 1, 4)).astype(np.float32)
+    v = (centers + rng.uniform(-0.25, 0.25, size=(T, 3, 4))).astype(
+        np.float32)
+    v[..., 2] = rng.uniform(0.01, 0.99, (T, 3))
+    v[..., 3] = 1.0
+    return rz.setup_tri_verts(torch.from_numpy(v).to(device), None, W, H)
+
+
+def _half_screen_tris(W, H, device):
+    v = torch.tensor([[[-1, 1, 0.5, 1], [0, 1, 0.5, 1], [-1, -1, 0.5, 1]]],
+                     dtype=torch.float32, device=device)
+    return rz.setup_tri_verts(v, None, W, H)
+
+
+CASES = {
+    "random": lambda d: (_random_tris(256, 64, 60, 0, d), 256, 64, 4096),
+    "ragged": lambda d: (_random_tris(200, 50, 80, 3, d), 200, 50, 4096),
+    "dense": lambda d: (_random_tris(384, 72, 3000, 5, d), 384, 72, 1 << 17),
+    "half_empty": lambda d: (_half_screen_tris(256, 32, d), 256, 32, 256),
+}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the raster kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _check(rec, starts, counts, W, H, ids, xrange):
+    before = dict(raster.LAUNCHES_BY_VARIANT)
+    d, t = raster.raster_tiles(rec, starts, counts, W, H, with_ids=ids,
+                               with_xrange=xrange)
+    torch.cuda.synchronize()
+    key = "ids" if ids else "depth"
+    assert raster.LAUNCHES_BY_VARIANT[key] == before[key] + 1
+    d0, t0 = raster.rasterize_plain(rec, starts, counts, W, H, with_ids=ids,
+                                    with_xrange=xrange)
+    assert torch.equal(d, d0)
+    assert (t is None and t0 is None) or torch.equal(t, t0)
+    assert bool((d < 1.0).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_kernel_equals_plain(cuda, name):
+    tris, W, H, cap = CASES[name](cuda)
+    T = tris.xy.shape[0]
+    for ids, xr in ((True, None),
+                    (False, (torch.full((T,), 8.0, device=cuda),
+                             torch.full((T,), 120.0, device=cuda)))):
+        rec, starts, counts, over = raster.binned_records(tris, W, H, cap,
+                                                          xrange=xr)
+        assert not bool(over)
+        _check(rec, starts, counts, W, H, ids, xr is not None)
+
+
+@pytest.mark.cuda
+def test_kernel_equals_plain_config4_small(cuda):
+    """Both of the frame's launches at 1/8 size, on the frame's inputs."""
+    from crychic_renderer_tpu_torch.app.renderer import Renderer
+    from crychic_renderer_tpu_torch.models.scenes_baseline import CONFIGS
+    from crychic_renderer_tpu_torch.passes import frame as fr
+
+    scene, cfg, lights = CONFIGS[4]()
+    cfg = dataclasses.replace(cfg, width=240, height=135, shadow_map_size=256)
+    r = Renderer(scene, cfg, lights=lights, device=cuda)
+    c = r.frame_constants(0.0)
+    tris, _ = fr.main_view_tris(r.device_scene, c, r.cfg)
+    rec, st, cn, _ = raster.binned_records(tris, 240, 135,
+                                           r.cfg.pair_capacity)
+    _check(rec, st, cn, 240, 135, True, False)
+    atris, xr = fr.shadow_atlas_tris(r.device_scene, c.shadow_visibility,
+                                     c.cascade_view_projs, r.cfg)
+    rec, st, cn, _ = raster.binned_records(atris, 1024, 256,
+                                           r.cfg.shadow_pair_capacity,
+                                           xrange=xr)
+    _check(rec, st, cn, 1024, 256, False, True)
+
+
+def test_wrapper_rejects_other_devices():
+    """A tensor that is neither on the CPU nor on a CUDA device is refused,
+    never rasterized some other way."""
+    rec = torch.empty((128, 16), device="meta")
+    st = torch.empty((2,), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        raster.raster_tiles(rec, st, st, 256, 8)
