@@ -2,27 +2,39 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, BASELINE config 4 at 1920x1080 (deferred
-PBR, 4-cascade 2048^2 shadow atlas, half-res SSAO, procedural sky),
-through ``crychic_renderer_tpu_torch.app.renderer.Renderer`` on ``cuda``,
-and checks the hand-written raster kernel (csrc/raster.cu) that carries
-both of its raster launches. Phases, each printed as it ends:
+Drives the port's main paths, BASELINE config 4 at 1920x1080 (deferred
+PBR, 4-cascade 2048^2 shadow atlas, half-res SSAO, procedural sky), with
+the compiled zero-radius PCF and with the 2.5-texel soft disk (plain and
+with the fast preset), through ``crychic_renderer_tpu_torch.app.renderer
+.Renderer`` on ``cuda``, and checks the hand-written kernels that carry
+them: the raster kernel (csrc/raster.cu) of both raster launches and the
+soft PCF kernel (csrc/pcf.cu). Phases, each printed as it ends:
 
 1. the card's name and power limit (nvidia-smi);
-2. the kernel built from the checkout's source with nvcc, and its time;
+2. both kernels built from the checkout's sources, one nvcc each, started
+   together, and their build times;
 3. the Renderer at 1080p, with the capacities it sized (the atlas pair
    count is what the atlas binning expands);
-4. the kernel on the frame's own main-view (K1) and atlas (K2) inputs,
-   equal to rasterize_plain bit for bit (torch.equal), with the kernel's
-   and the plain version's times from CUDA events after warm-up;
+4. the raster kernel on the frame's own main-view (K1) and atlas (K2)
+   inputs, equal to rasterize_plain bit for bit (torch.equal), with the
+   kernel's and the plain version's times from CUDA events after warm-up;
 5. a 1/8-size config-4 frame on the card against the same frame rendered
    by the port's CPU path (plain raster; itself held against the JAX
    package by tests/test_torch_frame.py): <= 0.5% of pixels > 0.02;
 6. 3 warm-up + 10 timed frames through Renderer.render: finite, with
    covered and sky pixels, exactly one K1 and one K2 launch per frame, no
-   capacity overflow; the median ms/frame.
+   capacity overflow; the median ms/frame;
+7. the soft PCF kernel (K6) on the 1080p frame's own receivers, both
+   cascades of all 2.07M pixels, against soft_pcf_plain: max |err| <=
+   1e-5, with both times;
+8. 3 warm-up + 10 timed frames each of config 4 with the soft disk, and of
+   the same with the fast preset: finite, one K1, one K2 and one K6 launch
+   per frame, no overflow, the median ms/frame of each; and a 240x135
+   soft-disk frame on the card against the CPU path (<= 0.5% > 0.02).
 
-Then one JSON line of per-kernel results and, last, the device line. Any
+Then one JSON line of per-kernel results (with each kernel's bound: the
+larger of its bytes over 3.35 TB/s and its f32 operations over 67
+TFLOP/s, counted from this run's inputs) and, last, the device line. Any
 failed phase raises, so the script exits non-zero and prints no result;
 so does a machine without CUDA, and a directory without the repository.
 """
@@ -32,6 +44,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -39,6 +52,24 @@ import torch
 FRAMES_WARMUP = 3
 FRAMES_TIMED = 10
 PIX_BOUND = 0.005
+PCF_TOL = 1e-5
+SOFT = 2.5
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 operations/s
+HBM_BYTES_S = 3.35e12
+F32_OPS_S = 67e12
+# f32 operations per (pair, pixel) of the raster kernel: 4 planes x (2
+# mul + 2 add) and 6 compares, 2 more for the atlas's column guard
+RASTER_OPS = {"ids": 22, "depth": 24}
+
+
+def bound(nbytes, ops):
+    """The least time the card could take: dict(bound_ms, bound_by, and
+    the two times it is the larger of, bytes_ms and ops_ms)."""
+    t_bytes = 1000.0 * nbytes / HBM_BYTES_S
+    t_ops = 1000.0 * ops / F32_OPS_S
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes_ms=t_bytes, ops_ms=t_ops)
 
 
 def phase(msg):
@@ -64,9 +95,9 @@ def main():
         raise SystemExit("chip_smoke: no CUDA device; nothing was run")
     from crychic_renderer_tpu_torch.app.renderer import Renderer
     from crychic_renderer_tpu_torch.models.scenes_baseline import CONFIGS
-    from crychic_renderer_tpu_torch.ops import raster
+    from crychic_renderer_tpu_torch.ops import build, pcf, raster
     from crychic_renderer_tpu_torch.ops import rasterizer as rz
-    from crychic_renderer_tpu_torch.ops import shading
+    from crychic_renderer_tpu_torch.ops import shading, shadows
     from crychic_renderer_tpu_torch.passes import frame as fr
 
     dev = torch.device("cuda", 0)
@@ -80,10 +111,16 @@ def main():
     phase("[1] card (nvidia-smi name, power.limit):")
     print(smi, flush=True)
 
-    # 2. the kernel, built from the checkout
-    raster.load_kernel(rebuild=True)
-    phase(f"[2] built {raster.library_path()} in "
-          f"{raster.BUILD_SECONDS:.2f} s (nvcc {' '.join(raster.NVCC_FLAGS)})")
+    # 2. the kernels, built from the checkout, one nvcc each, in parallel
+    libs = (raster.LIBRARY, pcf.LIBRARY)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(libs)) as pool:
+        for f in [pool.submit(lib.load, True) for lib in libs]:
+            f.result()
+    built = ", ".join(f"{lib.path()} ({lib.build_seconds:.2f} s)"
+                      for lib in libs)
+    phase(f"[2] built {built} in {time.perf_counter() - t0:.2f} s (nvcc "
+          f"{' '.join(build.NVCC_FLAGS)})")
 
     # 3. the Renderer at 1080p
     scene, cfg, lights = CONFIGS[4]()
@@ -112,7 +149,7 @@ def main():
     tris, _ = fr.main_view_tris(r.device_scene, consts, cfg)
     atris, xr = fr.shadow_atlas_tris(r.device_scene, consts.shadow_visibility,
                                      consts.cascade_view_projs, cfg)
-    launches = [
+    raster_launches = [
         ("K1 main view: depth + id (frame.py:1424)", "ids",
          "crychic_renderer_tpu/ops/raster_pallas.py:93",
          raster.binned_records(tris, cfg.width, cfg.height,
@@ -125,7 +162,8 @@ def main():
          4 * S, S, False, True),
     ]
     kernels = []
-    for name, variant, replaces, inputs, W, H, ids, xrange in launches:
+    for name, variant, replaces, inputs, W, H, ids, xrange in \
+            raster_launches:
         rec, starts, counts, over = inputs
         assert not bool(over), f"{name}: capacity overflow"
         d_k, t_k = raster.raster_tiles(rec, starts, counts, W, H,
@@ -143,68 +181,161 @@ def main():
             rec, starts, counts, W, H, with_ids=ids, with_xrange=xrange), 20)
         plain_ms = cuda_ms(lambda: raster.rasterize_plain(
             rec, starts, counts, W, H, with_ids=ids, with_xrange=xrange), 3)
-        phase(f"[4] {name}: {W}x{H}, {int(counts.sum())} pairs, equal to "
+        pairs = int(counts.sum())
+        # records of the valid pairs, per-tile starts and counts, depth
+        # (+ id) out
+        nbytes = pairs * 64 + starts.numel() * 8 + W * H * (8 if ids else 4)
+        b = bound(nbytes, pairs * 1024 * RASTER_OPS[variant])
+        phase(f"[4] {name}: {W}x{H}, {pairs} pairs, equal to "
               f"rasterize_plain (max |err| {err}); kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms")
+              f"plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+              f"(bytes {b['bytes_ms']:.4f}, operations {b['ops_ms']:.4f})")
         kernels.append(dict(name=name, route="cuda",
                             source="crychic_renderer_tpu_torch/csrc/raster.cu",
                             replaces=replaces, variant=variant,
-                            max_abs_err=err, ms=ms, plain_ms=plain_ms))
+                            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            library_ms=None, **b))
 
     # 5. a small frame on the card against the port's CPU path
-    small = dataclasses.replace(CONFIGS[4]()[1], width=240, height=135,
-                                shadow_map_size=256)
-    s_scene, _, s_lights = CONFIGS[4]()
-    img_gpu = Renderer(s_scene, small, lights=s_lights,
-                       device=dev).render_np(0.0)
-    img_cpu = Renderer(s_scene, small, lights=s_lights,
-                       device="cpu").render_np(0.0)
-    diff = np.abs(img_gpu - img_cpu).max(axis=-1)
-    frac = float((diff > 0.02).mean())
-    assert np.isfinite(img_gpu).all() and frac <= PIX_BOUND, (
-        f"small frame: {frac:.4%} of pixels differ >0.02 from the CPU path")
+    frac, diff = small_frame_vs_cpu(dev, {})
     phase(f"[5] 240x135 frame on the card vs the CPU path: {frac:.4%} of "
           f"pixels >0.02 (max {diff.max():.3g}, mean {diff.mean():.3g})")
 
     # 6. the main path: frames through Renderer.render
+    ms_frame, counts_run = run_frames(r, {"ids": 1, "depth": 1, "pcf": 0})
+    consts = r.frame_constants((FRAMES_WARMUP + FRAMES_TIMED - 1) / 60.0)
+    tris, tri_attr = fr.main_view_tris(r.device_scene, consts, cfg)
+    depth, tid, _ = raster.rasterize(tris, cfg.width, cfg.height,
+                                     cfg.pair_capacity)
+    covered = int((tid >= 0).sum())
+    sky = tid.numel() - covered
+    assert covered > 0 and sky > 0, (covered, sky)
+    phase(f"[6] config 4: {FRAMES_WARMUP} warm-up + {FRAMES_TIMED} frames: "
+          f"median {ms_frame:.3f} ms/frame; launches {counts_run}; "
+          f"{covered} covered, {sky} sky pixels; no overflow")
+    launches = {"config4": counts_run}
+
+    # 7. K6 on the 1080p frame's own receivers, kernel vs plain version
+    g = fr.resolve_gbuffer(r.device_scene, consts, cfg, tris, depth, tid,
+                           tri_attr)
+    maps = fr.render_shadow_atlas(r.device_scene, consts.shadow_visibility,
+                                  consts.cascade_view_projs, cfg)
+    _, _, cascades, shadow_pos = shadows.cascade_select(
+        consts.shadow_transforms, g["pos_w"], consts.eye_pos)
+    params = pcf.receiver_params(shadow_pos.reshape(-1, 4),
+                                 cascades.reshape(-1), S)
+    qmap = pcf.quantize_map(maps)
+    f_k = pcf.soft_pcf(qmap, params, SOFT)
+    torch.cuda.synchronize()
+    f_p = pcf.soft_pcf_plain(qmap, params, SOFT)
+    err = (f_k - f_p).abs()
+    max_err = float(err.max())
+    above = float((err > 1e-5).float().mean())
+    assert torch.isfinite(f_k).all(), "K6: non-finite factors"
+    assert max_err <= PCF_TOL, f"K6: max |err| {max_err} vs plain"
+    ms = cuda_ms(lambda: pcf.soft_pcf(qmap, params, SOFT), 20)
+    plain_ms = cuda_ms(lambda: pcf.soft_pcf_plain(qmap, params, SOFT), 3)
+    m = params.shape[1]
+    nbytes = params.numel() * 4 + qmap.numel() * 2 + m * 4
+    b = bound(nbytes, m * pcf.OPS_PER_RECEIVER)
+    soft_share = float(((f_p > 0) & (f_p < 1)).float().mean())
+    phase(f"[7] K6 soft PCF: {m} receiver-cascades ({cfg.width}x"
+          f"{cfg.height} x 2), {soft_share:.2%} in a penumbra; max |err| "
+          f"{max_err} vs soft_pcf_plain, {above:.4%} above 1e-5; kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} "
+          f"ms (bytes {b['bytes_ms']:.4f}, operations {b['ops_ms']:.4f})")
+    kernels.append(dict(
+        name="K6 soft-disk PCF: 16 taps, 2.5 texels, 2 cascades "
+             "(shadows.py:319)", route="cuda",
+        source="crychic_renderer_tpu_torch/csrc/pcf.cu",
+        replaces="experiments/pcf_probe.py:46", variant="pcf",
+        max_abs_err=max_err, ms=ms, plain_ms=plain_ms, library_ms=None,
+        **b))
+
+    # 8. the soft-disk paths: frames through Renderer.render
+    frame_ms = {"config4": ms_frame}
+    for name, make in (("soft", lambda c: c),
+                       ("soft_fast", lambda c: c.fast_preset())):
+        cfg_run = make(dataclasses.replace(CONFIGS[4]()[1],
+                                           pcf_radius_texels=SOFT))
+        r_run = Renderer(scene, cfg_run, lights=lights, device=dev)
+        ms_run, counts_run = run_frames(
+            r_run, {"ids": 1, "depth": 1, "pcf": 1})
+        frame_ms[name] = ms_run
+        launches[name] = counts_run
+        phase(f"[8] config 4 {name}: {FRAMES_WARMUP} warm-up + "
+              f"{FRAMES_TIMED} frames: median {ms_run:.3f} ms/frame; "
+              f"launches {counts_run}; no overflow")
+        del r_run
+    frac, diff = small_frame_vs_cpu(dev, {"pcf_radius_texels": SOFT})
+    phase(f"[8] 240x135 soft-disk frame on the card vs the CPU path: "
+          f"{frac:.4%} of pixels >0.02 (max {diff.max():.3g}, mean "
+          f"{diff.mean():.3g})")
+
+    for k in kernels:
+        variant = k.pop("variant")
+        k["launches"] = sum(c[variant] for c in launches.values())
+        k["launches_by_run"] = {run: c[variant]
+                                for run, c in launches.items()}
+    print(json.dumps({"kernels": kernels, "ms_per_frame": frame_ms}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def launch_counts():
+    from crychic_renderer_tpu_torch.ops import pcf, raster
+
+    return dict(raster.LAUNCHES_BY_VARIANT, pcf=pcf.LAUNCHES)
+
+
+def run_frames(r, per_frame):
+    """FRAMES_WARMUP + FRAMES_TIMED frames through r.render with every
+    launch count set to 0 just before and read just after. Checks the
+    counts (per_frame launches of each kernel per frame), overflow and
+    the last frame; returns (median ms/frame, counts)."""
+    from crychic_renderer_tpu_torch.ops import pcf, raster
+
     raster.reset_launches()
+    pcf.reset_launches()
+    n = FRAMES_WARMUP + FRAMES_TIMED
     times = []
     img = None
-    for i in range(FRAMES_WARMUP + FRAMES_TIMED):
+    for i in range(n):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         img = r.render(i / 60.0)
         torch.cuda.synchronize()
         times.append(1000.0 * (time.perf_counter() - t0))
-    counts_run = dict(raster.LAUNCHES_BY_VARIANT)
-    total = raster.LAUNCHES
-    n = FRAMES_WARMUP + FRAMES_TIMED
+    counts = launch_counts()
     r.check_overflow()
-    assert total == 2 * n, f"{total} kernel launches for {n} frames"
-    assert counts_run == {"ids": n, "depth": n}, counts_run
+    want = {k: v * n for k, v in per_frame.items()}
+    assert counts == want, f"launches {counts} for {n} frames, want {want}"
     img = img.cpu().numpy()
-    assert img.shape == (cfg.height, cfg.width, 4)
+    assert img.shape == (r.cfg.height, r.cfg.width, 4)
     assert np.isfinite(img).all(), "non-finite pixels"
-    consts = r.frame_constants((n - 1) / 60.0)
-    tris, _ = fr.main_view_tris(r.device_scene, consts, cfg)
-    _, tid, _ = raster.rasterize(tris, cfg.width, cfg.height,
-                                 cfg.pair_capacity)
-    covered = int((tid >= 0).sum())
-    sky = tid.numel() - covered
-    assert covered > 0 and sky > 0, (covered, sky)
-    ms_frame = statistics.median(times[FRAMES_WARMUP:])
-    phase(f"[6] {n} frames ({FRAMES_WARMUP} warm-up): median "
-          f"{ms_frame:.3f} ms/frame (min {min(times[FRAMES_WARMUP:]):.3f}); "
-          f"launches {counts_run}; {covered} covered, {sky} sky pixels; "
-          f"no overflow")
+    return statistics.median(times[FRAMES_WARMUP:]), counts
 
-    for k in kernels:
-        k["launches"] = counts_run[k.pop("variant")]
-    print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+
+def small_frame_vs_cpu(dev, options):
+    """A 240x135 config-4 frame (with `options`) on the card against the
+    port's CPU path: (share of pixels > 0.02, per-pixel max |diff|)."""
+    from crychic_renderer_tpu_torch.app.renderer import Renderer
+    from crychic_renderer_tpu_torch.models.scenes_baseline import CONFIGS
+
+    scene, cfg, lights = CONFIGS[4]()
+    small = dataclasses.replace(cfg, width=240, height=135,
+                                shadow_map_size=256, **options)
+    img_gpu = Renderer(scene, small, lights=lights, device=dev).render_np(0.0)
+    img_cpu = Renderer(scene, small, lights=lights,
+                       device="cpu").render_np(0.0)
+    diff = np.abs(img_gpu - img_cpu).max(axis=-1)
+    frac = float((diff > 0.02).mean())
+    assert np.isfinite(img_gpu).all() and frac <= PIX_BOUND, (
+        f"small frame {options}: {frac:.4%} of pixels differ >0.02 from "
+        f"the CPU path")
+    return frac, diff
 
 
 if __name__ == "__main__":

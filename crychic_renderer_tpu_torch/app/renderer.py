@@ -1,7 +1,8 @@
 """Host-side renderer orchestration (torch counterpart of
 ``crychic_renderer_tpu.app.renderer``).
 
-Builds the device scene once on an explicit device, computes per-frame
+Builds the device scene once on the card (``device="cuda"``, the default;
+``device="cpu"`` runs the kernels' plain PyTorch versions), computes per-frame
 constants (camera matrices, cascade fits, culling masks) on the host, and
 calls ``passes.frame.render_frame``. PyTorch queues the frame's kernels
 asynchronously, so the host runs ahead until something reads a frame —
@@ -134,11 +135,24 @@ def build_pair_pool(scene: Scene, asset_dir=None, dual: bool = True):
     return pool, mat_pair, anim_specs
 
 
+def resolve_device(device) -> torch.device:
+    """`device` as a torch.device. A CUDA device without CUDA raises: the
+    renderer never falls back to the CPU unless asked."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r}: no CUDA device is available; the renderer "
+            f"runs on the card by default, pass device='cpu' to run it on "
+            f"the CPU")
+    return dev
+
+
 def build_device_scene(scene: Scene, asset_dir=None, lights=None,
                        ssao_dims=(540, 960), dual_mip_rows: bool = True,
-                       device="cpu"):
+                       device="cuda"):
     """The scene's device containers on `device`, static tables attached.
     Returns (DeviceScene, anim_specs)."""
+    device = resolve_device(device)
     if lights is None:
         lights = build_reference_lights()
     pool, mat_pair, anim_specs = build_pair_pool(scene, asset_dir,
@@ -178,12 +192,13 @@ def build_device_scene(scene: Scene, asset_dir=None, lights=None,
 
 
 class Renderer:
-    """Owns the device scene; produces frames on `device`."""
+    """Owns the device scene; produces frames on `device` (the card unless
+    the caller asks for the CPU)."""
 
     def __init__(self, scene: Scene, cfg: RenderConfig,
                  camera: Camera = None, asset_dir=None, lights=None,
-                 auto_capacity: bool = True, device="cpu"):
-        self.device = torch.device(device)
+                 auto_capacity: bool = True, device="cuda"):
+        self.device = resolve_device(device)
         self.scene = scene
         self.cfg = cfg
         self.camera = camera or self._default_camera()

@@ -3,7 +3,7 @@
 Usage::
 
     python -m crychic_renderer_tpu_torch.app.run --config 4 --device cuda \
-        --frames 10 --out frame.png [--small]
+        --frames 10 --out frame.png [--small] [--fast]
 
 Renders N frames of a BASELINE config on the given device and writes the
 last one as PNG. Prints the median ms per frame (host clock around each
@@ -27,12 +27,17 @@ def main():
     ap.add_argument("--out", type=str, default="crychic_frame.png")
     ap.add_argument("--small", action="store_true",
                     help="render at 1/8 resolution (quick CPU runs)")
+    ap.add_argument("--fast", action="store_true",
+                    help="performance preset: half-res shadow factor, "
+                         "quarter-res SSAO, trilinear texturing")
     args = ap.parse_args()
 
     from ..models.scenes_baseline import CONFIGS
     from .renderer import Renderer, write_png
 
     scene, cfg, lights = CONFIGS[args.config]()
+    if args.fast:
+        cfg = cfg.fast_preset()
     if args.small:
         cfg = dataclasses.replace(
             cfg, width=cfg.width // 8, height=cfg.height // 8,

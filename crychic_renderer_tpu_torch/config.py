@@ -9,11 +9,9 @@ The PyTorch port carries the JAX package's RenderConfig over field for
 field, so scenes_baseline and every caller port unchanged. What the fields
 mean here:
 
-- Settings this slice does not render yet make passes.frame.render_frame
+- Settings the port does not render yet make passes.frame.render_frame
   raise NotImplementedError naming the field: deferred=False,
-  alpha_test_enabled, fast_shadow_factor, pcf_radius_texels other than
-  None, procedural_sky=False, anisotropy/aniso_probes other than 8/2,
-  ssao_scale other than 2, and debug_view.
+  use_pbr=False and alpha_test_enabled.
 - use_pallas, pallas_interpret, bin_cap, shadow_bin_cap,
   shade_tile_capacity, ssao_tile_capacity, band_pair_capacity and
   shadow_band_pair_capacity have no meaning in the port. They select TPU
@@ -118,8 +116,7 @@ class RenderConfig:
     def fast_preset(self) -> "RenderConfig":
         """The JAX package's --fast performance preset: half-res PCF
         factor + bilinear upsample, quarter-res SSAO, and trilinear
-        texturing. Its settings are not ported yet (render_frame
-        raises on them)."""
+        texturing."""
         return dataclasses.replace(self, fast_shadow_factor=True,
                                    ssao_scale=4, anisotropy=1)
 

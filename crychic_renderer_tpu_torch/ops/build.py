@@ -1,0 +1,74 @@
+"""Build and load the port's CUDA kernels: nvcc into a shared library with
+a plain C interface, loaded with ctypes.
+
+Each library lives at ``build/kernels/<hash>/lib<name>.so`` under the
+repository root, where the hash covers its source and the nvcc flags, so a
+changed source or flag never loads a stale library. A library is built at
+its first use in a process (never at import: the CPU tests import every
+module on machines without nvcc).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "csrc")
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    return os.path.join(home, "bin", "nvcc")
+
+
+class KernelLibrary:
+    """One ``csrc/<source>`` compiled to ``lib<name>.so``.
+
+    ``load()`` builds on first use (or always with rebuild=True), binds the
+    C functions with the given ctypes signatures and returns the CDLL;
+    ``build_seconds`` is the nvcc wall time of the last build in this
+    process (None when the library was already on disk)."""
+
+    def __init__(self, source: str, name: str, signatures: dict):
+        self.source = os.path.join(CSRC, source)
+        self.name = name
+        self.signatures = signatures  # fn name -> (argtypes, restype)
+        self.build_seconds = None
+        self._lib = None
+
+    def path(self) -> str:
+        with open(self.source, "rb") as f:
+            src = f.read()
+        key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+        return os.path.join(REPO_ROOT, "build", "kernels", key[:16],
+                            f"lib{self.name}.so")
+
+    def load(self, rebuild: bool = False):
+        if self._lib is not None and not rebuild:
+            return self._lib
+        path = self.path()
+        if rebuild or not os.path.exists(path):
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            tmp = f"{path}.{os.getpid()}.tmp"
+            t0 = time.perf_counter()
+            subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, self.source],
+                           check=True)
+            self.build_seconds = time.perf_counter() - t0
+            os.replace(tmp, path)
+        lib = ctypes.CDLL(path)
+        for fn, (argtypes, restype) in self.signatures.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
+        self._lib = lib
+        return lib

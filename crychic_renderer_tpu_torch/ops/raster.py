@@ -30,14 +30,11 @@ exact epsilon bias on C for in-tile coordinates.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 
 import torch
 
 from . import rasterizer as rz
+from .build import KernelLibrary
 
 TILE_H = rz.TILE_H  # 8
 TILE_W = rz.TILE_W  # 128
@@ -215,61 +212,12 @@ def rasterize_plain(records: torch.Tensor, starts: torch.Tensor,
 # The CUDA kernel: build, bind, launch
 # ---------------------------------------------------------------------------
 
-_SOURCE = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "csrc", "raster.cu")
-_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
-
-_lib = None
-BUILD_SECONDS = None  # wall time of the nvcc build in this process
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    return os.path.join(home, "bin", "nvcc")
-
-
-def library_path() -> str:
-    """build/kernels/<hash of source + flags>/libcrychic_raster.so at the
-    repo root: a changed source or flag never loads a stale library."""
-    with open(_SOURCE, "rb") as f:
-        src = f.read()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(_REPO_ROOT, "build", "kernels", key[:16],
-                        "libcrychic_raster.so")
-
-
-def load_kernel(rebuild: bool = False):
-    """Build (first use only, or always with rebuild=True) and load the
-    kernel library."""
-    global _lib, BUILD_SECONDS
-    if _lib is not None and not rebuild:
-        return _lib
-    import time
-
-    path = library_path()
-    if rebuild or not os.path.exists(path):
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        tmp = f"{path}.{os.getpid()}.tmp"
-        t0 = time.perf_counter()
-        subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, _SOURCE],
-                       check=True)
-        BUILD_SECONDS = time.perf_counter() - t0
-        os.replace(tmp, path)
-    lib = ctypes.CDLL(path)
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.crychic_raster.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp, vp, ci,
-                                   vp]
-    lib.crychic_raster.restype = ci
-    lib.crychic_raster_error.argtypes = [ci]
-    lib.crychic_raster_error.restype = ctypes.c_char_p
-    _lib = lib
-    return lib
+_vp, _ci = ctypes.c_void_p, ctypes.c_int
+LIBRARY = KernelLibrary("raster.cu", "crychic_raster", {
+    "crychic_raster": ([_vp, _vp, _vp, _ci, _ci, _ci, _ci, _vp, _vp, _ci,
+                        _vp], _ci),
+    "crychic_raster_error": ([_ci], ctypes.c_char_p),
+})
 
 
 def raster_tiles(records: torch.Tensor, starts: torch.Tensor,
@@ -299,7 +247,7 @@ def raster_tiles(records: torch.Tensor, starts: torch.Tensor,
                 or not t.is_contiguous() or t.device != records.device):
             raise ValueError(f"{name} must be a contiguous ({num_tiles},) "
                              f"int32 tensor on {records.device}")
-    lib = load_kernel()
+    lib = LIBRARY.load()
     dev = records.device
     depth = torch.empty((height, width), dtype=torch.float32, device=dev)
     tid = (torch.empty((height, width), dtype=torch.int32, device=dev)

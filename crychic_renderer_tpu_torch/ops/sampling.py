@@ -14,11 +14,11 @@ The host-side functions (``PairPool.build`` and its helpers, ``pack_cubemap``,
 device the RGBA8 words are held as int32 (the uint32 bits reinterpreted):
 torch shifts are arithmetic, so every channel is masked after its shift.
 
-Ported device functions: ``unpack_rgba8``, the analytic row addressing,
-``sample_pair_dual``, ``class_lod``, ``lod_from_derivatives``,
-``sample_pair_aniso`` (dual rows) and ``procedural_sky_color``. The
-single-mip pool, trilinear sampling, the reference-quality aniso evaluator
-and cubemap sampling are not ported yet.
+Device functions: ``unpack_rgba8``, the analytic row addressing,
+``sample_pair_bilinear`` (single-mip rows), ``sample_pair_dual``,
+``class_lod``, ``sample_pair_trilinear``, ``lod_from_derivatives``,
+``sample_pair_aniso`` (both pool layouts), the reference-quality
+``sample_pair_aniso_ref``, ``sample_cubemap`` and ``procedural_sky_color``.
 """
 from __future__ import annotations
 
@@ -201,17 +201,10 @@ def _floor_int(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.floor(x), -2.0 ** 30, 2.0 ** 30).long()
 
 
-def sample_pair_dual(pool: PairPool, pair: torch.Tensor, uv: torch.Tensor,
-                     mip: torch.Tensor, f: torch.Tensor):
-    """ONE row gather -> the full trilinear blend of both maps.
-
-    Requires a dual-mip pool. pair/mip: (...,) int64; f: (...,) float32
-    blend toward mip+1. Returns (diffuse, normal), each (..., 4).
-
-    The mip-m bilinear is exact; the mip-(m+1) bilinear comes from the
-    midpoint-parent quad stored in the row (fractional parent coordinate
-    fx1 = fx/2 - 0.25 + 0.5*(x0 odd), which extrapolates by <= 0.25 texel
-    on even child texels)."""
+def _pair_texel(pool: PairPool, pair, uv, mip):
+    """Shared addressing of one bilinear fetch: the row index of the
+    texel's quad at the pair's (class-clamped) mip and the bilinear
+    fractions. Returns (row, fx (..., 1), fy (..., 1), xa, ya)."""
     is_big = pair < pool.n_big
     mip_b = torch.clamp(mip, 0, POOL_MIPS - 1)
     mip_s = torch.clamp(mip, 0, POOL_MIPS_SMALL - 1)
@@ -226,7 +219,36 @@ def sample_pair_dual(pool: PairPool, pair: torch.Tensor, uv: torch.Tensor,
     xa = torch.remainder(_floor_int(x), size)
     ya = torch.remainder(_floor_int(y), size)
     off = _pair_row_offset(pool, pair, mip_b, mip_s)
-    row = pool.data[off + ya * size + xa]  # (..., 16) — ONE gather
+    return off + ya * size + xa, fx, fy, xa, ya
+
+
+def sample_pair_bilinear(pool: PairPool, pair: torch.Tensor,
+                         uv: torch.Tensor, mip: torch.Tensor):
+    """One bilinear fetch of both maps: ONE row gather per sample.
+
+    pair/mip: (...,) int64; uv: (..., 2). Returns (diffuse, normal), each
+    (..., 4) float32. WRAP addressing (the reference samples material
+    maps with the Wrap samplers). Reads the first 8 lanes of a row, so it
+    serves both pool layouts."""
+    idx, fx, fy, _, _ = _pair_texel(pool, pair, uv, mip)
+    row = pool.data[idx]
+    return _bilerp_quad(row[..., 0:4], fx, fy), \
+        _bilerp_quad(row[..., 4:8], fx, fy)
+
+
+def sample_pair_dual(pool: PairPool, pair: torch.Tensor, uv: torch.Tensor,
+                     mip: torch.Tensor, f: torch.Tensor):
+    """ONE row gather -> the full trilinear blend of both maps.
+
+    Requires a dual-mip pool. pair/mip: (...,) int64; f: (...,) float32
+    blend toward mip+1. Returns (diffuse, normal), each (..., 4).
+
+    The mip-m bilinear is exact; the mip-(m+1) bilinear comes from the
+    midpoint-parent quad stored in the row (fractional parent coordinate
+    fx1 = fx/2 - 0.25 + 0.5*(x0 odd), which extrapolates by <= 0.25 texel
+    on even child texels)."""
+    idx, fx, fy, xa, ya = _pair_texel(pool, pair, uv, mip)
+    row = pool.data[idx]  # (..., 16) — ONE gather
 
     d0 = _bilerp_quad(row[..., 0:4], fx, fy)
     n0 = _bilerp_quad(row[..., 4:8], fx, fy)
@@ -251,6 +273,22 @@ def class_lod(pool: PairPool, pair: torch.Tensor, lod_uv: torch.Tensor):
     return torch.minimum(torch.clamp(lod_uv + bits, min=0.0), max_mip)
 
 
+def sample_pair_trilinear(pool: PairPool, pair: torch.Tensor,
+                          uv: torch.Tensor, lod_uv: torch.Tensor):
+    """Trilinear fetch of both maps: ONE row gather on a dual-mip pool,
+    two on a single-mip pool. lod_uv is the uv-space footprint log2 (see
+    class_lod)."""
+    lod = class_lod(pool, pair, lod_uv)
+    m0 = torch.floor(lod).long()
+    f = lod - m0.to(torch.float32)
+    if pool.dual:
+        return sample_pair_dual(pool, pair, uv, m0, f)
+    d0, n0 = sample_pair_bilinear(pool, pair, uv, m0)
+    d1, n1 = sample_pair_bilinear(pool, pair, uv, m0 + 1)  # class-clamped
+    fb = f[..., None]
+    return d0 * (1 - fb) + d1 * fb, n0 * (1 - fb) + n1 * fb
+
+
 def lod_from_derivatives(dx: torch.Tensor, dy: torch.Tensor):
     """Isotropic (trilinear) uv-space lod: log2 of the larger footprint."""
     rho = torch.maximum(torch.sqrt((dx * dx).sum(-1)),
@@ -258,50 +296,92 @@ def lod_from_derivatives(dx: torch.Tensor, dy: torch.Tensor):
     return torch.log2(torch.clamp(rho, min=1e-12))
 
 
-def sample_pair_aniso(pool: PairPool, pair: torch.Tensor, uv: torch.Tensor,
-                      dx: torch.Tensor, dy: torch.Tensor, max_aniso: int,
-                      probes: int = 4):
-    """Anisotropic filtering of both maps (D3D12_FILTER_ANISOTROPIC with
-    MaxAnisotropy=8, the reference's gsamAnisotropicWrap) on a dual-mip
-    pool.
-
-    Footprint decomposition (EXT_texture_filter_anisotropic): M =
-    min(ceil(p_max / p_min), max_aniso, probes) probes spaced along the
-    major-axis uv derivative, at lod = log2(p_max / M); each probe is a
-    full trilinear blend from its single dual-row gather.
-    """
-    if not pool.dual:
-        raise NotImplementedError(
-            "sample_pair_aniso: only the dual-mip pool is ported")
+def _aniso_footprint(pool: PairPool, pair, dx, dy, max_aniso: int,
+                     probes: int = None):
+    """Footprint decomposition (EXT_texture_filter_anisotropic): M =
+    min(ceil(p_max / p_min), max_aniso[, probes]) probes along the
+    major-axis uv derivative, at lod = log2(p_max / M). Returns (M, duv,
+    m0, f): the probe count, the major axis, the floor mip and the blend
+    toward m0 + 1."""
     lx2 = (dx * dx).sum(-1)
     ly2 = (dy * dy).sum(-1)
     major_is_x = lx2 >= ly2
     p_max = torch.sqrt(torch.clamp(torch.maximum(lx2, ly2), min=1e-24))
     p_min = torch.sqrt(torch.clamp(torch.minimum(lx2, ly2), min=1e-24))
     ratio = torch.clamp(p_max / p_min, 1.0, float(max_aniso))
-    M = torch.clamp(torch.ceil(ratio - 1e-4), max=float(probes))
+    M = torch.ceil(ratio - 1e-4)
+    if probes is not None:
+        M = torch.clamp(M, max=float(probes))
     lod_uv = torch.log2(p_max / M)
     duv = torch.where(major_is_x[..., None], dx, dy)  # (..., 2) major axis
-
     lod = class_lod(pool, pair, lod_uv)
     m0 = torch.floor(lod).long()
-    f = lod - m0.to(torch.float32)
+    return M, duv, m0, lod - m0.to(torch.float32)
 
+
+def sample_pair_aniso(pool: PairPool, pair: torch.Tensor, uv: torch.Tensor,
+                      dx: torch.Tensor, dy: torch.Tensor, max_aniso: int,
+                      probes: int = 4):
+    """Anisotropic filtering of both maps (D3D12_FILTER_ANISOTROPIC with
+    MaxAnisotropy=8, the reference's gsamAnisotropicWrap), with a static
+    schedule of ``probes`` probes spread over the M active slots along the
+    major axis (see _aniso_footprint). On a dual-mip pool each probe is a
+    full trilinear blend from its single dual-row gather; on a single-mip
+    pool the probes alternate between mips m0 and m0 + 1 with weights
+    (1 - f) and f, so the mip blend and the line footprint are sampled
+    jointly (M = 1 collapses to exact trilinear)."""
+    M, duv, m0, f = _aniso_footprint(pool, pair, dx, dy, max_aniso, probes)
     d_acc = 0.0
     n_acc = 0.0
     w_acc = 0.0
     for i in range(probes):
         fi = float(i)
+        # slot within the active probes (wraps if probes > M)
         j = torch.clamp(M - 1.0, max=fi)
         j = torch.where(fi >= M, fi - M, j)
         s = ((j + 0.5) / M - 0.5) * ((M - 1.0) / M)
         puv = uv + duv * s[..., None]
-        active = (fi < M).to(torch.float32)
-        d, n = sample_pair_dual(pool, pair, puv, m0, f)
-        wgt = active[..., None]
+        if pool.dual:
+            wgt = (fi < M).to(torch.float32)
+            d, n = sample_pair_dual(pool, pair, puv, m0, f)
+        else:
+            # probes beyond 2M duplicate earlier slots and drop out of the
+            # normalization; with one active slot, probe 1 still brings
+            # the m0 + 1 term
+            use_m1 = i % 2 == 1
+            active = (fi < torch.clamp(2.0 * M, min=2.0)).to(torch.float32)
+            wgt = (f if use_m1 else 1.0 - f) * active
+            d, n = sample_pair_bilinear(pool, pair, puv,
+                                        m0 + 1 if use_m1 else m0)
+        wgt = wgt[..., None]
         d_acc = d_acc + wgt * d
         n_acc = n_acc + wgt * n
         w_acc = w_acc + wgt
+    w_acc = torch.clamp(w_acc, min=1e-8)
+    return d_acc / w_acc, n_acc / w_acc
+
+
+def sample_pair_aniso_ref(pool: PairPool, pair: torch.Tensor,
+                          uv: torch.Tensor, dx: torch.Tensor,
+                          dy: torch.Tensor, max_aniso: int):
+    """Reference-quality anisotropic evaluation (``aniso_probes=0``): M <=
+    max_aniso probes, each an exact two-gather trilinear — the quality bar
+    the probe schedules are measured against (experiments/aniso_quality.py),
+    2*max_aniso row gathers per pixel."""
+    M, duv, m0, f = _aniso_footprint(pool, pair, dx, dy, max_aniso)
+    f = f[..., None]
+    d_acc = 0.0
+    n_acc = 0.0
+    w_acc = 0.0
+    for i in range(max_aniso):
+        s = ((i + 0.5) / M - 0.5) * ((M - 1.0) / M)
+        puv = uv + duv * s[..., None]
+        active = (float(i) < M).to(torch.float32)[..., None]
+        d0, n0 = sample_pair_bilinear(pool, pair, puv, m0)
+        d1, n1 = sample_pair_bilinear(pool, pair, puv, m0 + 1)
+        d_acc = d_acc + active * (d0 * (1 - f) + d1 * f)
+        n_acc = n_acc + active * (n0 * (1 - f) + n1 * f)
+        w_acc = w_acc + active
     w_acc = torch.clamp(w_acc, min=1e-8)
     return d_acc / w_acc, n_acc / w_acc
 
@@ -323,6 +403,43 @@ def pack_cubemap(faces: np.ndarray) -> np.ndarray:
     xyp = yp[:, :, np.minimum(np.arange(packed.shape[2]) + 1,
                               packed.shape[2] - 1)]
     return np.stack([packed, xp, yp, xyp], axis=-1)
+
+
+def sample_cubemap(faces: torch.Tensor,
+                   direction: torch.Tensor) -> torch.Tensor:
+    """faces: (6, S, S, 4) int32 quad-packed RGBA8 bits (pack_cubemap) in
+    D3D face order (+X -X +Y -Y +Z -Z); direction: (..., 3). Bilinear
+    within the face, edges clamped; one quad gather per sample."""
+    x, y, z = direction[..., 0], direction[..., 1], direction[..., 2]
+    ax, ay, az = torch.abs(x), torch.abs(y), torch.abs(z)
+    # major axis selection (D3D TextureCube convention)
+    is_x = (ax >= ay) & (ax >= az)
+    is_y = (~is_x) & (ay >= az)
+
+    def pick(on_x, on_y, on_z):
+        return torch.where(is_x, on_x, torch.where(is_y, on_y, on_z))
+
+    def sgn(cond, a, b):
+        return torch.where(cond, a, b)
+
+    face = pick(sgn(x >= 0, 0, 1), sgn(y >= 0, 2, 3), sgn(z >= 0, 4, 5))
+    ma = torch.clamp(pick(ax, ay, az), min=1e-20)
+    sc = pick(sgn(x >= 0, -z, z), x, sgn(z >= 0, x, -x))
+    tc = torch.where(is_y, sgn(y >= 0, z, -z), -y)
+    u = 0.5 * (sc / ma + 1.0)
+    v = 0.5 * (tc / ma + 1.0)
+
+    S = faces.shape[1]
+    fx = u * S - 0.5
+    fy = v * S - 0.5
+    x0 = torch.floor(fx)
+    y0 = torch.floor(fy)
+    wx = (fx - x0)[..., None]
+    wy = (fy - y0)[..., None]
+    x0i = torch.clamp(_floor_int(fx), 0, S - 1)
+    y0i = torch.clamp(_floor_int(fy), 0, S - 1)
+    quad = faces[face.long(), y0i, x0i]  # (..., 4) — ONE gather
+    return _bilerp_quad(quad, wx, wy)
 
 
 SKY_ZENITH = (0.18, 0.32, 0.65)

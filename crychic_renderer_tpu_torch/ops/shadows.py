@@ -1,6 +1,6 @@
-"""Cascaded shadow lookup: cascade selection by view distance, the compiled
-reference's single bilinear comparison tap, cross-cascade blend (torch
-counterpart of ``crychic_renderer_tpu.ops.shadows``).
+"""Cascaded shadow lookup: cascade selection by view distance, the 16-tap
+rotated-Poisson PCF with a bilinear comparison sampler, cross-cascade
+blend (torch counterpart of ``crychic_renderer_tpu.ops.shadows``).
 
 Re-implements Shaders/Common.hlsl:135-316 and the cascade-selection loop of
 DeferredShading.hlsl:53-76. The shadow sampler is D3D comparison
@@ -12,9 +12,11 @@ int/uint division, Common.hlsl:301 — see the JAX package's
 ``compiled_poisson_radius_uv``), so its 16-tap PCF is ONE bilinear
 comparison tap. The port evaluates that tap from 16-bit-quantized 2x2 quad
 rows, as the JAX package does: the u16 quantization changes pixels, so it
-is carried over. The cascade-parity table split and the gather spread
-masks of the JAX package only move gather indices and are left out. The
-soft-disk option (``pcf_radius_texels``) is not ported yet.
+is carried over. ``pcf_radius_texels`` (2.5) restores the intended soft
+disk; its 16 taps run in the CUDA kernel of ``ops.pcf`` (plain PyTorch on
+the CPU) over the same 16-bit depths. The cascade-parity table split, the
+superwindow tables and the gather spread masks of the JAX package only
+move gather indices and are left out.
 
 Deferred-path quirk replicated: the blend condition
 ``abs(distance - radius[j] < 5.0f)`` (DeferredShading.hlsl:60) casts the
@@ -27,6 +29,8 @@ import torch
 import torch.nn.functional as F
 
 from ..models.cascades import CASCADE_RADII
+from . import pcf
+from .pcf import N_SAMPLE, POISSON_DISK, nrand  # noqa: F401 (as in JAX)
 from .shading import rowmat
 
 
@@ -89,20 +93,13 @@ def pcf_single_tap(qrows: torch.Tensor, cascade: torch.Tensor,
     return torch.where(far, torch.zeros_like(lit), lit)
 
 
-def cascade_shadow_factor(shadow_maps, shadow_transforms, pos_w, eye_pos,
-                          smap_size: int, deferred_blend_quirk: bool,
-                          soft_radius_texels: float = None, dead=None):
-    """Per-pixel cascade select + PCF + blend (zero-radius branch).
+def cascade_select(shadow_transforms, pos_w, eye_pos):
+    """Per-receiver cascade selection (DeferredShading.hlsl:53-76).
 
-    shadow_maps: (4, S, S) depth; shadow_transforms: (4, 4, 4) row-vector
-    world->uv/depth; pos_w: (..., 3); eye_pos: (3,). Deferred quirk:
-    always blend cascades c and c+1 below the last. Distance >= 100 -> no
-    shadow (factor 1); ``dead`` receivers (sky pixels) get 1.0.
-    """
-    if soft_radius_texels is not None:
-        raise NotImplementedError(
-            "cascade_shadow_factor: the soft Poisson disk "
-            "(pcf_radius_texels) is not ported yet")
+    Returns (dist (...,), no_shadow (...,) past the last cascade,
+    cascades (..., 2) = (c, min(c + 1, 3)) with c the first cascade whose
+    radius exceeds the view distance, and their shadow-space positions
+    (..., 2, 4))."""
     radii = torch.tensor(CASCADE_RADII, dtype=torch.float32,
                          device=pos_w.device)
     dist = torch.sqrt(((eye_pos - pos_w) ** 2).sum(-1))
@@ -123,10 +120,43 @@ def cascade_shadow_factor(shadow_maps, shadow_transforms, pos_w, eye_pos,
         sel = (arange4 == cascade_idx[None, ..., None]).to(all_pos.dtype)
         return (all_pos * sel).sum(dim=0)
 
-    q = quad_maps_u16(shadow_maps)
     c_next = torch.clamp(c + 1, max=3)
-    f_c = pcf_single_tap(q, c, shadow_pos_for(c), smap_size)
-    f_n = pcf_single_tap(q, c_next, shadow_pos_for(c_next), smap_size)
+    cascades = torch.stack([c, c_next], dim=-1)
+    shadow_pos = torch.stack([shadow_pos_for(c), shadow_pos_for(c_next)],
+                             dim=-2)
+    return dist, no_shadow, cascades, shadow_pos
+
+
+def cascade_shadow_factor(shadow_maps, shadow_transforms, pos_w, eye_pos,
+                          smap_size: int, deferred_blend_quirk: bool,
+                          soft_radius_texels: float = None, dead=None):
+    """Per-pixel cascade select + PCF + blend.
+
+    shadow_maps: (4, S, S) depth; shadow_transforms: (4, 4, 4) row-vector
+    world->uv/depth; pos_w: (..., 3); eye_pos: (3,). Deferred quirk:
+    always blend cascades c and c+1 below the last. Distance >= 100 -> no
+    shadow (factor 1); ``dead`` receivers (sky pixels) get 1.0.
+    soft_radius_texels: None = the compiled reference's zero Poisson
+    radius (one comparison tap); 2.5 = the intended soft disk, one launch
+    of the ops.pcf kernel for both cascades of every receiver.
+    """
+    dist, no_shadow, cascades, shadow_pos = cascade_select(
+        shadow_transforms, pos_w, eye_pos)
+    c = cascades[..., 0]
+    if soft_radius_texels is None:
+        q = quad_maps_u16(shadow_maps)
+        f_c = pcf_single_tap(q, c, shadow_pos[..., 0, :],
+                             smap_size)
+        f_n = pcf_single_tap(q, cascades[..., 1], shadow_pos[..., 1, :],
+                             smap_size)
+    else:
+        params = pcf.receiver_params(shadow_pos.reshape(-1, 4),
+                                     cascades.reshape(-1), smap_size)
+        f = pcf.soft_pcf(pcf.quantize_map(shadow_maps), params,
+                         float(soft_radius_texels)).reshape(cascades.shape)
+        f_c, f_n = f[..., 0], f[..., 1]
+    radii = torch.tensor(CASCADE_RADII, dtype=torch.float32,
+                         device=pos_w.device)
     if deferred_blend_quirk:
         blend = c < 3
     else:

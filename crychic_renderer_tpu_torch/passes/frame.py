@@ -15,12 +15,15 @@ reference's deferred branch:
     [3] SSAO occlusion (half-res) + 3x blur
     [5] deferred PBR lighting + cascade PCF + ambient*SSAO + sky
 
-This slice ports the deferred PBR frame of BASELINE config 4: both raster
-launches go through ``ops.raster`` (the CUDA kernel on the card), the
-resolve, SSAO and PCF are dense tensor code (the JAX package's tile
-compaction, dead-pixel gather spreads and band modes only move gather
-indices and are left out). Settings outside the slice raise
-NotImplementedError from ``render_frame``, naming the field.
+The port renders the deferred PBR frame of BASELINE config 4 with its
+render options (fast preset, soft PCF disk, trilinear and other
+anisotropy settings, single-mip pool, cubemap sky, debug views): both
+raster launches go through ``ops.raster`` and the soft PCF through
+``ops.pcf`` (CUDA kernels on the card); the resolve, SSAO and the rest of
+the lighting are dense tensor code (the JAX package's tile compaction,
+dead-pixel gather spreads and band modes only move gather indices and are
+left out). The forward path, Blinn-Phong lighting and the alpha layer
+raise NotImplementedError from ``render_frame``, naming the field.
 """
 from __future__ import annotations
 
@@ -379,8 +382,9 @@ def _build_resolve_records(tris: rz.ScreenTris, tri_attr: torch.Tensor):
 def _resolve_core(scene: DeviceScene, consts: FrameConstants,
                   cfg: RenderConfig, rec, tid, px, py):
     """The per-pixel resolve: record gather -> perspective barycentric
-    interpolation -> per-primitive uv derivatives -> anisotropic texture
-    sampling -> G-buffer planes."""
+    interpolation -> per-primitive uv derivatives -> texture sampling
+    (anisotropic, reference-quality or trilinear, by cfg.anisotropy and
+    cfg.aniso_probes) -> G-buffer planes."""
     valid = tid >= 0
     r = rec[torch.where(valid, tid, torch.zeros_like(tid)).long()]
 
@@ -434,9 +438,20 @@ def _resolve_core(scene: DeviceScene, consts: FrameConstants,
     zero2 = torch.zeros_like(duv_x)
     duv_x = torch.where(dead3, zero2, duv_x)
     duv_y = torch.where(dead3, zero2, duv_y)
-    diffuse_sample, normal_sample = sampling.sample_pair_aniso(
-        pool, pairidx, samp_uv, duv_x, duv_y, cfg.anisotropy,
-        probes=cfg.aniso_probes)
+    if cfg.anisotropy > 1:
+        if cfg.aniso_probes == 0:
+            # reference-quality evaluation (max_aniso exact-trilinear
+            # probes), the yardstick the probe schedules are measured by
+            diffuse_sample, normal_sample = sampling.sample_pair_aniso_ref(
+                pool, pairidx, samp_uv, duv_x, duv_y, cfg.anisotropy)
+        else:
+            diffuse_sample, normal_sample = sampling.sample_pair_aniso(
+                pool, pairidx, samp_uv, duv_x, duv_y, cfg.anisotropy,
+                probes=cfg.aniso_probes)
+    else:
+        lod_uv = sampling.lod_from_derivatives(duv_x, duv_y)
+        diffuse_sample, normal_sample = sampling.sample_pair_trilinear(
+            pool, pairidx, samp_uv, lod_uv)
 
     albedo = _mat_select(scene.mat_albedo, mat) * diffuse_sample
     unit_n = shading.normalize(pix_nrm_w)
@@ -548,8 +563,11 @@ def _upsample_bilinear(img: torch.Tensor, H: int, W: int) -> torch.Tensor:
 def lighting_pass(scene: DeviceScene, consts: FrameConstants,
                   cfg: RenderConfig, g: dict, shadow_maps, ambient_access,
                   depth: torch.Tensor) -> torch.Tensor:
-    """Deferred PBR lighting (DeferredShading.hlsl PS) + the compiled
-    zero-radius PCF + procedural sky."""
+    """Deferred PBR lighting (DeferredShading.hlsl PS) + cascade PCF (the
+    compiled zero radius, or the soft disk of cfg.pcf_radius_texels) + sky
+    (procedural, or sampled from the scene's cubemap). With
+    cfg.fast_shadow_factor the PCF factor is evaluated on every other
+    pixel of every other row and upsampled bilinearly."""
     H, W = depth.shape
     dev = depth.device
     valid = g["valid"]
@@ -565,10 +583,16 @@ def lighting_pass(scene: DeviceScene, consts: FrameConstants,
                * albedo)
 
     if cfg.shadows_enabled:
+        # performance mode: the (smooth) PCF factor on a half-res grid,
+        # upsampled; the quality cost is at shadow silhouettes only
+        k = 2 if cfg.fast_shadow_factor else 1
         sf = shadows.cascade_shadow_factor(
-            shadow_maps, consts.shadow_transforms, pos_w, consts.eye_pos,
-            cfg.shadow_map_size, deferred_blend_quirk=cfg.deferred,
-            soft_radius_texels=cfg.pcf_radius_texels, dead=~valid)
+            shadow_maps, consts.shadow_transforms, pos_w[::k, ::k],
+            consts.eye_pos, cfg.shadow_map_size,
+            deferred_blend_quirk=cfg.deferred,
+            soft_radius_texels=cfg.pcf_radius_texels, dead=~valid[::k, ::k])
+        if cfg.fast_shadow_factor:
+            sf = _upsample_bilinear(sf, H, W)
         sf = sf[..., None]
     else:
         sf = torch.ones_like(roughness)
@@ -601,7 +625,11 @@ def lighting_pass(scene: DeviceScene, consts: FrameConstants,
         far_w = far_h[..., :3] / far_h[..., 3:4]
         ray = far_w - consts.eye_pos
         cube_dir = torch.where(valid3, r, ray)
-        cube_col = sampling.procedural_sky_color(cube_dir)
+        if cfg.procedural_sky:
+            cube_col = sampling.procedural_sky_color(cube_dir)
+        else:
+            cube_col = sampling.sample_cubemap(scene.cubemap,
+                                               cube_dir)[..., :3]
         fres = shading.schlick_fresnel(fresnel_r0, normal, r)
         lit = torch.where(valid3, lit + shininess * fres * cube_col,
                           cube_col)
@@ -648,22 +676,12 @@ def capacity_requirements(scene: DeviceScene, consts: FrameConstants,
 # ---------------------------------------------------------------------------
 
 def _check_supported(cfg: RenderConfig):
-    """Raise NotImplementedError for settings outside the ported slice."""
+    """Raise NotImplementedError for settings outside the ported slices."""
     unsupported = [
         ("deferred", not cfg.deferred, "the forward path"),
         ("use_pbr", not cfg.use_pbr, "Blinn-Phong lighting"),
         ("alpha_test_enabled", cfg.alpha_test_enabled,
          "the alpha-tested layer"),
-        ("fast_shadow_factor", cfg.fast_shadow_factor,
-         "the half-res PCF factor"),
-        ("pcf_radius_texels", cfg.pcf_radius_texels is not None,
-         "the soft Poisson disk"),
-        ("procedural_sky", not cfg.procedural_sky, "cubemap sampling"),
-        ("anisotropy", cfg.anisotropy != 8, "anisotropy other than 8"),
-        ("aniso_probes", cfg.aniso_probes != 2, "probe counts other than 2"),
-        ("dual_mip_rows", not cfg.dual_mip_rows, "the single-mip pool"),
-        ("ssao_scale", cfg.ssao_scale != 2, "SSAO scales other than 2"),
-        ("debug_view", cfg.debug_view is not None, "debug views"),
     ]
     for name, bad, what in unsupported:
         if bad:
@@ -714,8 +732,43 @@ def render_frame(scene: DeviceScene, consts: FrameConstants,
 def apply_debug_overlay(consts: FrameConstants, cfg: RenderConfig,
                         img: torch.Tensor, shadow_maps: torch.Tensor,
                         pos_w: torch.Tensor) -> torch.Tensor:
-    """Debug-layer overlays on the lit image. The deferred frame without a
-    debug view (config 4) draws none; the forward path's ShadowDebug quad
-    and the debug views are not ported yet, and render_frame rejects the
-    settings that would draw them."""
+    """Debug-layer overlays on the lit image.
+
+    - ShadowDebug.hlsl quad: the reference's FORWARD branch always draws
+      the shadow-map blit quad (CRYCHIC.cpp:406-407, PSO "debug"); drawn
+      whenever the forward path has shadow maps to show, or on demand via
+      cfg.debug_view == "shadow_cascade3".
+    - "cascades": Default.hlsl:152-156 (commented out in the reference)
+      colorizes pixels by their selected cascade.
+    """
+    H, W = img.shape[:2]
+    dev = img.device
+    draw_quad = cfg.debug_view == "shadow_cascade3" or (
+        not cfg.deferred and cfg.shadows_enabled and cfg.debug_view is None)
+    if draw_quad:
+        # blit gShadowMap[3] onto the debug quad, which
+        # CreateQuad(0,0,1,1,0) places in the bottom-right screen quadrant
+        qh, qw = H // 2, W // 2
+        S = shadow_maps.shape[1]
+        qy = torch.arange(H, device=dev) - (H - qh)  # <0 above the quad
+        ys = torch.div(torch.clamp(qy, 0, qh - 1) * S, qh,
+                       rounding_mode="floor")
+        xs = torch.div(torch.arange(qw, device=dev) * S, qw,
+                       rounding_mode="floor")
+        blit = shadow_maps[3][ys[:, None], xs[None, :]]  # (H, qw)
+        patch = torch.cat([blit[..., None].expand(H, qw, 3),
+                           torch.ones_like(blit[..., None])], dim=-1)
+        right = torch.where((qy >= 0)[:, None, None], patch, img[:, W - qw:])
+        img = torch.cat([img[:, :W - qw], right], dim=1)
+    elif cfg.debug_view == "cascades":
+        from ..models.cascades import CASCADE_RADII
+
+        radii = torch.tensor(CASCADE_RADII, dtype=torch.float32, device=dev)
+        dist = torch.sqrt(((consts.eye_pos - pos_w) ** 2).sum(-1))
+        past = (dist[..., None] >= radii).sum(-1)
+        colors = torch.tensor([[1, 0, 0], [0, 1, 0], [0, 0, 1], [1, 1, 1],
+                               [0.3, 0.3, 0.3]], dtype=torch.float32,
+                              device=dev)
+        img = torch.cat([colors[torch.clamp(past, 0, 4)], img[..., 3:4]],
+                        dim=-1)
     return img

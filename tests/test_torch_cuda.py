@@ -1,5 +1,11 @@
-"""The raster kernel (csrc/raster.cu) against its plain version, on the
-card. Tolerance: none — depth and tid must be equal (torch.equal).
+"""The CUDA kernels against their plain versions, on the card.
+
+- The raster kernel (csrc/raster.cu): no tolerance, depth and tid must be
+  equal (torch.equal).
+- The soft PCF kernel (csrc/pcf.cu): 1e-5. Both sum the same <= 64 tent
+  weights from the same parameters; the kernel keeps the plain version's
+  order and rounds each operation on its own, so it is expected to be
+  equal, and the bound leaves room for the order of the sums.
 
 Imports torch and the port only (the card's machine has no jax). The
 cases marked ``cuda`` skip without a CUDA device; run them on the card
@@ -11,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from crychic_renderer_tpu_torch.ops import raster
+from crychic_renderer_tpu_torch.ops import pcf, raster
 from crychic_renderer_tpu_torch.ops import rasterizer as rz
 
 
@@ -43,7 +49,7 @@ CASES = {
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the raster kernel has no CPU mode")
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
     return torch.device("cuda")
 
 
@@ -105,3 +111,59 @@ def test_wrapper_rejects_other_devices():
     st = torch.empty((2,), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         raster.raster_tiles(rec, st, st, 256, 8)
+
+
+def _pcf_inputs(device, n=50000, S=256, seed=0):
+    """Random receivers over the map and past its edges (u, v in [-0.05,
+    1.05], w != 1), depths near the map's, against patchy maps."""
+    g = torch.Generator().manual_seed(seed)
+    yy, xx = torch.meshgrid(torch.arange(S), torch.arange(S), indexing="ij")
+    maps = torch.stack([0.5 + 0.3 * torch.sin(xx / (7.0 + c))
+                        * torch.cos(yy / (5.0 + c)) for c in range(4)])
+    u = torch.rand(n, generator=g) * 1.1 - 0.05
+    v = torch.rand(n, generator=g) * 1.1 - 0.05
+    casc = torch.randint(0, 4, (n,), generator=g)
+    ix = torch.clamp((u * S).long(), 0, S - 1)
+    iy = torch.clamp((v * S).long(), 0, S - 1)
+    z = maps[casc, iy, ix] + (torch.rand(n, generator=g) - 0.5) * 0.1
+    w = 0.5 + torch.rand(n, generator=g) * 1.5
+    pos = torch.stack([u * w, v * w, z * w, w], -1)
+    qmap = pcf.quantize_map(maps.float().to(device))
+    return qmap, pcf.receiver_params(pos.to(device), casc.to(device), S)
+
+
+@pytest.mark.cuda
+def test_pcf_kernel_equals_plain(cuda):
+    qmap, params = _pcf_inputs(cuda)
+    before = pcf.LAUNCHES
+    got = pcf.soft_pcf(qmap, params, 2.5)
+    torch.cuda.synchronize()
+    assert pcf.LAUNCHES == before + 1
+    ref = pcf.soft_pcf_plain(qmap, params, 2.5)
+    assert float((got - ref).abs().max()) <= 1e-5
+    assert 0.1 < float(((ref > 0) & (ref < 1)).float().mean())
+
+
+@pytest.mark.cuda
+def test_cuda_inputs_never_reach_the_plain_versions(cuda, monkeypatch):
+    """With both plain versions made to fail, the wrappers and a whole
+    soft-disk frame on the card still run: CUDA tensors go to the kernels
+    only."""
+    from crychic_renderer_tpu_torch.app.renderer import Renderer
+    from crychic_renderer_tpu_torch.models.scenes_baseline import CONFIGS
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    monkeypatch.setattr(pcf, "soft_pcf_plain", refuse)
+    monkeypatch.setattr(raster, "rasterize_plain", refuse)
+    qmap, params = _pcf_inputs(cuda, n=1000)
+    pcf.soft_pcf(qmap, params, 2.5)
+    scene, cfg, lights = CONFIGS[4]()
+    cfg = dataclasses.replace(cfg, width=240, height=135, shadow_map_size=256,
+                              pcf_radius_texels=2.5)
+    before = pcf.LAUNCHES
+    img = Renderer(scene, cfg, lights=lights).render(0.0)
+    torch.cuda.synchronize()
+    assert img.is_cuda and bool(torch.isfinite(img).all())
+    assert pcf.LAUNCHES == before + 1

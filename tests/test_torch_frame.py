@@ -222,11 +222,7 @@ def test_import_pins_f32_matmul():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("deferred", False), ("use_pbr", False), ("alpha_test_enabled", True),
-    ("fast_shadow_factor", True), ("pcf_radius_texels", 2.5),
-    ("procedural_sky", False), ("anisotropy", 1), ("aniso_probes", 4),
-    ("dual_mip_rows", False), ("ssao_scale", 4),
-    ("debug_view", "cascades")])
+    ("deferred", False), ("use_pbr", False), ("alpha_test_enabled", True)])
 def test_unported_setting_raises(field, value):
     cfg = dataclasses.replace(RenderConfig(), **{field: value})
     with pytest.raises(NotImplementedError, match=field):
