@@ -33,8 +33,9 @@ soft PCF kernel (csrc/pcf.cu). Phases, each printed as it ends:
    soft-disk frame on the card against the CPU path (<= 0.5% > 0.02).
 
 Then one JSON line of per-kernel results (with each kernel's bound: the
-larger of its bytes over 3.35 TB/s and its f32 operations over 67
-TFLOP/s, counted from this run's inputs) and, last, the device line. Any
+larger of the bytes its function must move over 3.35 TB/s and the f32
+operations the function needs over 67 TFLOP/s, counted from this run's
+inputs) and, last, the device line. Any
 failed phase raises, so the script exits non-zero and prints no result;
 so does a machine without CUDA, and a directory without the repository.
 """
@@ -57,19 +58,23 @@ SOFT = 2.5
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 operations/s
 HBM_BYTES_S = 3.35e12
 F32_OPS_S = 67e12
-# f32 operations per (pair, pixel) of the raster kernel: 4 planes x (2
-# mul + 2 add) and 6 compares, 2 more for the atlas's column guard
-RASTER_OPS = {"ids": 22, "depth": 24}
+# f32 operations per (pair, 8x128 tile) that the raster function needs:
+# each of the 4 planes multiplies A by 128 column centres and B by 8 row
+# centres, then per pixel 8 adds and 6 compares; the atlas's column guard
+# adds 2 compares per column
+_RASTER_OPS = 4 * (128 + 8) + 1024 * (8 + 6)
+RASTER_OPS_PER_PAIR = {"ids": _RASTER_OPS, "depth": _RASTER_OPS + 128 * 2}
 
 
 def bound(nbytes, ops):
-    """The least time the card could take: dict(bound_ms, bound_by, and
-    the two times it is the larger of, bytes_ms and ops_ms)."""
+    """The least time the card could take: (dict(bound_ms, bound_by), and
+    a note of the two times it is the larger of, for the phase line)."""
     t_bytes = 1000.0 * nbytes / HBM_BYTES_S
     t_ops = 1000.0 * ops / F32_OPS_S
-    return dict(bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bytes_ms=t_bytes, ops_ms=t_ops)
+    keys = dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+    return keys, (f"bound {keys['bound_ms']:.4f} ms (bytes {t_bytes:.4f}, "
+                  f"operations {t_ops:.4f})")
 
 
 def phase(msg):
@@ -185,11 +190,10 @@ def main():
         # records of the valid pairs, per-tile starts and counts, depth
         # (+ id) out
         nbytes = pairs * 64 + starts.numel() * 8 + W * H * (8 if ids else 4)
-        b = bound(nbytes, pairs * 1024 * RASTER_OPS[variant])
+        b, note = bound(nbytes, pairs * RASTER_OPS_PER_PAIR[variant])
         phase(f"[4] {name}: {W}x{H}, {pairs} pairs, equal to "
               f"rasterize_plain (max |err| {err}); kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
-              f"(bytes {b['bytes_ms']:.4f}, operations {b['ops_ms']:.4f})")
+              f"plain {plain_ms:.4f} ms, {note}")
         kernels.append(dict(name=name, route="cuda",
                             source="crychic_renderer_tpu_torch/csrc/raster.cu",
                             replaces=replaces, variant=variant,
@@ -237,13 +241,12 @@ def main():
     plain_ms = cuda_ms(lambda: pcf.soft_pcf_plain(qmap, params, SOFT), 3)
     m = params.shape[1]
     nbytes = params.numel() * 4 + qmap.numel() * 2 + m * 4
-    b = bound(nbytes, m * pcf.OPS_PER_RECEIVER)
+    b, note = bound(nbytes, m * pcf.OPS_PER_RECEIVER)
     soft_share = float(((f_p > 0) & (f_p < 1)).float().mean())
     phase(f"[7] K6 soft PCF: {m} receiver-cascades ({cfg.width}x"
           f"{cfg.height} x 2), {soft_share:.2%} in a penumbra; max |err| "
           f"{max_err} vs soft_pcf_plain, {above:.4%} above 1e-5; kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} "
-          f"ms (bytes {b['bytes_ms']:.4f}, operations {b['ops_ms']:.4f})")
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, {note}")
     kernels.append(dict(
         name="K6 soft-disk PCF: 16 taps, 2.5 texels, 2 cascades "
              "(shadows.py:319)", route="cuda",

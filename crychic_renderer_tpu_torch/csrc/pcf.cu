@@ -33,13 +33,15 @@
 // two agree to the last bit on the card.
 //
 // What bounds it. Per (receiver, cascade): 24 bytes of parameters in, 4
-// bytes out, and 58 f32 operations per tap (two tap offsets and
-// positions, two floors, two row tents, then per texel a tent, a
-// product, a compare and an add), 940 with the window set-up
-// (ops/pcf.py OPS_PER_RECEIVER). At 1080p that is 4.15M
+// bytes out, and the 28 f32 operations per tap that the function needs
+// (two tap offsets and positions, two floors, the four bilinear weights,
+// then per texel a product, a compare and an add), 460 with the window
+// set-up (ops/pcf.py OPS_PER_RECEIVER). At 1080p that is 4.15M
 // receiver-cascades, 116 MB of parameters and output plus the 32 MB map,
-// against 3.9e9 operations: bound by f32 throughput (~58 us at 67 TFLOP/s)
-// more than by memory (~45 us at 3.35 TB/s). The design is the simple
+// against 1.9e9 operations: bound by memory (~45 us at 3.35 TB/s) more
+// than by f32 throughput (~29 us at 67 TFLOP/s). This kernel does more
+// arithmetic than that: it evaluates each texel's weight as a product of
+// two tents (the column tent once per row). The design is the simple
 // one: a thread per (receiver, cascade), texels through the read-only
 // cache (a receiver's 64 texel reads fall in one 16x16 window, and
 // neighbouring receivers share windows). Skipping dead receivers, and

@@ -34,9 +34,11 @@
 // the ragged right and bottom tiles are masked, and empty tiles write the
 // clears.
 //
-// What bounds it. Per pixel and record the test is ~16 f32 operations
-// plus compares, with 64 bytes of record per 1024 pixels: the kernel is
-// bound by f32 issue in the heavy tiles, and by load imbalance, since a
+// What bounds it. Per pixel and record the function needs 8 f32 adds and
+// 6 compares (A*px is shared down a column, B*py along a row), with 64
+// bytes of record per 1024 pixels: the kernel is bound by f32 issue in
+// the heavy tiles (chip_smoke.py RASTER_OPS_PER_PAIR counts the
+// operations per record and tile), and by load imbalance, since a
 // tile's run is processed by one block alone (the shadow atlas has a few
 // tiles with thousands of records). It is simple on purpose: cp.async or
 // TMA staging of the next chunk, and several tiles per block to balance

@@ -49,10 +49,11 @@ OUTER_TAPS = tuple(i for i in range(N_SAMPLE)
                    if float(np.hypot(*POISSON_DISK[i])) >= 1.2)
 # The window bounds hold for a disk of at most this radius.
 MAX_RADIUS_TEXELS = 2.5
-# f32 operations per (receiver, cascade), counted from the kernel: 58 per
-# tap (offsets 8, positions 2, floors 2, two row tents 10, four texels x
-# (column tent 5, product, compare, add, texel convert)) + 12 set-up.
-OPS_PER_RECEIVER = N_SAMPLE * 58 + 12
+# f32 operations per (receiver, cascade) that the function needs: 28 per
+# tap (offsets 8, positions 2, floors 2, the bilinear weights frac and
+# 1 - frac in x and y 4, and per texel of 4 a product, a compare and an
+# add) + 12 for the window set-up.
+OPS_PER_RECEIVER = N_SAMPLE * 28 + 12
 PARAMS = 6  # cx, cy, dq, cos, sin, cascade
 
 # Launches of the CUDA kernel since import (or since a caller reset it).

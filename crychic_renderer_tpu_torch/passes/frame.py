@@ -734,18 +734,16 @@ def apply_debug_overlay(consts: FrameConstants, cfg: RenderConfig,
                         pos_w: torch.Tensor) -> torch.Tensor:
     """Debug-layer overlays on the lit image.
 
-    - ShadowDebug.hlsl quad: the reference's FORWARD branch always draws
-      the shadow-map blit quad (CRYCHIC.cpp:406-407, PSO "debug"); drawn
-      whenever the forward path has shadow maps to show, or on demand via
-      cfg.debug_view == "shadow_cascade3".
+    - ShadowDebug.hlsl quad (CRYCHIC.cpp:406-407, PSO "debug"): the
+      shadow-map blit quad, drawn for cfg.debug_view == "shadow_cascade3".
+      (The reference's forward branch draws it always; that waits for the
+      forward path.)
     - "cascades": Default.hlsl:152-156 (commented out in the reference)
       colorizes pixels by their selected cascade.
     """
     H, W = img.shape[:2]
     dev = img.device
-    draw_quad = cfg.debug_view == "shadow_cascade3" or (
-        not cfg.deferred and cfg.shadows_enabled and cfg.debug_view is None)
-    if draw_quad:
+    if cfg.debug_view == "shadow_cascade3":
         # blit gShadowMap[3] onto the debug quad, which
         # CreateQuad(0,0,1,1,0) places in the bottom-right screen quadrant
         qh, qw = H // 2, W // 2
