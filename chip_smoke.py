@@ -30,7 +30,24 @@ soft PCF kernel (csrc/pcf.cu). Phases, each printed as it ends:
 8. 3 warm-up + 10 timed frames each of config 4 with the soft disk, and of
    the same with the fast preset: finite, one K1, one K2 and one K6 launch
    per frame, no overflow, the median ms/frame of each; and a 240x135
-   soft-disk frame on the card against the CPU path (<= 0.5% > 0.02).
+   soft-disk frame on the card against the CPU path (<= 0.5% > 0.02);
+9. the raster kernel's band launches (K3) on the frame's own inputs, the
+   main view split 4 ways (nty 135, rpd 34: owner 3's last key row lies
+   past the screen) and the atlas split 4 and 3 ways (nty 256, rpd 86 at
+   n=3): every owner's launch equal to rasterize_plain in the same band
+   mode, and the reassembled bands equal to the K1/K2 full-frame output
+   (torch.equal), with pairs per owner, both times and the bound per
+   launch;
+10. the band-sharded frame (parallel/sharded.py) of config 4 at 1080p on
+   4 ranks of one gloo group that time-share the ONE card (kernels built
+   above, loaded by the ranks): check_band_capacity, 3 warm-up + 10
+   frames, exactly one K3 main-view and one K3 atlas launch per rank and
+   frame and no K1/K2, no overflow, the gathered image against
+   render_frame on the card (<= 1e-3 of pixels > 0.02), the median
+   ms/frame (not a scaling number: the ranks share one card);
+11. each owner's band alone at n=4 in sim_index mode (the all_gathers are
+   copies of the local shard), median ms: the JAX package's per-device
+   band time method, printed without a claim.
 
 Then one JSON line of per-kernel results (with each kernel's bound: the
 larger of the bytes its function must move over 3.35 TB/s and the f32
@@ -53,6 +70,7 @@ import torch
 FRAMES_WARMUP = 3
 FRAMES_TIMED = 10
 PIX_BOUND = 0.005
+SHARD_FRAC = 1e-3  # tests/test_multichip.py's sharded-frame bound
 PCF_TOL = 1e-5
 SOFT = 2.5
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 operations/s
@@ -167,6 +185,7 @@ def main():
          4 * S, S, False, True),
     ]
     kernels = []
+    full_out = {}  # variant -> (depth, tid) of the full-frame launch
     for name, variant, replaces, inputs, W, H, ids, xrange in \
             raster_launches:
         rec, starts, counts, over = inputs
@@ -182,6 +201,7 @@ def main():
             assert torch.equal(t_k, t_p), f"{name}: tid differs from plain"
         assert torch.equal(d_k, d_p), f"{name}: depth differs from plain"
         assert bool((d_k < 1.0).any()), f"{name}: nothing rasterized"
+        full_out[variant] = (d_k, t_k)
         ms = cuda_ms(lambda: raster.raster_tiles(
             rec, starts, counts, W, H, with_ids=ids, with_xrange=xrange), 20)
         plain_ms = cuda_ms(lambda: raster.rasterize_plain(
@@ -206,7 +226,8 @@ def main():
           f"pixels >0.02 (max {diff.max():.3g}, mean {diff.mean():.3g})")
 
     # 6. the main path: frames through Renderer.render
-    ms_frame, counts_run = run_frames(r, {"ids": 1, "depth": 1, "pcf": 0})
+    ms_frame, counts_run = run_frames(r, {"ids": 1, "depth": 1, "pcf": 0,
+                                          "band_ids": 0, "band_depth": 0})
     consts = r.frame_constants((FRAMES_WARMUP + FRAMES_TIMED - 1) / 60.0)
     tris, tri_attr = fr.main_view_tris(r.device_scene, consts, cfg)
     depth, tid, _ = raster.rasterize(tris, cfg.width, cfg.height,
@@ -263,7 +284,8 @@ def main():
                                            pcf_radius_texels=SOFT))
         r_run = Renderer(scene, cfg_run, lights=lights, device=dev)
         ms_run, counts_run = run_frames(
-            r_run, {"ids": 1, "depth": 1, "pcf": 1})
+            r_run, {"ids": 1, "depth": 1, "pcf": 1, "band_ids": 0,
+                    "band_depth": 0})
         frame_ms[name] = ms_run
         launches[name] = counts_run
         phase(f"[8] config 4 {name}: {FRAMES_WARMUP} warm-up + "
@@ -275,6 +297,62 @@ def main():
           f"{frac:.4%} of pixels >0.02 (max {diff.max():.3g}, mean "
           f"{diff.mean():.3g})")
 
+    # 9. K3, the band launches, on the frame's own 1080p inputs
+    from crychic_renderer_tpu_torch.parallel import sharded
+
+    consts0 = r.frame_constants(0.0)
+    scene_d = r.device_scene
+    tris, _ = fr.main_view_tris(scene_d, consts0, cfg)
+    atris, xr = fr.shadow_atlas_tris(scene_d, consts0.shadow_visibility,
+                                     consts0.cascade_view_projs, cfg)
+    band_cfg = {n: sharded.autosize_band_capacities(scene_d, consts0, cfg, n)
+                for n in (3, 4)}
+    for n, variant, tris_v, W, H, xrange in (
+            (4, "ids", tris, cfg.width, 4 * sharded.band_height(cfg, 4),
+             None),
+            (4, "depth", atris, 4 * S, S, xr),
+            (3, "depth", atris, 4 * S, S, xr)):
+        view = "main view" if variant == "ids" else "atlas"
+        name = (f"K3 {view}, band launch of 1 of {n} owners "
+                f"(parallel/sharded.py:{573 if variant == 'ids' else 376})")
+        cap = (band_cfg[n].band_pair_capacity if variant == "ids"
+               else band_cfg[n].shadow_band_pair_capacity)
+        entry = band_launches(name, variant, n, tris_v, W, H, cap, xrange,
+                              full_out[variant])
+        if n == 4:
+            kernels.append(entry)
+
+    # 10. the sharded frame: 4 gloo ranks sharing the card
+    frame_ms["sharded_4_ranks_one_card"], launches["sharded"] = \
+        sharded_frame(r, consts0, band_cfg[4], dev)
+
+    # 11. per-device band time in sim_index mode
+    band_h = sharded.band_height(band_cfg[4], 4)
+    sim_ms = []
+    for d in range(4):
+        comm = sharded._Comm(None, 4, sim_index=d)
+
+        def band():
+            return sharded._band_render(scene_d, consts0, band_cfg[4], comm,
+                                        band_h)
+
+        img = band()
+        torch.cuda.synchronize()
+        assert img.shape == (band_h, cfg.width, 4)
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            band()
+            torch.cuda.synchronize()
+            times.append(1000.0 * (time.perf_counter() - t0))
+        sim_ms.append(statistics.median(times))
+    frame_ms["band_sim_index_n4"] = sim_ms
+    phase(f"[11] per-device band time, n=4, one band alone on the card "
+          f"(sim_index: the all_gathers are copies of the local shard, no "
+          f"transfer), median of 5 after 1 warm-up, owners 0-3: "
+          f"{', '.join(f'{t:.3f}' for t in sim_ms)} ms")
+
+    kernels.sort(key=lambda k: k["name"])
     for k in kernels:
         variant = k.pop("variant")
         k["launches"] = sum(c[variant] for c in launches.values())
@@ -285,6 +363,122 @@ def main():
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def band_launches(name, variant, n, tris, W, H, cap, xrange, full):
+    """K3 on one view split n ways: each owner's band launch against
+    rasterize_plain in the same band mode (torch.equal), and the n bands
+    reassembled against the full-frame launch `full` (torch.equal). Prints
+    per-owner pairs and times; returns the kernels-line entry, per launch
+    averaged over the owners."""
+    from crychic_renderer_tpu_torch.ops import raster
+
+    ids = variant == "ids"
+    parts, owners, err = [], [], 0.0
+    for d in range(n):
+        rec, starts, counts, over = raster.binned_records(
+            tris, W, H, cap, xrange=xrange, row_stride=(n, d))
+        assert not bool(over), f"{name}, owner {d}: capacity overflow"
+        off, rows = raster.band_grid(W, H, row_stride=(n, d))
+        args = (rec, starts, counts, W, rows, ids, xrange is not None, off)
+        d_k, t_k = raster.raster_tiles(*args)
+        torch.cuda.synchronize()
+        d_p, t_p = raster.rasterize_plain(*args)
+        err = max(err, float((d_k - d_p).abs().max()))
+        if ids:
+            err = max(err, float((t_k - t_p).abs().max()))
+        assert torch.equal(d_k, d_p), f"{name}, owner {d}: depth != plain"
+        assert not ids or torch.equal(t_k, t_p), \
+            f"{name}, owner {d}: tid != plain"
+        grid = rows // raster.TILE_H * (-(-W // raster.TILE_W))
+        pairs = int(counts[off:off + grid].sum())
+        owners.append(dict(
+            pairs=pairs,
+            ms=cuda_ms(lambda: raster.raster_tiles(*args), 20),
+            plain_ms=cuda_ms(lambda: raster.rasterize_plain(*args), 3),
+            # records of the valid pairs, the grid's starts and counts,
+            # depth (+ id) out
+            nbytes=pairs * 64 + grid * 8 + W * rows * (8 if ids else 4),
+            ops=pairs * RASTER_OPS_PER_PAIR[variant]))
+        parts.append((d_k, t_k))
+    rows = parts[0][0].shape[0]
+
+    def reassemble(stripes):
+        g = torch.stack(stripes).reshape(n, rows // 8, 8, W).transpose(0, 1)
+        return g.reshape(n * rows, W)[:full[0].shape[0]]
+
+    assert torch.equal(reassemble([p[0] for p in parts]), full[0]), \
+        f"{name}: reassembled depth != the full-frame launch"
+    assert not ids or torch.equal(reassemble([p[1] for p in parts]),
+                                  full[1]), \
+        f"{name}: reassembled tid != the full-frame launch"
+
+    def mean(key):
+        return sum(o[key] for o in owners) / n
+
+    b, note = bound(mean("nbytes"), mean("ops"))
+    phase(f"[9] {name}, {W}x{H} in {n} bands of {rows} rows: pairs per "
+          f"owner {[o['pairs'] for o in owners]} (capacity {cap}); kernel "
+          f"ms {[round(o['ms'], 4) for o in owners]}, plain ms "
+          f"{[round(o['plain_ms'], 3) for o in owners]}; every launch "
+          f"equal to rasterize_plain (max |err| {err}) and the bands "
+          f"reassembled equal to "
+          f"the full-frame launch (torch.equal); per launch: kernel "
+          f"{mean('ms'):.4f} ms, plain {mean('plain_ms'):.4f} ms, {note}")
+    return dict(name=name, route="cuda",
+                source="crychic_renderer_tpu_torch/csrc/raster.cu",
+                replaces="crychic_renderer_tpu/ops/raster_pallas.py:93",
+                variant="band_" + variant, max_abs_err=err, ms=mean("ms"),
+                plain_ms=mean("plain_ms"), library_ms=None, **b)
+
+
+def sharded_frame(r, consts, band_cfg, dev):
+    """The band-sharded frame of config 4 at 1080p on 4 gloo ranks that
+    share the card: band capacities checked, FRAMES_WARMUP +
+    FRAMES_TIMED frames per rank with every launch count set to 0 just
+    before and read just after (exactly one K3 launch of each kind per
+    frame, no K1/K2), no overflow, and the gathered image against
+    render_frame on the same card (<= 1e-3 of pixels > 0.02). Returns
+    (median ms/frame of rank 0, launch counts summed over the ranks)."""
+    from crychic_renderer_tpu_torch.parallel import launch, sharded
+    from crychic_renderer_tpu_torch.passes import frame as fr
+
+    n = 4
+    req = sharded.check_band_capacity(r.device_scene, consts, band_cfg, n)
+    t0 = time.perf_counter()
+    ranks = launch.render_sharded(
+        [r.device_scene], [consts], [(band_cfg, 0, (0,))], n, "gloo", dev,
+        warmup=FRAMES_WARMUP, timed=FRAMES_TIMED, timeout=600)
+    job_s = time.perf_counter() - t0
+    frames = FRAMES_WARMUP + FRAMES_TIMED
+    want = dict(ids=0, depth=0, band_ids=frames, band_depth=frames)
+    img = ranks[0][0]["img"]
+    for rank, (out,) in enumerate(ranks):
+        assert out["launches"] == want, (rank, out["launches"], want)
+        assert not out["overflowed"], f"rank {rank}: raster overflow"
+        assert np.array_equal(out["img"], img), f"rank {rank}: other image"
+    ref = fr.render_frame(r.device_scene, consts, r.cfg).cpu().numpy()
+    assert img.shape == ref.shape and np.isfinite(img).all()
+    diff = np.abs(img - ref).max(axis=-1)
+    frac = float((diff > 0.02).mean())
+    assert frac <= SHARD_FRAC, f"sharded frame: {frac:.4%} of pixels > 0.02"
+    ms = statistics.median(ranks[0][0]["ms"])
+    phase(f"[10] sharded frame, config 4 {r.cfg.width}x{r.cfg.height}, "
+          f"{n} gloo ranks time-sharing ONE card (not band scaling): band "
+          f"capacities main {band_cfg.band_pair_capacity} >= worst rank "
+          f"{req['main_band_pairs']}, shadow "
+          f"{band_cfg.shadow_band_pair_capacity} >= "
+          f"{req['shadow_band_pairs']}; {FRAMES_WARMUP} warm-up + "
+          f"{FRAMES_TIMED} frames: median {ms:.3f} ms/frame (rank 0; "
+          f"per rank {[round(statistics.median(o[0]['ms']), 3) for o in ranks]}"
+          f"); launches per rank {want}; no overflow; vs render_frame on "
+          f"the card: max |diff| {diff.max():.3g}, {frac:.4%} of pixels > "
+          f"0.02; job {job_s:.1f} s with spawn")
+    total = dict(ids=0, depth=0, pcf=0,
+                 band_ids=sum(o[0]["launches"]["band_ids"] for o in ranks),
+                 band_depth=sum(o[0]["launches"]["band_depth"]
+                                for o in ranks))
+    return ms, total
 
 
 def launch_counts():

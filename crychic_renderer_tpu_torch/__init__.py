@@ -15,6 +15,9 @@ Layers (bottom-up):
   the raster kernel wrapper (``ops.raster``), texture sampling, PCF, SSAO,
   PBR shading.
 - ``passes`` — ``render_frame``, the deferred frame in CRYCHIC::Draw order.
+- ``parallel`` — ``render_frame_sharded``, the frame split into screen
+  bands over the ranks of a torch.distributed group, and the launcher
+  that starts the ranks.
 - ``app``    — ``Renderer`` (host orchestration) and the ``run`` CLI.
 
 Importing the package pins float32 semantics the way the JAX package pins

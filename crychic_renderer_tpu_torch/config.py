@@ -13,11 +13,14 @@ mean here:
   raise NotImplementedError naming the field: deferred=False,
   use_pbr=False and alpha_test_enabled.
 - use_pallas, pallas_interpret, bin_cap, shadow_bin_cap,
-  shade_tile_capacity, ssao_tile_capacity, band_pair_capacity and
-  shadow_band_pair_capacity have no meaning in the port. They select TPU
-  layouts (the Pallas-vs-XLA raster, tile compaction, multi-chip bands)
+  shade_tile_capacity and ssao_tile_capacity have no meaning in the port.
+  They select TPU layouts (the Pallas-vs-XLA raster, tile compaction)
   that do not change the image; the port always rasterizes through
   ops.raster and shades densely.
+- band_pair_capacity and shadow_band_pair_capacity are the per-rank pair
+  capacities of the band-sharded frame (parallel/sharded.py), None for
+  the full-frame capacities; autosize_band_capacities sizes them and
+  check_band_capacity guards them.
 """
 from __future__ import annotations
 
@@ -101,11 +104,13 @@ class RenderConfig:
     fast_shadow_factor: bool = False
     # SSAO resolution divisor (2 = the reference's half-res)
     ssao_scale: int = 2
-    # The next four fields select the JAX package's TPU layouts (tile
-    # compaction of the resolve and of SSAO, multi-chip band capacities);
-    # they do not change the image and have no meaning in the port.
+    # The next two fields select the JAX package's TPU tile compaction of
+    # the resolve and of SSAO; they do not change the image and have no
+    # meaning in the port.
     shade_tile_capacity: int = None
     ssao_tile_capacity: int = None
+    # per-rank pair capacities of the band-sharded frame (None = the
+    # full-frame capacities; parallel.sharded.autosize_band_capacities)
     band_pair_capacity: int = None
     shadow_band_pair_capacity: int = None
 

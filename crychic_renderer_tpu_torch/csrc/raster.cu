@@ -2,7 +2,21 @@
 // package's Pallas kernel crychic_renderer_tpu/ops/raster_pallas.py
 // (_raster_kernel, launched by rasterize_pallas). It serves both of the
 // frame's launches: the main view (depth + triangle id) and the shadow
-// atlas (depth only, with the per-record column guard [xlo, xhi)).
+// atlas (depth only, with the per-record column guard [xlo, xhi)), for
+// the full screen (K1, K2) and for one band of it (K3, the band modes of
+// rasterize_pallas that parallel/sharded.py launches).
+//
+// Bands. A launch covers grid_tiles tiles whose runs are keys
+// [tile_offset, tile_offset + grid_tiles) of the binning: the owner-major
+// keys of one owner's interleaved tile rows (tile_offset = owner * rpd *
+// ntx), or a contiguous run of tile rows (tile_offset = first row * ntx).
+// Block b writes output rows (b / ntx) * 8 .. + 7; a band's output is whole
+// tiles, so only the full screen's ragged last tile row is cropped (at
+// height). The records are tile-local (build_records anchors C and zC
+// at the tile's true, full-screen origin), so the arithmetic is that of
+// the full-screen launch and a band equals the full raster's rows bit for
+// bit. A key row past the screen (the last owner's padding when n_dev
+// does not divide the tile rows) has count 0 and writes the clears.
 //
 // What it computes. The screen is cut into 8x128-pixel tiles. Binning
 // (ops/rasterizer.py bin_triangles) sorts (tile, triangle) pairs by tile,
@@ -64,16 +78,16 @@ template <bool WITH_IDS, bool WITH_XRANGE>
 __global__ void __launch_bounds__(THREADS)
 raster_tiles_kernel(const float4* __restrict__ records,
                     const int* __restrict__ starts,
-                    const int* __restrict__ counts, int ntx, int width,
-                    int height, float* __restrict__ depth,
-                    int* __restrict__ tid) {
+                    const int* __restrict__ counts, int tile_offset,
+                    int ntx, int width, int height,
+                    float* __restrict__ depth, int* __restrict__ tid) {
   __shared__ float4 srec[CHUNK * 4];
 
-  const int tile = blockIdx.x;
+  const int tile = blockIdx.x;  // position in the launch's grid
   const int tile_x = tile % ntx;
-  const int tile_y = tile / ntx;
-  const int start = starts[tile];
-  const int count = counts[tile];
+  const int tile_y = tile / ntx;  // output tile row
+  const int start = starts[tile_offset + tile];
+  const int count = counts[tile_offset + tile];
   const int t = threadIdx.x;
 
   const float px = static_cast<float>(t % TILE_W) + 0.5f;
@@ -137,40 +151,48 @@ raster_tiles_kernel(const float4* __restrict__ records,
 
 template <bool WITH_IDS, bool WITH_XRANGE>
 void launch(const void* records, const void* starts, const void* counts,
-            int num_tiles, int ntx, int width, int height, void* depth,
-            void* tid, cudaStream_t stream) {
+            int tile_offset, int grid_tiles, int ntx, int width,
+            int height, void* depth, void* tid, cudaStream_t stream) {
   raster_tiles_kernel<WITH_IDS, WITH_XRANGE>
-      <<<num_tiles, THREADS, 0, stream>>>(
+      <<<grid_tiles, THREADS, 0, stream>>>(
           static_cast<const float4*>(records),
           static_cast<const int*>(starts), static_cast<const int*>(counts),
-          ntx, width, height, static_cast<float*>(depth),
+          tile_offset, ntx, width, height, static_cast<float*>(depth),
           static_cast<int*>(tid));
 }
 
 }  // namespace
 
-// Plain C entry point bound with ctypes (ops/raster.py). tid == nullptr
-// selects the depth-only variant. Returns cudaGetLastError() after the
-// launch (0 = launched).
+// Plain C entry point bound with ctypes (ops/raster.py). Launches
+// grid_tiles blocks on keys [tile_offset, tile_offset + grid_tiles) into a
+// (height, width) output, height <= (grid_tiles / ntx) * 8; the wrapper
+// has checked that the keys exist. tid == nullptr selects the depth-only
+// variant. Returns cudaGetLastError() after the launch (0 = launched), or
+// cudaErrorInvalidValue for a malformed grid without launching.
 extern "C" int crychic_raster(const void* records, const void* starts,
-                              const void* counts, int num_tiles, int ntx,
-                              int width, int height, void* depth, void* tid,
+                              const void* counts, int tile_offset,
+                              int grid_tiles, int ntx, int width,
+                              int height, void* depth, void* tid,
                               int with_xrange, void* stream) {
+  if (tile_offset < 0 || grid_tiles <= 0 || ntx <= 0 ||
+      grid_tiles % ntx != 0 || width <= 0 || width > ntx * TILE_W ||
+      height <= 0 || height > (grid_tiles / ntx) * TILE_H)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tid != nullptr) {
     if (with_xrange)
-      launch<true, true>(records, starts, counts, num_tiles, ntx, width,
-                         height, depth, tid, s);
+      launch<true, true>(records, starts, counts, tile_offset, grid_tiles,
+                         ntx, width, height, depth, tid, s);
     else
-      launch<true, false>(records, starts, counts, num_tiles, ntx, width,
-                          height, depth, tid, s);
+      launch<true, false>(records, starts, counts, tile_offset, grid_tiles,
+                          ntx, width, height, depth, tid, s);
   } else {
     if (with_xrange)
-      launch<false, true>(records, starts, counts, num_tiles, ntx, width,
-                          height, depth, tid, s);
+      launch<false, true>(records, starts, counts, tile_offset, grid_tiles,
+                          ntx, width, height, depth, tid, s);
     else
-      launch<false, false>(records, starts, counts, num_tiles, ntx, width,
-                           height, depth, tid, s);
+      launch<false, false>(records, starts, counts, tile_offset,
+                           grid_tiles, ntx, width, height, depth, tid, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

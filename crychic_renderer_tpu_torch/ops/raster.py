@@ -9,7 +9,9 @@ the XLA helpers around it (``tri_records``, ``build_records``) port as
 torch code that both the kernel and the plain version read.
 
 - ``rasterize`` is the entry point the frame calls: bin, build records,
-  raster. It returns (depth, tid, overflowed).
+  raster. It returns (depth, tid, overflowed), for the full screen (K1,
+  K2) or one band of it (K3: one owner's interleaved tile rows, or a
+  contiguous run of tile rows, with the full screen's tile anchors).
 - ``raster_tiles`` is the kernel wrapper. A CPU tensor goes to
   ``rasterize_plain``; a CUDA tensor launches the kernel or raises.
 - ``rasterize_plain`` evaluates every pair against its tile's 1024 pixels
@@ -44,11 +46,13 @@ EDGE_EPS = 0.5 / (rz.SUBPIXEL * rz.SUBPIXEL)
 REC_ROWS = 16
 
 # Launches of the CUDA kernel since import (or since a caller reset them),
-# in all and per variant: "ids" (depth + triangle id, the main view) and
-# "depth" (depth only, the shadow atlas). Incremented by raster_tiles where
-# it launches, and nowhere else.
+# in all and per variant: "ids" (depth + triangle id, the main view, K1),
+# "depth" (depth only, the shadow atlas, K2), and their band launches
+# "band_ids" and "band_depth" (K3, the band-sharded frame). Incremented by
+# raster_tiles where it launches, and nowhere else.
 LAUNCHES = 0
-LAUNCHES_BY_VARIANT = {"ids": 0, "depth": 0}
+LAUNCHES_BY_VARIANT = {"ids": 0, "depth": 0, "band_ids": 0,
+                       "band_depth": 0}
 
 
 def tri_records(tris: rz.ScreenTris, xrange=None) -> torch.Tensor:
@@ -81,18 +85,27 @@ def tri_records(tris: rz.ScreenTris, xrange=None) -> torch.Tensor:
 
 
 def build_records(tris: rz.ScreenTris, bins: rz.Bins, ntx: int,
-                  num_tiles: int, xrange=None) -> torch.Tensor:
+                  num_tiles: int, xrange=None,
+                  row_unperm=None) -> torch.Tensor:
     """Tile-anchored pair records (P, 16), in sorted pair order.
 
     One row gather per pair from the per-triangle records, then C, zC and
     the column guard are re-anchored at the pair's tile origin. Rows past
-    the valid pairs ride along; no tile run reaches them."""
+    the valid pairs ride along; no tile run reaches them.
+
+    row_unperm=(n_dev, rpd): ``bins`` holds owner-major keys (interleaved
+    binning); key row kr is true tile row (kr % rpd) * n_dev + kr // rpd,
+    and the anchors stay those of the full screen."""
     trecs = tri_records(tris, xrange)
     rec = trecs[bins.order.long()]  # (P, 16)
     tile_of = torch.clamp(bins.sorted_tile, max=num_tiles - 1)
     x0 = (torch.remainder(tile_of, ntx) * TILE_W).to(torch.float32)[:, None]
-    y0 = (torch.div(tile_of, ntx, rounding_mode="floor")
-          * TILE_H).to(torch.float32)[:, None]
+    ty = torch.div(tile_of, ntx, rounding_mode="floor")
+    if row_unperm is not None:
+        n_dev, rpd = row_unperm
+        ty = (torch.remainder(ty, rpd) * n_dev
+              + torch.div(ty, rpd, rounding_mode="floor"))
+    y0 = (ty * TILE_H).to(torch.float32)[:, None]
     A, B = rec[:, 0:3], rec[:, 3:6]
     C = rec[:, 6:9] + A * x0 + B * y0
     zC = rec[:, 11:12] + rec[:, 9:10] * x0 + rec[:, 10:11] * y0
@@ -106,29 +119,95 @@ def build_records(tris: rz.ScreenTris, bins: rz.Bins, ntx: int,
 
 
 def binned_records(tris: rz.ScreenTris, width: int, height: int,
-                   pair_capacity: int, xrange=None):
-    """Bin + record build: the raster kernel's inputs.
+                   pair_capacity: int, xrange=None, row_stride=None,
+                   tile_row_offset: int = None, num_tile_rows: int = None):
+    """Bin + record build: the raster kernel's inputs, for the full screen
+    or one band (``row_stride`` or ``tile_row_offset``/``num_tile_rows``,
+    see rz.bin_triangles).
 
-    Returns (records (P, 16) f32, starts (tiles,) i32, counts (tiles,) i32,
+    Returns (records (P, 16) f32, starts (keys,) i32, counts (keys,) i32,
     overflowed () bool)."""
     ntx = -(-width // TILE_W)
     nty = -(-height // TILE_H)
-    bins = rz.bin_triangles(tris, width, height, pair_capacity)
-    records = build_records(tris, bins, ntx, ntx * nty, xrange)
+    bins = rz.bin_triangles(tris, width, height, pair_capacity,
+                            ty_lo=tile_row_offset, num_rows=num_tile_rows,
+                            row_stride=row_stride)
+    row_unperm = None
+    if row_stride is not None:
+        row_unperm = (row_stride[0], -(-nty // row_stride[0]))
+    records = build_records(tris, bins, ntx, bins.starts.shape[0], xrange,
+                            row_unperm)
     return records, bins.starts, bins.counts, bins.overflowed
 
 
+def band_grid(width: int, height: int, row_stride=None,
+              tile_row_offset: int = None, num_tile_rows: int = None):
+    """(tile_offset, rows) of one raster launch over a width x height
+    screen: (None, height) for the full screen; for a band, the first key
+    of its grid and its output rows, whole tiles and not cropped to the
+    screen. Interleaved output row s * TILE_H + r is true tile row
+    s * n_dev + owner."""
+    ntx = -(-width // TILE_W)
+    nty = -(-height // TILE_H)
+    if row_stride is not None:
+        n_dev, owner = row_stride
+        rpd = -(-nty // n_dev)
+        return owner * rpd * ntx, rpd * TILE_H
+    if num_tile_rows is not None:
+        return tile_row_offset * ntx, num_tile_rows * TILE_H
+    return None, height
+
+
 def rasterize(tris: rz.ScreenTris, width: int, height: int,
-              pair_capacity: int, with_ids: bool = True, xrange=None):
+              pair_capacity: int, with_ids: bool = True, xrange=None,
+              row_stride=None, tile_row_offset: int = None,
+              num_tile_rows: int = None):
     """Full pipeline: bin + record build + raster (kernel on CUDA).
 
-    Returns (depth (H, W) f32, tid (H, W) i32 or None, overflowed () bool
-    — True when pairs beyond pair_capacity were dropped)."""
+    Band modes: ``row_stride=(n_dev, owner)`` rasterizes the owner's
+    interleaved tile rows into (rpd * TILE_H, W) slot-major stripes;
+    ``tile_row_offset``/``num_tile_rows`` rasterizes that contiguous run of
+    tile rows into (num_tile_rows * TILE_H, W). Binning and anchors stay
+    those of the full width x height screen, so band pixels equal the
+    full-screen raster's bit for bit.
+
+    Returns (depth f32, tid i32 or None, overflowed () bool — True when
+    pairs beyond pair_capacity were dropped); (H, W) for the full screen."""
     records, starts, counts, overflowed = binned_records(
-        tris, width, height, pair_capacity, xrange)
-    depth, tid = raster_tiles(records, starts, counts, width, height,
-                              with_ids, xrange is not None)
+        tris, width, height, pair_capacity, xrange, row_stride,
+        tile_row_offset, num_tile_rows)
+    tile_offset, rows = band_grid(width, height, row_stride,
+                                  tile_row_offset, num_tile_rows)
+    depth, tid = raster_tiles(records, starts, counts, width, rows,
+                              with_ids, xrange is not None, tile_offset)
     return depth, tid, overflowed
+
+
+def _launch_grid(starts: torch.Tensor, counts: torch.Tensor, width: int,
+                 height: int, tile_offset):
+    """(ntx, first key, grid tiles) of a launch, or ValueError. A band
+    (tile_offset given) is whole tile rows read from keys [tile_offset,
+    tile_offset + grid) of the binning's key space."""
+    if starts.dim() != 1 or counts.shape != starts.shape:
+        raise ValueError("starts and counts must be 1-D tensors of one "
+                         "length")
+    ntx = -(-width // TILE_W)
+    rows = -(-height // TILE_H)
+    keys = starts.shape[0]
+    if tile_offset is None:
+        if keys != ntx * rows:
+            raise ValueError(f"starts/counts hold {keys} tiles, the "
+                             f"{width}x{height} screen has {ntx * rows}")
+        return ntx, 0, ntx * rows
+    grid = ntx * rows
+    if (height % TILE_H or not isinstance(tile_offset, int)
+            or tile_offset < 0 or tile_offset % ntx or keys % ntx
+            or tile_offset + grid > keys):
+        raise ValueError(
+            f"band of {height} rows from key {tile_offset!r}: need whole "
+            f"{TILE_H}-row tiles and a row-aligned tile_offset with "
+            f"tile_offset + {grid} <= {keys} keys (ntx {ntx})")
+    return ntx, tile_offset, grid
 
 
 # ---------------------------------------------------------------------------
@@ -148,27 +227,32 @@ def _assemble(flat: torch.Tensor, ntx: int, nty: int, width: int,
 
 def rasterize_plain(records: torch.Tensor, starts: torch.Tensor,
                     counts: torch.Tensor, width: int, height: int,
-                    with_ids: bool = True, with_xrange: bool = False):
-    """What the raster kernel computes, in plain tensor ops.
+                    with_ids: bool = True, with_xrange: bool = False,
+                    tile_offset: int = None):
+    """What the raster kernel computes, in plain tensor ops, with
+    raster_tiles' arguments (a band when tile_offset is given).
 
-    Every valid pair is evaluated against its tile's pixels in chunks of
-    pairs; the per-pixel min z (clear 1.0) is a scatter_reduce(amin), and
-    the id is the smallest id among the pairs whose z equals that min
-    (below the 1.0 clear). Reads the valid-pair count back to the host."""
+    Every pair of the grid's runs is evaluated against its tile's pixels
+    in chunks of pairs; the per-pixel min z (clear 1.0) is a
+    scatter_reduce(amin), and the id is the smallest id among the pairs
+    whose z equals that min (below the 1.0 clear). Reads the grid's pair
+    range back to the host."""
     dev = records.device
-    ntx = -(-width // TILE_W)
-    nty = -(-height // TILE_H)
-    num_tiles = ntx * nty
+    ntx, off, num_tiles = _launch_grid(starts, counts, width, height,
+                                       tile_offset)
+    nty = num_tiles // ntx
     P = TILE_H * TILE_W
     lane = torch.arange(P, device=dev)
     px = (lane % TILE_W).to(torch.float32) + 0.5
     py = torch.div(lane, TILE_W, rounding_mode="floor").to(torch.float32) \
         + 0.5
-    ends = starts + counts
-    n_valid = int(ends[-1]) if num_tiles else 0
+    # the grid's runs are one contiguous pair range, tile by tile
+    ends = (starts + counts)[off:off + num_tiles]
+    first = int(starts[off])
+    n_valid = int(ends[-1])
 
     def chunks():
-        for c0 in range(0, n_valid, _PLAIN_CHUNK):
+        for c0 in range(first, n_valid, _PLAIN_CHUNK):
             c1 = min(c0 + _PLAIN_CHUNK, n_valid)
             j = torch.arange(c0, c1, dtype=torch.int32, device=dev)
             tile = torch.searchsorted(ends, j, right=True).long()
@@ -214,26 +298,32 @@ def rasterize_plain(records: torch.Tensor, starts: torch.Tensor,
 
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
 LIBRARY = KernelLibrary("raster.cu", "crychic_raster", {
-    "crychic_raster": ([_vp, _vp, _vp, _ci, _ci, _ci, _ci, _vp, _vp, _ci,
-                        _vp], _ci),
+    "crychic_raster": ([_vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _vp, _vp,
+                        _ci, _vp], _ci),
     "crychic_raster_error": ([_ci], ctypes.c_char_p),
 })
 
 
 def raster_tiles(records: torch.Tensor, starts: torch.Tensor,
                  counts: torch.Tensor, width: int, height: int,
-                 with_ids: bool = True, with_xrange: bool = False):
-    """The raster kernel's wrapper: (depth (H, W) f32, tid (H, W) i32 or
-    None). CPU tensors take rasterize_plain; CUDA tensors launch the
-    kernel of csrc/raster.cu on the current stream, or raise."""
+                 with_ids: bool = True, with_xrange: bool = False,
+                 tile_offset: int = None):
+    """The raster kernel's wrapper: (depth (height, width) f32, tid
+    (height, width) i32 or None). CPU tensors take rasterize_plain; CUDA
+    tensors launch the kernel of csrc/raster.cu on the current stream, or
+    raise.
+
+    tile_offset None: the full screen, starts/counts indexed by tile.
+    tile_offset an int: a band launch (K3) of height / TILE_H whole tile
+    rows, whose tile b reads key tile_offset + b of the band binning's
+    starts/counts and lands at row (b // ntx) * TILE_H (see band_grid)."""
     if records.device.type == "cpu":
         return rasterize_plain(records, starts, counts, width, height,
-                               with_ids, with_xrange)
+                               with_ids, with_xrange, tile_offset)
     if records.device.type != "cuda":
         raise ValueError(f"raster_tiles: unsupported device {records.device}")
     global LAUNCHES
-    ntx = -(-width // TILE_W)
-    num_tiles = ntx * -(-height // TILE_H)
+    ntx, off, grid = _launch_grid(starts, counts, width, height, tile_offset)
     if (records.dtype != torch.float32 or records.dim() != 2
             or records.shape[1] != REC_ROWS or not records.is_contiguous()
             or records.data_ptr() % 16):
@@ -243,10 +333,10 @@ def raster_tiles(records: torch.Tensor, starts: torch.Tensor,
         raise ValueError(f"pair capacity {records.shape[0]} is not a "
                          f"multiple of {TRI_BLOCK}")
     for name, t in (("starts", starts), ("counts", counts)):
-        if (t.dtype != torch.int32 or t.shape != (num_tiles,)
-                or not t.is_contiguous() or t.device != records.device):
-            raise ValueError(f"{name} must be a contiguous ({num_tiles},) "
-                             f"int32 tensor on {records.device}")
+        if (t.dtype != torch.int32 or not t.is_contiguous()
+                or t.device != records.device):
+            raise ValueError(f"{name} must be a contiguous int32 tensor on "
+                             f"{records.device}")
     lib = LIBRARY.load()
     dev = records.device
     depth = torch.empty((height, width), dtype=torch.float32, device=dev)
@@ -255,14 +345,17 @@ def raster_tiles(records: torch.Tensor, starts: torch.Tensor,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.crychic_raster(
-            records.data_ptr(), starts.data_ptr(), counts.data_ptr(),
-            num_tiles, ntx, width, height, depth.data_ptr(),
+            records.data_ptr(), starts.data_ptr(), counts.data_ptr(), off,
+            grid, ntx, width, height, depth.data_ptr(),
             tid.data_ptr() if with_ids else None, int(with_xrange), stream)
     if rc != 0:
         raise RuntimeError("raster kernel launch failed: "
                            + lib.crychic_raster_error(rc).decode())
     LAUNCHES += 1
-    LAUNCHES_BY_VARIANT["ids" if with_ids else "depth"] += 1
+    variant = "ids" if with_ids else "depth"
+    if tile_offset is not None:
+        variant = "band_" + variant
+    LAUNCHES_BY_VARIANT[variant] += 1
     return depth, tid
 
 

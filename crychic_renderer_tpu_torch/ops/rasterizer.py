@@ -16,9 +16,10 @@ D3D11/12 rasterization rules replicated:
 
 Binning is exact and static-shaped: per-triangle tile-bbox counts ->
 exclusive cumsum -> fixed-capacity pair expansion -> stable sort of pairs by
-tile -> contiguous per-tile runs (start, count). Only the full-screen mode
-is ported; the multi-chip band modes come with ``parallel/``. Integer
-tensors stay int32 as in the JAX package (``cumsum`` is given the dtype).
+tile -> contiguous per-tile runs (start, count), for the full screen, a
+contiguous band of tile rows, or one owner's interleaved tile rows (the
+band-sharded frame, ``parallel/sharded.py``). Integer tensors stay int32
+as in the JAX package (``cumsum`` is given the dtype).
 """
 from __future__ import annotations
 
@@ -141,8 +142,9 @@ def _tile_bbox(tris: ScreenTris, width: int, height: int,
 
 def bin_triangles(tris: ScreenTris, width: int, height: int,
                   pair_capacity: int, tile_h: int = TILE_H,
-                  tile_w: int = TILE_W) -> Bins:
-    """Exact tile binning with static shapes (full-screen mode).
+                  tile_w: int = TILE_W, ty_lo: int = None,
+                  num_rows: int = None, row_stride=None) -> Bins:
+    """Exact tile binning with static shapes.
 
     Expands each triangle into (tile, tri) pairs via an exclusive cumsum
     (no per-triangle loop, no per-triangle cap), sorts pairs by tile id
@@ -150,11 +152,49 @@ def bin_triangles(tris: ScreenTris, width: int, height: int,
     keeps each tile run's triangle ids strictly ascending, which the
     raster kernel's exact-z tie rule relies on. Pairs beyond
     ``pair_capacity`` are dropped and reported in ``overflowed``.
+
+    Contiguous band (``ty_lo`` and ``num_rows``): only pairs whose tile
+    row lies in [ty_lo, ty_lo + num_rows) are expanded. Tile ids stay
+    global, and every in-band tile's run holds the same triangles in the
+    same order as the full-screen binning.
+
+    Interleaved rows (``row_stride=(n_dev, owner)``): only tile rows ty
+    with ty % n_dev == owner are expanded, and pairs are sorted by the
+    OWNER-MAJOR key (owner * rpd + ty // n_dev) * ntx + tx, rpd =
+    ceil(nty / n_dev), so each owner's tiles are one contiguous key range
+    [owner * rpd * ntx, (owner + 1) * rpd * ntx) while every run's
+    contents and order stay those of the full-screen binning. ``starts``,
+    ``counts`` and ``sorted_tile`` are indexed by that key (key space
+    rpd * n_dev * ntx); key row kr is true tile row
+    (kr % rpd) * n_dev + kr // rpd.
     """
     tx0, ty0, bw, bh, ntx, nty = _tile_bbox(tris, width, height,
                                             tile_h, tile_w)
     dev = tx0.device
+    zero = torch.zeros_like(bw)
+    if ty_lo is not None:
+        ty1 = ty0 + bh - 1
+        ty0 = torch.clamp(ty0, min=ty_lo)
+        bh = torch.clamp(torch.clamp(ty1, max=ty_lo + num_rows - 1)
+                         - ty0 + 1, min=0)
+        bw = torch.where(bh > 0, bw, zero)
+        bh = torch.where(bw > 0, bh, zero)
+    row_mult = 1
     num_keys = ntx * nty
+    if row_stride is not None:
+        n_dev, owner = row_stride
+        rpd = -(-nty // n_dev)
+        # owned rows of the bbox: ty0 <= ty <= ty1 with ty % n_dev == owner
+        ty1 = ty0 + bh - 1
+        first = ty0 + torch.remainder(owner - ty0, n_dev)
+        bh = torch.where(first > ty1, zero,
+                         torch.div(ty1 - first, n_dev,
+                                   rounding_mode="floor") + 1)
+        ty0 = first
+        bw = torch.where(bh > 0, bw, zero)
+        bh = torch.where(bw > 0, bh, zero)
+        row_mult = n_dev
+        num_keys = rpd * n_dev * ntx
     counts = bw * bh
     ends = torch.cumsum(counts, 0, dtype=torch.int32)
     offsets = ends - counts  # exclusive
@@ -172,10 +212,13 @@ def bin_triangles(tris: ScreenTris, width: int, height: int,
     pp = packed[tri_of_pair.long()]  # (P, 4)
     slot = pair_idx - pp[:, 0]
     bw_p = torch.clamp(pp[:, 1], min=1)
-    ty = pp[:, 3] + torch.div(slot, bw_p, rounding_mode="floor")
+    ty = pp[:, 3] + torch.div(slot, bw_p, rounding_mode="floor") * row_mult
     tx = pp[:, 2] + torch.remainder(slot, bw_p)
     valid_pair = pair_idx < torch.clamp(total, max=pair_capacity)
-    tile_id = torch.where(valid_pair, ty * ntx + tx,
+    key_row = ty
+    if row_stride is not None:
+        key_row = owner * rpd + torch.div(ty, n_dev, rounding_mode="floor")
+    tile_id = torch.where(valid_pair, key_row * ntx + tx,
                           torch.full_like(ty, num_keys))
 
     sorted_tile, perm = torch.sort(tile_id, stable=True)

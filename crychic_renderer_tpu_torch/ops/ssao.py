@@ -161,7 +161,8 @@ def _tap_depth_bilinear_white(rows, H, W, u, v):
 
 def ssao_occlusion(normal_v, depth_ndc, proj, inv_proj, offsets,
                    random_field, occlusion_radius=0.5, fade_start=0.2,
-                   fade_end=1.0, surface_eps=0.05, tap_depth=None):
+                   fade_end=1.0, surface_eps=0.05, tap_depth=None,
+                   row_offset: int = 0, full_height: int = None):
     """Half-res SSAO occlusion pass (Ssao.hlsl PS), random-field path.
 
     normal_v: (h, w, 3) view-space normals (half-res); depth_ndc: (h, w)
@@ -170,6 +171,11 @@ def ssao_occlusion(normal_v, depth_ndc, proj, inv_proj, offsets,
     tap_depth: the FULL-RESOLUTION NDC depth the 14 occluder taps sample
     (bilinear, border white); None falls back to depth_ndc. Returns (h, w)
     ambient access in [0, 1].
+
+    Band rendering (parallel.sharded): the inputs are rows [row_offset,
+    row_offset + h) of a full_height-row map, so the view rays use global
+    rows; random_field is the band's rows and tap_depth the whole screen's
+    depth (the taps land anywhere on it).
     """
     if tap_depth is None:
         tap_depth = depth_ndc
@@ -177,9 +183,12 @@ def ssao_occlusion(normal_v, depth_ndc, proj, inv_proj, offsets,
     dev = depth_ndc.device
 
     h, w = depth_ndc.shape
+    if full_height is None:
+        full_height = h
     # view-space ray through each pixel (quad corners -> inv proj)
     uu = (torch.arange(w, dtype=torch.float32, device=dev) + 0.5) / w
-    vv = (torch.arange(h, dtype=torch.float32, device=dev) + 0.5) / h
+    vv = (torch.arange(h, dtype=torch.float32, device=dev) + row_offset
+          + 0.5) / full_height
     U, V = torch.meshgrid(uu, vv, indexing="xy")  # both (h, w)
     ndc = torch.stack([2 * U - 1, 1 - 2 * V, torch.zeros_like(U),
                        torch.ones_like(U)], dim=-1)

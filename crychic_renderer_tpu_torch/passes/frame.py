@@ -20,10 +20,13 @@ render options (fast preset, soft PCF disk, trilinear and other
 anisotropy settings, single-mip pool, cubemap sky, debug views): both
 raster launches go through ``ops.raster`` and the soft PCF through
 ``ops.pcf`` (CUDA kernels on the card); the resolve, SSAO and the rest of
-the lighting are dense tensor code (the JAX package's tile compaction,
-dead-pixel gather spreads and band modes only move gather indices and are
-left out). The forward path, Blinn-Phong lighting and the alpha layer
-raise NotImplementedError from ``render_frame``, naming the field.
+the lighting are dense tensor code (the JAX package's tile compaction and
+dead-pixel gather spreads only move gather indices and are left out). The
+resolve, lighting and overlay passes also render a row band of the screen
+at global rows (``row_offset``), for the band-sharded frame of
+``parallel/sharded.py``. The forward path, Blinn-Phong lighting and the
+alpha layer raise NotImplementedError from ``render_frame``, naming the
+field.
 """
 from __future__ import annotations
 
@@ -486,21 +489,32 @@ def _resolve_core(scene: DeviceScene, consts: FrameConstants,
 def resolve_gbuffer(scene: DeviceScene, consts: FrameConstants,
                     cfg: RenderConfig, tris: rz.ScreenTris,
                     depth: torch.Tensor, tid: torch.Tensor,
-                    tri_attr: torch.Tensor):
+                    tri_attr: torch.Tensor, row_offset: int = 0,
+                    out_rows: int = None):
     """Gather the winning triangle's vertex data per pixel and build the
     G-buffer (GeometryPass.hlsl PS + GBuffer.hlsl encode, fused with the
     DrawNormals.hlsl view-space-normal output), dense over the screen.
 
     Returns dict with pos_w (H,W,3), normal_w bumped (H,W,3), normal_v
     view (H,W,3), albedo (H,W,4), roughness, metalness (H,W,1), valid
-    (H,W)."""
+    (H,W).
+
+    Band rendering (parallel.sharded): depth/tid are rows starting at
+    global pixel row ``row_offset`` (barycentrics are evaluated there, so
+    band pixels equal the full frame's), and ``out_rows`` trims the halo
+    row the band carries below itself off every output. The uv
+    derivatives are per-primitive, so the halo row changes no pixel."""
     H, W = depth.shape
     dev = depth.device
     rec = _build_resolve_records(tris, tri_attr)
     px = (torch.arange(W, dtype=torch.float32, device=dev) + 0.5)[None, :]
-    py = (torch.arange(H, dtype=torch.float32, device=dev) + 0.5)[:, None]
-    return _resolve_core(scene, consts, cfg, rec, tid, px.expand(H, W),
-                         py.expand(H, W))
+    py = (torch.arange(H, dtype=torch.float32, device=dev) + row_offset
+          + 0.5)[:, None]
+    g = _resolve_core(scene, consts, cfg, rec, tid, px.expand(H, W),
+                      py.expand(H, W))
+    if out_rows is not None and out_rows != H:
+        g = {k: v[:out_rows] for k, v in g.items()}
+    return g
 
 
 # ---------------------------------------------------------------------------
@@ -562,14 +576,23 @@ def _upsample_bilinear(img: torch.Tensor, H: int, W: int) -> torch.Tensor:
 
 def lighting_pass(scene: DeviceScene, consts: FrameConstants,
                   cfg: RenderConfig, g: dict, shadow_maps, ambient_access,
-                  depth: torch.Tensor) -> torch.Tensor:
+                  depth: torch.Tensor, row_offset: int = 0,
+                  full_height: int = None,
+                  shadow_factor: torch.Tensor = None) -> torch.Tensor:
     """Deferred PBR lighting (DeferredShading.hlsl PS) + cascade PCF (the
     compiled zero radius, or the soft disk of cfg.pcf_radius_texels) + sky
     (procedural, or sampled from the scene's cubemap). With
     cfg.fast_shadow_factor the PCF factor is evaluated on every other
-    pixel of every other row and upsampled bilinearly."""
+    pixel of every other row and upsampled bilinearly.
+
+    Band rendering (parallel.sharded): the rows start at global row
+    ``row_offset`` of a ``full_height``-row screen (the sky ray's NDC y),
+    and ``shadow_factor`` ((H, W)), when given, replaces the PCF
+    evaluation (the sharded fast preset computes it across bands)."""
     H, W = depth.shape
     dev = depth.device
+    if full_height is None:
+        full_height = H
     valid = g["valid"]
     pos_w = g["pos_w"]
     normal = shading.normalize(g["normal_w"])
@@ -583,16 +606,20 @@ def lighting_pass(scene: DeviceScene, consts: FrameConstants,
                * albedo)
 
     if cfg.shadows_enabled:
-        # performance mode: the (smooth) PCF factor on a half-res grid,
-        # upsampled; the quality cost is at shadow silhouettes only
-        k = 2 if cfg.fast_shadow_factor else 1
-        sf = shadows.cascade_shadow_factor(
-            shadow_maps, consts.shadow_transforms, pos_w[::k, ::k],
-            consts.eye_pos, cfg.shadow_map_size,
-            deferred_blend_quirk=cfg.deferred,
-            soft_radius_texels=cfg.pcf_radius_texels, dead=~valid[::k, ::k])
-        if cfg.fast_shadow_factor:
-            sf = _upsample_bilinear(sf, H, W)
+        if shadow_factor is not None:
+            sf = shadow_factor
+        else:
+            # performance mode: the (smooth) PCF factor on a half-res
+            # grid, upsampled; the quality cost is at shadow silhouettes
+            k = 2 if cfg.fast_shadow_factor else 1
+            sf = shadows.cascade_shadow_factor(
+                shadow_maps, consts.shadow_transforms, pos_w[::k, ::k],
+                consts.eye_pos, cfg.shadow_map_size,
+                deferred_blend_quirk=cfg.deferred,
+                soft_radius_texels=cfg.pcf_radius_texels,
+                dead=~valid[::k, ::k])
+            if cfg.fast_shadow_factor:
+                sf = _upsample_bilinear(sf, H, W)
         sf = sf[..., None]
     else:
         sf = torch.ones_like(roughness)
@@ -614,7 +641,7 @@ def lighting_pass(scene: DeviceScene, consts: FrameConstants,
         ndc_x = (torch.arange(W, dtype=torch.float32, device=dev) + 0.5) \
             / W * 2.0 - 1.0
         ndc_y = 1.0 - (torch.arange(H, dtype=torch.float32, device=dev)
-                       + 0.5) / H * 2.0
+                       + row_offset + 0.5) / full_height * 2.0
         ndc = torch.stack(
             [ndc_x[None, :].expand(H, W), ndc_y[:, None].expand(H, W),
              torch.ones((H, W), dtype=torch.float32, device=dev),
@@ -731,8 +758,11 @@ def render_frame(scene: DeviceScene, consts: FrameConstants,
 
 def apply_debug_overlay(consts: FrameConstants, cfg: RenderConfig,
                         img: torch.Tensor, shadow_maps: torch.Tensor,
-                        pos_w: torch.Tensor) -> torch.Tensor:
-    """Debug-layer overlays on the lit image.
+                        pos_w: torch.Tensor, row_offset: int = 0,
+                        full_height: int = None) -> torch.Tensor:
+    """Debug-layer overlays on the lit image (`img`/`pos_w` may be a row
+    band whose first row is global row `row_offset` of a
+    `full_height`-row screen).
 
     - ShadowDebug.hlsl quad (CRYCHIC.cpp:406-407, PSO "debug"): the
       shadow-map blit quad, drawn for cfg.debug_view == "shadow_cascade3".
@@ -742,13 +772,15 @@ def apply_debug_overlay(consts: FrameConstants, cfg: RenderConfig,
       colorizes pixels by their selected cascade.
     """
     H, W = img.shape[:2]
+    full_h = H if full_height is None else full_height
     dev = img.device
     if cfg.debug_view == "shadow_cascade3":
         # blit gShadowMap[3] onto the debug quad, which
         # CreateQuad(0,0,1,1,0) places in the bottom-right screen quadrant
-        qh, qw = H // 2, W // 2
+        qh, qw = full_h // 2, W // 2
         S = shadow_maps.shape[1]
-        qy = torch.arange(H, device=dev) - (H - qh)  # <0 above the quad
+        # row within the quad (<0 above it)
+        qy = torch.arange(H, device=dev) + row_offset - (full_h - qh)
         ys = torch.div(torch.clamp(qy, 0, qh - 1) * S, qh,
                        rounding_mode="floor")
         xs = torch.div(torch.arange(qw, device=dev) * S, qw,

@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain versions, on the card.
 
 - The raster kernel (csrc/raster.cu): no tolerance, depth and tid must be
-  equal (torch.equal).
+  equal (torch.equal), for the full screen (K1, K2) and for every owner's
+  band launch (K3), whose bands reassembled equal the full screen's.
 - The soft PCF kernel (csrc/pcf.cu): 1e-5. Both sum the same <= 64 tent
   weights from the same parameters; the kernel keeps the plain version's
   order and rounds each operation on its own, so it is expected to be
@@ -102,6 +103,100 @@ def test_kernel_equals_plain_config4_small(cuda):
                                            r.cfg.shadow_pair_capacity,
                                            xrange=xr)
     _check(rec, st, cn, 1024, 256, False, True)
+
+
+def _config4_small_inputs(device):
+    """(renderer, main-view tris, atlas tris, atlas xrange) of the 1/8
+    config-4 frame on `device`."""
+    from crychic_renderer_tpu_torch.app.renderer import Renderer
+    from crychic_renderer_tpu_torch.models.scenes_baseline import CONFIGS
+    from crychic_renderer_tpu_torch.passes import frame as fr
+
+    scene, cfg, lights = CONFIGS[4]()
+    cfg = dataclasses.replace(cfg, width=240, height=135, shadow_map_size=256)
+    r = Renderer(scene, cfg, lights=lights, device=device)
+    c = r.frame_constants(0.0)
+    tris, _ = fr.main_view_tris(r.device_scene, c, r.cfg)
+    atris, xr = fr.shadow_atlas_tris(r.device_scene, c.shadow_visibility,
+                                     c.cascade_view_projs, r.cfg)
+    return r, tris, atris, xr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view,n", [("main", 4), ("atlas", 3)])
+def test_band_kernel_equals_plain_config4_small(cuda, view, n):
+    """K3 on each owner's interleaved tile rows equals rasterize_plain in
+    the same band mode, and the n bands reassembled equal the full-screen
+    launch (main view at n=4: 17 tile rows in 20 key rows; atlas at n=3:
+    32 in 33)."""
+    r, tris, atris, xr = _config4_small_inputs(cuda)
+    if view == "main":
+        args = (tris, 240, 136, r.cfg.pair_capacity)
+        kw, ids = {}, True
+    else:
+        args = (atris, 1024, 256, r.cfg.shadow_pair_capacity)
+        kw, ids = dict(xrange=xr), False
+    W, H = args[1], args[2]
+    full = raster.rasterize(*args, with_ids=ids, **kw)
+    parts = []
+    for d in range(n):
+        rec, st, cn, over = raster.binned_records(*args, row_stride=(n, d),
+                                                  **kw)
+        assert not bool(over)
+        off, rows = raster.band_grid(W, H, row_stride=(n, d))
+        before = dict(raster.LAUNCHES_BY_VARIANT)
+        dk, tk = raster.raster_tiles(rec, st, cn, W, rows, ids, not ids, off)
+        torch.cuda.synchronize()
+        key = "band_ids" if ids else "band_depth"
+        assert raster.LAUNCHES_BY_VARIANT[key] == before[key] + 1
+        dp, tp = raster.rasterize_plain(rec, st, cn, W, rows, ids, not ids,
+                                        off)
+        assert torch.equal(dk, dp) and (not ids or torch.equal(tk, tp))
+        parts.append((dk, tk))
+    rows = parts[0][0].shape[0]
+    for i in range(2 if ids else 1):
+        g = torch.stack([p[i] for p in parts]).reshape(n, rows // 8, 8, W)
+        g = g.transpose(0, 1).reshape(n * rows, W)[:full[i].shape[0]]
+        assert torch.equal(g, full[i])
+
+
+@pytest.mark.cuda
+def test_band_kernel_rejects_malformed_grid(cuda):
+    """A band grid past the key space, off a tile row, or of partial tile
+    rows is refused before anything launches."""
+    rec = torch.zeros((128, 16), device=cuda)
+    keys = torch.zeros(45, dtype=torch.int32, device=cuda)
+    before = raster.LAUNCHES
+    for off, rows in ((30, 16), (7, 8), (-15, 8), (15, 12)):
+        with pytest.raises(ValueError, match="band of"):
+            raster.raster_tiles(rec, keys, keys, 1920, rows,
+                                tile_offset=off)
+    assert raster.LAUNCHES == before
+    d, _ = raster.raster_tiles(rec, keys, keys, 1920, 8, with_ids=False,
+                               tile_offset=30)
+    torch.cuda.synchronize()
+    assert raster.LAUNCHES == before + 1 and bool((d == 1.0).all())
+
+
+@pytest.mark.cuda
+def test_sharded_frame_on_card(cuda):
+    """Two gloo ranks sharing the card render the 1/8 frame: one K3 launch
+    of each kind per rank, and the frame equal to render_frame's within
+    tests/test_multichip.py's bound."""
+    from crychic_renderer_tpu_torch.parallel import launch
+    from crychic_renderer_tpu_torch.passes import frame as fr
+
+    raster.LIBRARY.load()  # built here once; the ranks load it
+    r, _, _, _ = _config4_small_inputs(cuda)
+    c = r.frame_constants(0.0)
+    ranks = launch.render_sharded([r.device_scene], [c], [(r.cfg, 0, (0,))],
+                                  2, "gloo", cuda)
+    ref = fr.render_frame(r.device_scene, c, r.cfg).cpu().numpy()
+    for (out,) in ranks:
+        assert out["launches"] == dict(ids=0, depth=0, band_ids=1,
+                                       band_depth=1)
+        diff = np.abs(out["img"] - ref).max(axis=-1)
+        assert (diff > 0.02).mean() <= 1e-3
 
 
 def test_wrapper_rejects_other_devices():
