@@ -47,7 +47,9 @@ soft PCF kernel (csrc/pcf.cu). Phases, each printed as it ends:
    ms/frame (not a scaling number: the ranks share one card);
 11. each owner's band alone at n=4 in sim_index mode (the all_gathers are
    copies of the local shard), median ms: the JAX package's per-device
-   band time method, printed without a claim.
+   band time method, printed without a claim. It does not time a band of
+   the real frame: the copied shards make every owner render its own
+   quarter of the triangles four times over, a different load per owner.
 
 Then one JSON line of per-kernel results (with each kernel's bound: the
 larger of the bytes its function must move over 3.35 TB/s and the f32
@@ -347,9 +349,11 @@ def main():
             times.append(1000.0 * (time.perf_counter() - t0))
         sim_ms.append(statistics.median(times))
     frame_ms["band_sim_index_n4"] = sim_ms
-    phase(f"[11] per-device band time, n=4, one band alone on the card "
-          f"(sim_index: the all_gathers are copies of the local shard, no "
-          f"transfer), median of 5 after 1 warm-up, owners 0-3: "
+    phase(f"[11] sim_index band time, n=4, one owner alone on the card "
+          f"(the all_gathers are copies of the local shard, no transfer, "
+          f"so each owner renders its own quarter of the triangles four "
+          f"times over, not its band of the real frame), median of 5 "
+          f"after 1 warm-up, owners 0-3: "
           f"{', '.join(f'{t:.3f}' for t in sim_ms)} ms")
 
     kernels.sort(key=lambda k: k["name"])
@@ -451,7 +455,7 @@ def sharded_frame(r, consts, band_cfg, dev):
         warmup=FRAMES_WARMUP, timed=FRAMES_TIMED, timeout=600)
     job_s = time.perf_counter() - t0
     frames = FRAMES_WARMUP + FRAMES_TIMED
-    want = dict(ids=0, depth=0, band_ids=frames, band_depth=frames)
+    want = dict(ids=0, depth=0, pcf=0, band_ids=frames, band_depth=frames)
     img = ranks[0][0]["img"]
     for rank, (out,) in enumerate(ranks):
         assert out["launches"] == want, (rank, out["launches"], want)
@@ -474,10 +478,8 @@ def sharded_frame(r, consts, band_cfg, dev):
           f"); launches per rank {want}; no overflow; vs render_frame on "
           f"the card: max |diff| {diff.max():.3g}, {frac:.4%} of pixels > "
           f"0.02; job {job_s:.1f} s with spawn")
-    total = dict(ids=0, depth=0, pcf=0,
-                 band_ids=sum(o[0]["launches"]["band_ids"] for o in ranks),
-                 band_depth=sum(o[0]["launches"]["band_depth"]
-                                for o in ranks))
+    # what the ranks counted, summed: every key of every rank was checked
+    total = {k: sum(o[0]["launches"][k] for o in ranks) for k in want}
     return ms, total
 
 

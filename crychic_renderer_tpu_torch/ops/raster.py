@@ -243,9 +243,13 @@ def rasterize_plain(records: torch.Tensor, starts: torch.Tensor,
     nty = num_tiles // ntx
     P = TILE_H * TILE_W
     lane = torch.arange(P, device=dev)
-    px = (lane % TILE_W).to(torch.float32) + 0.5
-    py = torch.div(lane, TILE_W, rounding_mode="floor").to(torch.float32) \
-        + 0.5
+    # pixel centres as a (1, 1, TILE_W) row and a (1, TILE_H, 1) column:
+    # A*px and B*py are multiplied once per pair and column or row, then
+    # broadcast-added over the tile, as the kernel does
+    px = torch.arange(TILE_W, dtype=torch.float32,
+                      device=dev).reshape(1, 1, TILE_W) + 0.5
+    py = torch.arange(TILE_H, dtype=torch.float32,
+                      device=dev).reshape(1, TILE_H, 1) + 0.5
     # the grid's runs are one contiguous pair range, tile by tile
     ends = (starts + counts)[off:off + num_tiles]
     first = int(starts[off])
@@ -259,16 +263,18 @@ def rasterize_plain(records: torch.Tensor, starts: torch.Tensor,
             r = records[c0:c1]
 
             def col(k):
-                return r[:, k:k + 1]
+                return r[:, k].reshape(-1, 1, 1)
 
-            E0 = col(0) * px + col(3) * py + col(6)
-            E1 = col(1) * px + col(4) * py + col(7)
-            E2 = col(2) * px + col(5) * py + col(8)
-            cov = (E0 >= 0.0) & (E1 >= 0.0) & (E2 >= 0.0)
+            def plane(a, b, c):  # ((A*px) + (B*py)) + C, (pairs, 8, 128)
+                return (col(a) * px + col(b) * py) + col(c)
+
+            cov = plane(0, 3, 6) >= 0.0
+            cov &= plane(1, 4, 7) >= 0.0
+            cov &= plane(2, 5, 8) >= 0.0
             if with_xrange:
-                cov = cov & (px >= col(13)) & (px < col(14))
-            z = col(9) * px + col(10) * py + col(11)
-            hit = cov & (z >= 0.0) & (z <= 1.0)
+                cov &= (px >= col(13)) & (px < col(14))
+            z = plane(9, 10, 11).reshape(-1, P)
+            hit = cov.reshape(-1, P) & (z >= 0.0) & (z <= 1.0)
             pix = tile[:, None] * P + lane  # flat (tile, lane) index
             yield r, z, hit, pix
 

@@ -7,10 +7,11 @@ directory, runs ``fn(*args)`` on every rank and returns the n results in
 rank order. spawn pickles ``fn`` by its module and name, so it must be a
 module-level function of an importable module.
 
-The backend and the device are the caller's choice, and nothing here
-changes them: ``nccl`` runs one rank per card (``device=f"cuda:{rank}"``
-is the caller's to arrange), ``gloo`` serves several ranks on one card
-(NCCL refuses two ranks on one GPU) and CPU tensors.
+The backend and the device are the caller's choice (both required, no
+default), and nothing here changes them: ``nccl`` runs one rank per card
+(``device=f"cuda:{rank}"`` is the caller's to arrange), ``gloo`` serves
+several ranks on one card (NCCL refuses two ranks on one GPU) and CPU
+tensors.
 
 ``frame_worker`` is the rank body of sharded frames rendered from host
 leaves: the tests run it on CPU ranks, ``chip_smoke.py`` on ranks that
@@ -20,6 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import pickle
 import queue
 import tempfile
 import time
@@ -29,14 +31,16 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-from ..ops import raster
+from ..ops import pcf, raster
 from ..passes import frame as fr
 from . import sharded
 
 
 def _rank_main(rank: int, n: int, backend: str, store_path: str, device,
-               fn, args, results):
+               call_path: str, results):
     try:
+        with open(call_path, "rb") as f:
+            fn, args = pickle.load(f)
         device = torch.device(device)
         if device.type == "cuda":
             if device.index is not None:
@@ -55,7 +59,7 @@ def _rank_main(rank: int, n: int, backend: str, store_path: str, device,
         results.put((rank, None, traceback.format_exc()))
 
 
-def spawn_ranks(fn, n: int, backend: str, device="cpu", args=(),
+def spawn_ranks(fn, n: int, backend: str, device, args=(),
                 timeout: float = 900.0) -> list:
     """Run fn(*args) on n spawned ranks of one process group; returns the
     results in rank order. Raises RuntimeError with the traceback of the
@@ -65,9 +69,16 @@ def spawn_ranks(fn, n: int, backend: str, device="cpu", args=(),
     results = ctx.Queue()
     got, errors = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
+        # fn and args reach the ranks through one file, not each process's
+        # start pipe: the parent writes that pipe to its end before the next
+        # rank starts (so large args would start the ranks one by one), and
+        # blocks on it for good if the rank dies before reading it all
+        call_path = os.path.join(tmp, "call.pkl")
+        with open(call_path, "wb") as f:
+            pickle.dump((fn, args), f, protocol=pickle.HIGHEST_PROTOCOL)
         procs = [ctx.Process(target=_rank_main, daemon=True,
                              args=(r, n, backend, os.path.join(tmp, "store"),
-                                   str(device), fn, args, results))
+                                   str(device), call_path, results))
                  for r in range(n)]
         for p in procs:
             p.start()
@@ -134,8 +145,9 @@ def frame_worker(scenes: list, consts: list, runs: list, device,
     frames of scenes[scene index]. Per run,
     returns dict(img: the last frame as numpy, ms: host ms of each timed
     frame (it ends in a collective, so every rank waits for the slowest),
-    launches: this rank's raster launches by variant over all the run's
-    frames, overflowed: whether any frame dropped pairs)."""
+    launches: this rank's raster launches by variant and soft PCF launches
+    ("pcf") over all the run's frames, overflowed: whether any frame
+    dropped pairs)."""
     device = torch.device(device)
     dscenes = [fr.DeviceScene.from_numpy(s, device) for s in scenes]
     dconsts = [fr.FrameConstants.from_numpy(c, device) for c in consts]
@@ -152,6 +164,7 @@ def frame_worker(scenes: list, consts: list, runs: list, device,
             c = sharded.stack_frames([dconsts[i] for i in ci])
             render = sharded.render_frames_replicated
         raster.reset_launches()
+        pcf.reset_launches()
         ms, over, img = [], False, None
         for i in range(warmup + timed):
             stats = {}
@@ -163,12 +176,13 @@ def frame_worker(scenes: list, consts: list, runs: list, device,
                 ms.append(1000.0 * (time.perf_counter() - t0))
             over = over or any(bool(v) for v in stats.values())
         out.append(dict(img=img.cpu().numpy(), ms=ms, overflowed=over,
-                        launches=dict(raster.LAUNCHES_BY_VARIANT)))
+                        launches=dict(raster.LAUNCHES_BY_VARIANT,
+                                      pcf=pcf.LAUNCHES)))
     return out
 
 
 def render_sharded(scenes: list, consts: list, runs: list, n: int,
-                   backend: str, device="cpu", warmup: int = 0,
+                   backend: str, device, warmup: int = 0,
                    timed: int = 1, timeout: float = 900.0) -> list:
     """frame_worker on n spawned ranks, from DeviceScenes and
     FrameConstants on any device (sent as host leaves and rebuilt on each

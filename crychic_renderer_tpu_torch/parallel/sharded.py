@@ -38,7 +38,10 @@ no collective across replicas.
 ``_Comm`` in ``sim_index`` mode runs one band on one device with the
 all_gathers replaced by an n_dev-fold copy of the local shard (same shapes
 and write volume, no transfer): the JAX package's per-device timing
-method (``experiments/sharded_band_timing.py``).
+method (``experiments/sharded_band_timing.py``). The copies carry the
+owner's own shard in place of the others', so the gathered triangle
+tables hold the owner's 1/n_dev triangle chunk n_dev times: the band is
+rendered from that made-up scene, not the real frame's band.
 
 Left out of the JAX module: the u16-packed atlas transfer (a TPU layout
 that halves the atlas gather without changing a pixel), the per-cascade
@@ -109,7 +112,8 @@ class _Comm:
     """The band pipeline's collective surface. The real path all_gathers
     over the band group; with ``sim_index`` set, one band runs alone and
     all_gather becomes an n_dev-fold copy of the local shard (the receive
-    buffer's shape and write volume, no transfer)."""
+    buffer's shape and write volume, no transfer, and the local shard's
+    data in every slot)."""
 
     def __init__(self, group, n_dev: int, sim_index: int = None):
         self.group = group

@@ -194,7 +194,7 @@ def test_sharded_frame_on_card(cuda):
     ref = fr.render_frame(r.device_scene, c, r.cfg).cpu().numpy()
     for (out,) in ranks:
         assert out["launches"] == dict(ids=0, depth=0, band_ids=1,
-                                       band_depth=1)
+                                       band_depth=1, pcf=0)
         diff = np.abs(out["img"] - ref).max(axis=-1)
         assert (diff > 0.02).mean() <= 1e-3
 

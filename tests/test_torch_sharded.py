@@ -79,13 +79,13 @@ def frame():
     rt = Renderer(tscene, _small(tcfg), lights=tlights, device="cpu")
     rt.device_scene = fr.DeviceScene.from_numpy(_leaves(rj.device_scene))
     jc = rj.frame_constants(0.0)
-    main, _ = jax.jit(lambda s, c: jfr.main_view_tris(s, c, rj.cfg))(
+    main, attr = jax.jit(lambda s, c: jfr.main_view_tris(s, c, rj.cfg))(
         rj.device_scene, jc)
     atlas, xr = jax.jit(lambda s, c: jfr.shadow_atlas_tris(
         s, c.shadow_visibility, c.cascade_view_projs, rj.cfg))(
             rj.device_scene, jc)
     return dict(rj=rj, rt=rt, jc=jc, tc=rt.frame_constants(0.0),
-                main=main, atlas=atlas, xr=xr)
+                main=main, attr=attr, atlas=atlas, xr=xr)
 
 
 def _view(frame, view):
@@ -197,14 +197,24 @@ def _reassemble(parts, mode, n, rows):
     return g.reshape(n * rpd * 8, -1)[:rows]
 
 
+@pytest.fixture(scope="module")
+def full_raster(frame):
+    """The port's full-screen raster of each view."""
+    out = {}
+    for view in ("main", "atlas"):
+        tris, W, H, cap, xrange, ids = _view(frame, view)
+        out[view] = raster.rasterize(_tris_t(tris), W, H, cap, with_ids=ids,
+                                     xrange=_xr_t(xrange))[:2]
+    return out
+
+
 @pytest.mark.parametrize("n", [2, 3, 4])
 @pytest.mark.parametrize("mode", ["interleaved", "contiguous"])
 @pytest.mark.parametrize("view", ["main", "atlas"])
-def test_plain_bands_reassemble_to_full(frame, view, mode, n):
+def test_plain_bands_reassemble_to_full(frame, full_raster, view, mode, n):
     tris, W, H, cap, xrange, ids = _view(frame, view)
     tt, xr = _tris_t(tris), _xr_t(xrange)
-    d_full, t_full, _ = raster.rasterize(tt, W, H, cap, with_ids=ids,
-                                         xrange=xr)
+    d_full, t_full = full_raster[view]
     parts = [raster.rasterize(tt, W, H, cap, with_ids=ids, xrange=xr,
                               **kw_t)[:2]
              for kw_t, _, _ in _bands(mode, n, -(-H // 8))]
@@ -250,32 +260,30 @@ Y0, BAND_H = 68, 34  # band 2 of 4 at 1/8 size (n=4: 4 x 34 rows)
 
 @pytest.fixture(scope="module")
 def gbuf(frame):
-    """The inputs each band pass is evaluated on, from the JAX package:
-    the raster, shadow maps and full G-buffer (jitted, on its XLA raster:
-    they are only inputs), and the band's G-buffer, resolved eagerly at
-    global rows with the halo row below it trimmed."""
-    rj = frame["rj"]
+    """The inputs each band pass is evaluated on: the frame's JAX
+    main-view triangles, with the port's full-screen raster, shadow maps
+    and G-buffer of them (only inputs: both packages get the same
+    arrays), and the band's G-buffer from the JAX package, resolved
+    eagerly at global rows with the halo row below it trimmed."""
+    rj, rt, tc = frame["rj"], frame["rt"], frame["tc"]
     # the dense resolve and PCF (no tile compaction), as the port's
     cfg = dataclasses.replace(rj.cfg, shade_tile_capacity=None,
                               ssao_tile_capacity=None, use_pallas=False)
-    s, c = rj.device_scene, frame["jc"]
-
-    def front(s, c):
-        tris, attr = jfr.main_view_tris(s, c, cfg)
-        bins = jrz.bin_triangles(tris, cfg.width, cfg.height,
-                                 cfg.pair_capacity)
-        depth, tid = jrz.rasterize_binned(tris, bins, cfg.width, cfg.height,
-                                          cfg.bin_cap)
-        g = jfr.resolve_gbuffer(s, c, cfg, tris, depth, tid, attr)
-        return tris, attr, depth, tid, jfr.render_shadow_maps(s, c, cfg), g
-
-    tris, attr, depth, tid, maps, g = jax.jit(front)(s, c)
+    tris, attr = frame["main"], frame["attr"]
+    depth, tid, _ = raster.rasterize(_tris_t(tris), cfg.width, cfg.height,
+                                     cfg.pair_capacity)
+    g = fr.resolve_gbuffer(rt.device_scene, tc, rt.cfg, _tris_t(tris), depth,
+                           tid, _t(attr))
+    maps = fr.render_shadow_atlas(rt.device_scene, tc.shadow_visibility,
+                                  tc.cascade_view_projs, rt.cfg)
+    depth, tid = depth.numpy(), tid.numpy()
     rows = slice(Y0, Y0 + BAND_H + 1)
-    g_band = jfr.resolve_gbuffer(s, c, cfg, tris, depth[rows], tid[rows],
-                                 attr, row_offset=Y0, full_height=cfg.height,
-                                 out_rows=BAND_H)
+    g_band = jfr.resolve_gbuffer(rj.device_scene, frame["jc"], cfg, tris,
+                                 depth[rows], tid[rows], attr, row_offset=Y0,
+                                 full_height=cfg.height, out_rows=BAND_H)
     return dict(cfg=cfg, tris=tris, attr=attr, depth=depth, tid=tid,
-                maps=maps, g=g, g_band=g_band)
+                maps=maps.numpy(), g={k: v.numpy() for k, v in g.items()},
+                g_band=g_band)
 
 
 def test_band_resolve_matches_jax(frame, gbuf):
@@ -419,7 +427,7 @@ def spawned(frame):
     runs = launch.render_sharded(
         [scene, fast.device_scene], [c0, c1, fast.frame_constants(0.0)],
         [(rt.cfg, 0, (0,)), (fast.cfg, 1, (2,)), (cfg2, 0, (0, 1))],
-        4, "gloo")
+        4, "gloo", "cpu")
     single = {
         "frame": fr.render_frame(scene, c0, rt.cfg).numpy(),
         "moved": fr.render_frame(scene, c1, rt.cfg).numpy(),
@@ -514,5 +522,5 @@ def test_spawn_ranks_reports_a_failing_rank():
     rank's traceback (make_mesh2 refuses 3 x 1 groups in a job of 2) and
     leaves no process behind."""
     with pytest.raises(RuntimeError, match="3 x 1 ranks in a job of 2"):
-        launch.spawn_ranks(sharded.make_mesh2, 2, "gloo", args=(3, 1),
-                           timeout=120)
+        launch.spawn_ranks(sharded.make_mesh2, 2, "gloo", "cpu",
+                           args=(3, 1), timeout=120)
