@@ -49,7 +49,31 @@ soft PCF kernel (csrc/pcf.cu). Phases, each printed as it ends:
    copies of the local shard), median ms: the JAX package's per-device
    band time method, printed without a claim. It does not time a band of
    the real frame: the copied shards make every owner render its own
-   quarter of the triangles four times over, a different load per owner.
+   quarter of the triangles four times over, a different load per owner;
+12. K4, the field-major raster launch, through the probe's entry point
+   experiments/fma_kernel_probe.rasterize_fma on the phase-4 inputs, both
+   views, layouts 't' (field-major kernel) and 'l' (the pair-major K1/K2
+   launch), with every count set to 0 just before and read just after
+   (one launch of each): each output equal to rasterize_plain and to
+   phase 4's K1/K2 output (torch.equal), kernel and plain times (CUDA
+   events) and phase 4's bound;
+13. K5, the raster kernel launched alone inside
+   experiments/bin_decomp_probe.decompose, on both views: the kernel-alone
+   output equal to rasterize_plain and to the full rasterize
+   (torch.equal), every piece's ms, and the counted launches of the
+   decompose run (the kernel alone and the full rasterize, 1 + reps
+   each);
+14. app/profiler.profile_frame of the 1080p Renderer: every stage, their
+   sum and TOTAL_fused (host clock per stage ending in a synchronize),
+   with the launches of the profiling run counted;
+15. app/compare.parity([4], small=True) on the card (the card's 480x270
+   frame against the CPU path's: < 0.5% of pixels > 0.02), and a scripted
+   headless app/viewer run on the card (config 4, fast preset, 1280x720,
+   keys "wwjl", frames in flight): its caption lines, no overflow, one K1
+   and one K2 launch per frame.
+
+Phases 6, 8, 10 and 14-15 count no field-major (K4) launch: the variant is
+kept off every frame path.
 
 Then one JSON line of per-kernel results (with each kernel's bound: the
 larger of the bytes its function must move over 3.35 TB/s and the f32
@@ -71,6 +95,15 @@ import torch
 
 FRAMES_WARMUP = 3
 FRAMES_TIMED = 10
+DECOMP_REPS = 10
+PROFILE_REPS = 5
+VIEWER_SCRIPT = "wwjl"
+# the frame paths whose launches count for K1-K3 and K6; the probes' runs
+# (phases 12, 13) count for K4 and K5
+FRAME_RUNS = ["config4", "soft", "soft_fast", "sharded", "profiler",
+              "parity", "viewer"]
+ZERO = dict(ids=0, depth=0, band_ids=0, band_depth=0, field_ids=0,
+            field_depth=0, pcf=0)
 PIX_BOUND = 0.005
 SHARD_FRAC = 1e-3  # tests/test_multichip.py's sharded-frame bound
 PCF_TOL = 1e-5
@@ -125,6 +158,7 @@ def main():
     from crychic_renderer_tpu_torch.ops import shading, shadows
     from crychic_renderer_tpu_torch.passes import frame as fr
 
+    t_script = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
@@ -188,6 +222,7 @@ def main():
     ]
     kernels = []
     full_out = {}  # variant -> (depth, tid) of the full-frame launch
+    views = {}  # variant -> the launch's inputs, plain output, time, bound
     for name, variant, replaces, inputs, W, H, ids, xrange in \
             raster_launches:
         rec, starts, counts, over = inputs
@@ -219,8 +254,15 @@ def main():
         kernels.append(dict(name=name, route="cuda",
                             source="crychic_renderer_tpu_torch/csrc/raster.cu",
                             replaces=replaces, variant=variant,
-                            max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                            library_ms=None, **b))
+                            runs=FRAME_RUNS, max_abs_err=err, ms=ms,
+                            plain_ms=plain_ms, library_ms=None, **b))
+        views[variant] = dict(
+            view="main view" if ids else "atlas",
+            tris=tris if ids else atris, xrange=xr if xrange else None,
+            cap=cfg.pair_capacity if ids else cfg.shadow_pair_capacity,
+            W=W, H=H, ids=ids, records=(rec, starts, counts),
+            plain=(d_p, t_p), plain_ms=plain_ms, pairs=pairs, bound=b,
+            note=note)
 
     # 5. a small frame on the card against the port's CPU path
     frac, diff = small_frame_vs_cpu(dev, {})
@@ -228,8 +270,7 @@ def main():
           f"pixels >0.02 (max {diff.max():.3g}, mean {diff.mean():.3g})")
 
     # 6. the main path: frames through Renderer.render
-    ms_frame, counts_run = run_frames(r, {"ids": 1, "depth": 1, "pcf": 0,
-                                          "band_ids": 0, "band_depth": 0})
+    ms_frame, counts_run = run_frames(r, dict(ZERO, ids=1, depth=1))
     consts = r.frame_constants((FRAMES_WARMUP + FRAMES_TIMED - 1) / 60.0)
     tris, tri_attr = fr.main_view_tris(r.device_scene, consts, cfg)
     depth, tid, _ = raster.rasterize(tris, cfg.width, cfg.height,
@@ -275,7 +316,7 @@ def main():
              "(shadows.py:319)", route="cuda",
         source="crychic_renderer_tpu_torch/csrc/pcf.cu",
         replaces="experiments/pcf_probe.py:46", variant="pcf",
-        max_abs_err=max_err, ms=ms, plain_ms=plain_ms, library_ms=None,
+        runs=FRAME_RUNS, max_abs_err=max_err, ms=ms, plain_ms=plain_ms, library_ms=None,
         **b))
 
     # 8. the soft-disk paths: frames through Renderer.render
@@ -286,8 +327,7 @@ def main():
                                            pcf_radius_texels=SOFT))
         r_run = Renderer(scene, cfg_run, lights=lights, device=dev)
         ms_run, counts_run = run_frames(
-            r_run, {"ids": 1, "depth": 1, "pcf": 1, "band_ids": 0,
-                    "band_depth": 0})
+            r_run, dict(ZERO, ids=1, depth=1, pcf=1))
         frame_ms[name] = ms_run
         launches[name] = counts_run
         phase(f"[8] config 4 {name}: {FRAMES_WARMUP} warm-up + "
@@ -356,12 +396,22 @@ def main():
           f"after 1 warm-up, owners 0-3: "
           f"{', '.join(f'{t:.3f}' for t in sim_ms)} ms")
 
+    # 12-15: the probes and the app layer
+    t0 = time.perf_counter()
+    probe_runs(views, full_out, kernels, launches)
+    frame_ms["profile_stages"] = profile_run(r, launches)
+    app_runs(dev, launches)
+    t1 = time.perf_counter()
+    phase(f"[15] phases 12-15 took {t1 - t0:.1f} s; the script "
+          f"{t1 - t_script:.1f} s, kernel builds included")
+
     kernels.sort(key=lambda k: k["name"])
     for k in kernels:
         variant = k.pop("variant")
-        k["launches"] = sum(c[variant] for c in launches.values())
-        k["launches_by_run"] = {run: c[variant]
-                                for run, c in launches.items()}
+        runs = k.pop("runs")
+        k["launches"] = sum(launches[run][variant] for run in runs)
+        k["launches_by_run"] = {run: launches[run][variant] for run in runs}
+        assert k["launches"] > 0, f"{k['name']}: no launch on its paths"
     print(json.dumps({"kernels": kernels, "ms_per_frame": frame_ms}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -432,7 +482,8 @@ def band_launches(name, variant, n, tris, W, H, cap, xrange, full):
     return dict(name=name, route="cuda",
                 source="crychic_renderer_tpu_torch/csrc/raster.cu",
                 replaces="crychic_renderer_tpu/ops/raster_pallas.py:93",
-                variant="band_" + variant, max_abs_err=err, ms=mean("ms"),
+                variant="band_" + variant, runs=FRAME_RUNS,
+                max_abs_err=err, ms=mean("ms"),
                 plain_ms=mean("plain_ms"), library_ms=None, **b)
 
 
@@ -455,7 +506,7 @@ def sharded_frame(r, consts, band_cfg, dev):
         warmup=FRAMES_WARMUP, timed=FRAMES_TIMED, timeout=600)
     job_s = time.perf_counter() - t0
     frames = FRAMES_WARMUP + FRAMES_TIMED
-    want = dict(ids=0, depth=0, pcf=0, band_ids=frames, band_depth=frames)
+    want = dict(ZERO, band_ids=frames, band_depth=frames)
     img = ranks[0][0]["img"]
     for rank, (out,) in enumerate(ranks):
         assert out["launches"] == want, (rank, out["launches"], want)
@@ -487,6 +538,157 @@ def launch_counts():
     from crychic_renderer_tpu_torch.ops import pcf, raster
 
     return dict(raster.LAUNCHES_BY_VARIANT, pcf=pcf.LAUNCHES)
+
+
+def reset_counts():
+    from crychic_renderer_tpu_torch.ops import pcf, raster
+
+    raster.reset_launches()
+    pcf.reset_launches()
+
+
+def counted(fn, want, what):
+    """fn() with every launch count set to 0 just before and read just
+    after (after a synchronize); the counts must equal ZERO updated with
+    `want`. Returns (fn's result, counts)."""
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts == dict(ZERO, **want), f"{what}: launches {counts}"
+    return out, counts
+
+
+def _equal(a, b):
+    return torch.equal(a[0], b[0]) and (
+        (a[1] is None and b[1] is None) or torch.equal(a[1], b[1]))
+
+
+def probe_runs(views, full_out, kernels, launches):
+    """Phases 12 (K4) and 13 (K5) on the phase-4 inputs (see the module
+    doc); appends their kernels-line entries."""
+    from crychic_renderer_tpu_torch.experiments import bin_decomp_probe as bd
+    from crychic_renderer_tpu_torch.experiments import fma_kernel_probe as fma
+    from crychic_renderer_tpu_torch.ops import raster
+
+    def args(v):
+        return v["tris"], v["W"], v["H"], v["cap"]
+
+    def kw(v):
+        return dict(with_ids=v["ids"], xrange=v["xrange"])
+
+    # 12. K4 through rasterize_fma, one call per view and layout
+    out, launches["fma_probe"] = counted(
+        lambda: {(variant, layout): fma.rasterize_fma(*args(v), **kw(v),
+                                                      layout=layout)
+                 for variant, v in views.items() for layout in fma.LAYOUTS},
+        dict(ids=1, depth=1, field_ids=1, field_depth=1),
+        "rasterize_fma, both views and layouts")
+    for (variant, layout), got in sorted(out.items()):
+        v = views[variant]
+        assert _equal(got, v["plain"]), f"K4 {variant} {layout} != plain"
+        assert _equal(got, full_out[variant]), \
+            f"K4 {variant} {layout} != the phase-4 K1/K2 output"
+        err = float((got[0] - v["plain"][0]).abs().max())
+        rec, starts, counts = v["records"]
+        guard = v["xrange"] is not None
+        if layout == "t":
+            rec_in, launch = rec.t().contiguous(), raster.raster_tiles_field
+            plain_rec = rec_in.t()
+        else:
+            rec_in, launch, plain_rec = rec, raster.raster_tiles, rec
+        ms = cuda_ms(lambda: launch(rec_in, starts, counts, v["W"], v["H"],
+                                    v["ids"], guard), 20)
+        plain_ms = cuda_ms(lambda: raster.rasterize_plain(
+            plain_rec, starts, counts, v["W"], v["H"], v["ids"], guard), 3)
+        kind = "field-major (16, P)" if layout == "t" else "pair-major (P, 16)"
+        name = (f"K4 {v['view']}, layout '{layout}': {kind} records "
+                f"(fma_kernel_probe.py:145)")
+        phase(f"[12] {name}: {v['W']}x{v['H']}, {v['pairs']} pairs, equal "
+              f"to rasterize_plain and to phase 4's launch (torch.equal); "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, {v['note']}")
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="crychic_renderer_tpu_torch/csrc/raster.cu",
+            replaces="experiments/fma_kernel_probe.py:37",
+            variant=("field_" if layout == "t" else "") + variant,
+            runs=["fma_probe"], max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            library_ms=None, **v["bound"]))
+    phase(f"[12] rasterize_fma launches {launches['fma_probe']}")
+
+    # 13. K5: the kernel alone inside the binning decomposition
+    for variant, v in views.items():
+        fns = bd.pieces(*args(v), **kw(v))
+        alone = fns["kernel_only"]()
+        full = fns["rasterize"]()
+        torch.cuda.synchronize()
+        assert not bool(full[2]), f"K5 {variant}: overflow"
+        assert _equal(alone, v["plain"]), f"K5 {variant}: != plain"
+        assert _equal(alone, full[:2]), f"K5 {variant}: != rasterize"
+        run = f"bin_decomp_{variant}"
+        times, launches[run] = counted(
+            lambda: bd.decompose(v["view"], *args(v), **kw(v),
+                                 reps=DECOMP_REPS),
+            {variant: 2 * (1 + DECOMP_REPS)}, f"decompose {v['view']}")
+        name = (f"K5 {v['view']}: the raster kernel alone on precomputed "
+                f"inputs (bin_decomp_probe.py:119)")
+        phase(f"[13] {name}: equal to rasterize_plain and the full "
+              f"rasterize (torch.equal); pieces (ms) "
+              f"{ {k: round(t, 4) for k, t in times.items()} }; launches of "
+              f"the decompose run {launches[run]} (kernel alone and full "
+              f"rasterize, {1 + DECOMP_REPS} each); plain "
+              f"{v['plain_ms']:.4f} ms (phase 4), {v['note']}")
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="crychic_renderer_tpu_torch/csrc/raster.cu",
+            replaces="experiments/bin_decomp_probe.py:119", variant=variant,
+            runs=[run], max_abs_err=float(
+                (alone[0] - v["plain"][0]).abs().max()),
+            ms=times["kernel_only"], plain_ms=v["plain_ms"],
+            library_ms=None, **v["bound"]))
+
+
+def profile_run(r, launches):
+    """Phase 14: profile_frame of the Renderer `r`. Each timed stage
+    runs 2 + reps times (warm-up, reps, the output for the next stage),
+    TOTAL_fused 1 + reps. Returns the report."""
+    from crychic_renderer_tpu_torch.app import profiler
+
+    n = 3 + 2 * PROFILE_REPS
+    report, launches["profiler"] = counted(
+        lambda: profiler.profile_frame(r, reps=PROFILE_REPS),
+        dict(ids=n, depth=n), "profile_frame")
+    stages = {k: v for k, v in report.items() if k != "TOTAL_fused"}
+    phase(f"[14] profile_frame, config 4 {r.cfg.width}x{r.cfg.height}, "
+          f"{PROFILE_REPS} reps after 1 warm-up, host clock per stage "
+          f"ending in a synchronize (ms): "
+          f"{ {k: round(v, 3) for k, v in stages.items()} }; sum of stages "
+          f"{sum(stages.values()):.3f} (bin_main is also inside "
+          f"raster_main), TOTAL_fused {report['TOTAL_fused']:.3f}; "
+          f"launches {launches['profiler']}")
+    return report
+
+
+def app_runs(dev, launches):
+    """Phase 15: compare.parity at 480x270 and a scripted viewer run on
+    the card."""
+    from crychic_renderer_tpu_torch.app import compare, viewer
+
+    report, launches["parity"] = counted(
+        lambda: compare.parity([4], True, dev), dict(ids=1, depth=1),
+        "compare.parity")
+    assert report["ok"], f"parity: {report}"
+    phase(f"[15] compare.parity([4], small=True) on the card vs the CPU "
+          f"path: {report[4]}; launches {launches['parity']}")
+    n = len(VIEWER_SCRIPT)
+    frames, launches["viewer"] = counted(
+        lambda: viewer.main(["--config", "4", "--script", VIEWER_SCRIPT,
+                             "--no-draw", "--device", "cuda"]),
+        dict(ids=n, depth=n), "viewer")
+    assert frames == n, frames
+    phase(f"[15] viewer: {frames} scripted frames ('{VIEWER_SCRIPT}') on the "
+          f"card, fast preset 1280x720, {viewer.DEPTH} in flight, no "
+          f"overflow; launches {launches['viewer']}")
 
 
 def run_frames(r, per_frame):

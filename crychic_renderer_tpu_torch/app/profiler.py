@@ -1,0 +1,147 @@
+"""Per-stage profiling of the frame (torch counterpart of
+``crychic_renderer_tpu.app.profiler``).
+
+``profile_frame(renderer)`` times each stage of ``passes/frame.render_frame``
+on its own, with the JAX profiler's keys so the two reports line up:
+``tri_attrs``, ``tri_setup``, ``bin_main`` (binning + records of the main
+view), ``raster_main`` (bin + records + K1), ``resolve_gbuffer``,
+``shadow_maps_x4`` (``render_shadow_atlas``: bin + records + K2),
+``ssao``, ``lighting`` (with the debug overlay) and ``TOTAL_fused``
+(``render_frame`` whole; the port fuses nothing, the key keeps the JAX
+name). ``bin_main`` is also inside ``raster_main``, so the stages sum to
+more than the frame.
+
+Each stage is timed as the JAX ``_time`` does: one warm-up call, then the
+host clock around `reps` calls ending in ``torch.cuda.synchronize()``. On a
+host-bound frame that charges each stage the time the host takes to issue
+it, which is what the frame pays. ``run_stages`` chains the stages with the
+same functions and arguments as ``render_frame``, so the chain gives its
+image bit for bit.
+
+Usage::
+
+    python -m crychic_renderer_tpu_torch.app.profiler --config 4 \
+        [--small] [--reps 5] [--device cuda]
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import time
+
+import torch
+
+from ..ops import clipping, raster
+from ..ops import rasterizer as rz
+from ..passes import frame as fr
+
+
+def run_stages(scene: fr.DeviceScene, consts: fr.FrameConstants, cfg,
+               stage) -> torch.Tensor:
+    """render_frame split into its stages. Each stage is handed to
+    stage(name, fn), which must return fn(); the next stage reads that
+    output. Returns the (H, W, 4) image chained through the stages."""
+    H, W = cfg.height, cfg.width
+    dev = consts.view_proj.device
+    fr._check_supported(cfg)
+
+    tri_attr0 = stage("tri_attrs", lambda: fr.tri_attrs(
+        scene.opaque, consts.opaque_visibility, consts.view_proj))
+
+    def setup():  # main_view_tris after tri_attrs
+        ta, valid = clipping.clip_near(
+            tri_attr0, torch.ones(tri_attr0.shape[0], dtype=torch.bool,
+                                  device=dev))
+        return ta, rz.setup_tri_verts(ta[..., :4], valid, W, H)
+
+    tri_attr, tris = stage("tri_setup", setup)
+    stage("bin_main", lambda: raster.binned_records(tris, W, H,
+                                                    cfg.pair_capacity))
+    depth, tid, _ = stage("raster_main", lambda: raster.rasterize(
+        tris, W, H, cfg.pair_capacity))
+    g = stage("resolve_gbuffer", lambda: fr.resolve_gbuffer(
+        scene, consts, cfg, tris, depth, tid, tri_attr))
+    if cfg.shadows_enabled:
+        shadow_maps = stage("shadow_maps_x4", lambda: fr.render_shadow_atlas(
+            scene, consts.shadow_visibility, consts.cascade_view_projs, cfg))
+    else:
+        shadow_maps = torch.ones((cfg.num_cascades, 2, 2),
+                                 dtype=torch.float32, device=dev)
+    if cfg.ssao_enabled:
+        access = stage("ssao", lambda: fr.ssao_pass(
+            scene, consts, cfg, g["normal_v"], depth))
+        ambient_access = fr._upsample_bilinear(access, H, W)
+    else:
+        ambient_access = torch.ones((H, W), dtype=torch.float32, device=dev)
+    return stage("lighting", lambda: fr.apply_debug_overlay(
+        consts, cfg, fr.lighting_pass(scene, consts, cfg, g, shadow_maps,
+                                      ambient_access, depth),
+        shadow_maps, g["pos_w"]))
+
+
+def _time(fn, reps: int, device: torch.device) -> float:
+    """Host-clock ms per call over `reps` calls after one warm-up, ending
+    in a device synchronize on a CUDA device."""
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    sync()
+    return 1000.0 * (time.perf_counter() - t0) / reps
+
+
+def profile_frame(renderer, total_time: float = 0.0, reps: int = 5) -> dict:
+    """{stage: ms} of the renderer's frame at `total_time` (see the module
+    doc), with TOTAL_fused last."""
+    scene, cfg = renderer.device_scene, renderer.cfg
+    consts = renderer.frame_constants(total_time)
+    report = {}
+
+    def timed(name, fn):
+        report[name] = _time(fn, reps, renderer.device)
+        return fn()
+
+    run_stages(scene, consts, cfg, timed)
+    report["TOTAL_fused"] = _time(
+        lambda: fr.render_frame(scene, consts, cfg), reps, renderer.device)
+    return report
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--config", type=int, default=4, choices=[1, 2, 3, 4, 5])
+    ap.add_argument("--small", action="store_true",
+                    help="1/4 size, as the JAX profiler's --small")
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--device", type=str, default="cuda")
+    args = ap.parse_args(argv)
+
+    from ..models.scenes_baseline import CONFIGS
+    from .renderer import Renderer
+
+    scene, cfg, lights = CONFIGS[args.config]()
+    if args.small:
+        cfg = dataclasses.replace(cfg, width=cfg.width // 4,
+                                  height=cfg.height // 4,
+                                  shadow_map_size=cfg.shadow_map_size // 4)
+    r = Renderer(scene, cfg, lights=lights, device=args.device)
+    report = profile_frame(r, reps=args.reps)
+    where = (torch.cuda.get_device_name(r.device)
+             if r.device.type == "cuda" else "cpu")
+    print(f"config {args.config} {r.cfg.width}x{r.cfg.height} on {where}, "
+          f"host clock per stage, {args.reps} reps after 1 warm-up")
+    for k, v in report.items():
+        print(f"{k:20s} {v:10.2f} ms")
+    print(json.dumps({"device": where, "config": args.config,
+                      "width": r.cfg.width, "height": r.cfg.height,
+                      "ms": report}))
+
+
+if __name__ == "__main__":
+    main()

@@ -191,6 +191,10 @@ def build_device_scene(scene: Scene, asset_dir=None, lights=None,
     )), anim_specs
 
 
+class CapacityError(RuntimeError):
+    """A frame would expand more raster pairs than a sized capacity."""
+
+
 class Renderer:
     """Owns the device scene; produces frames on `device` (the card unless
     the caller asks for the CPU)."""
@@ -209,6 +213,7 @@ class Renderer:
             ssao_dims=(cfg.ssao_height, cfg.ssao_width),
             dual_mip_rows=cfg.dual_mip_rows, device=self.device)
         self._base_mat_pair = self.device_scene.mat_pair.cpu().numpy()
+        self._auto_capacity = auto_capacity
         if auto_capacity:
             self._autosize_capacity()
         self._main_overflow = torch.zeros((), dtype=torch.bool,
@@ -234,6 +239,86 @@ class Renderer:
         self.cfg = dataclasses.replace(
             self.cfg, pair_capacity=size(req["main_pairs"]),
             shadow_pair_capacity=size(req["shadow_pairs"]))
+
+    def resize(self, width: int, height: int):
+        """The OnResize analogue (the reference's d3dApp.cpp:141 +
+        CRYCHIC::OnResize, CRYCHIC.cpp:110-128): rebuild every
+        resolution-dependent piece of state — the camera lens aspect (its
+        culling frustum is derived per frame), the SSAO random-vector
+        field at the new SSAO grid, and the auto-sized raster capacities.
+        The JAX package then re-jits its frame (``rebind_frame_fn``); the
+        port compiles nothing and reads ``self.cfg`` on every call, so
+        there is nothing to rebind."""
+        self.cfg = dataclasses.replace(self.cfg, width=width, height=height)
+        cam = self.camera
+        cam.set_lens(cam.fov_y, width / height, cam.near_z, cam.far_z)
+        self.device_scene.ssao_random_field = fr._tensor(
+            ssao_ops.build_random_field(
+                ssao_ops.build_random_vector_texture(),
+                self.cfg.ssao_height, self.cfg.ssao_width), self.device)
+        if self._auto_capacity:
+            self._autosize_capacity()
+
+    def check_capacity(self, total_time: float = 0.0) -> dict:
+        """Raise CapacityError if the current camera's frame would expand
+        more raster pairs than a sized capacity holds (callable per frame
+        from an app loop; it waits for the device). Returns the exact
+        counts (capacity_requirements)."""
+        req = self.capacity_requirements(total_time)
+        if req["main_pairs"] > self.cfg.pair_capacity:
+            raise CapacityError(
+                f"main raster overflow: {req['main_pairs']} pairs > "
+                f"pair_capacity {self.cfg.pair_capacity}")
+        if req["shadow_pairs"] > self.cfg.shadow_pair_capacity:
+            raise CapacityError(
+                f"shadow raster overflow: {req['shadow_pairs']} pairs > "
+                f"shadow_pair_capacity {self.cfg.shadow_pair_capacity}")
+        return req
+
+    def ensure_capacity(self, total_time: float = 0.0) -> dict:
+        """check_capacity, but GROW instead of raising: when the pose
+        outruns the sized capacities, size them again at this pose (1.5x
+        headroom). The port reads self.cfg on every frame, so the next
+        render uses them; nothing is recompiled. Returns the counts."""
+        try:
+            return self.check_capacity(total_time)
+        except CapacityError:
+            self._autosize_capacity()
+            return self.check_capacity(total_time)
+
+    def viewer_step_fn(self, disp_rows: int, disp_cols: int):
+        """One frame for the interactive loop, display-sized: returns
+        step(scene, consts) -> (disp (disp_rows, disp_cols, 3) uint8, the
+        exact main_pairs and shadow_pairs of that frame as 0-d tensors),
+        all on the device and queued without waiting for it, so the
+        pipelined viewer fetches a small image and raises on overflow
+        frames later instead of dropping geometry. The counts come from
+        passes.frame.capacity_requirements, which repeats the frame's
+        front end (the JAX package's jit shares it).
+
+        The display rows and columns are sampled from the frame size at
+        this call; after resize(), ask for a new step. The frame reads
+        self.cfg when it runs, so grown capacities take effect at once
+        (the JAX package's ``rebind_frame_fn`` has no counterpart)."""
+        H, W = self.cfg.height, self.cfg.width
+        ys = fr._tensor(np.linspace(0, H - 1, disp_rows).astype(np.int64),
+                        self.device)
+        xs = fr._tensor(np.linspace(0, W - 1, disp_cols).astype(np.int64),
+                        self.device)
+
+        def step(scene, consts):
+            cfg = self.cfg
+            if (cfg.height, cfg.width) != (H, W):
+                raise ValueError(
+                    f"the renderer was resized to {cfg.width}x{cfg.height} "
+                    f"after this step was made for {W}x{H}")
+            img = fr.render_frame(scene, consts, cfg)
+            req = fr.capacity_requirements(scene, consts, cfg)
+            disp = (torch.clamp(img[ys][:, xs, :3], 0.0, 1.0) * 255.0
+                    + 0.5).to(torch.uint8)
+            return disp, req["main_pairs"], req["shadow_pairs"]
+
+        return step
 
     def check_overflow(self):
         """Raise if any frame since the last call dropped raster pairs

@@ -14,6 +14,8 @@ torch code that both the kernel and the plain version read.
   contiguous run of tile rows, with the full screen's tile anchors).
 - ``raster_tiles`` is the kernel wrapper. A CPU tensor goes to
   ``rasterize_plain``; a CUDA tensor launches the kernel or raises.
+- ``raster_tiles_field`` launches the same function on field-major (16, P)
+  records (K4, the layout probe of ``experiments/fma_kernel_probe.py``).
 - ``rasterize_plain`` evaluates every pair against its tile's 1024 pixels
   with plain tensor ops. On the card it equals the kernel bit for bit:
   both evaluate ((A*px) + (B*py)) + C with each operation rounded on its
@@ -47,12 +49,14 @@ REC_ROWS = 16
 
 # Launches of the CUDA kernel since import (or since a caller reset them),
 # in all and per variant: "ids" (depth + triangle id, the main view, K1),
-# "depth" (depth only, the shadow atlas, K2), and their band launches
-# "band_ids" and "band_depth" (K3, the band-sharded frame). Incremented by
-# raster_tiles where it launches, and nowhere else.
+# "depth" (depth only, the shadow atlas, K2), their band launches
+# "band_ids" and "band_depth" (K3, the band-sharded frame), and the
+# field-major launches "field_ids" and "field_depth" (K4, the layout
+# probe; no frame launches them). Incremented by raster_tiles and
+# raster_tiles_field where they launch, and nowhere else.
 LAUNCHES = 0
 LAUNCHES_BY_VARIANT = {"ids": 0, "depth": 0, "band_ids": 0,
-                       "band_depth": 0}
+                       "band_depth": 0, "field_ids": 0, "field_depth": 0}
 
 
 def tri_records(tris: rz.ScreenTris, xrange=None) -> torch.Tensor:
@@ -306,8 +310,59 @@ _vp, _ci = ctypes.c_void_p, ctypes.c_int
 LIBRARY = KernelLibrary("raster.cu", "crychic_raster", {
     "crychic_raster": ([_vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _vp, _vp,
                         _ci, _vp], _ci),
+    "crychic_raster_field": ([_vp, _ci, _vp, _vp, _ci, _ci, _ci, _ci, _vp,
+                              _vp, _ci, _vp], _ci),
     "crychic_raster_error": ([_ci], ctypes.c_char_p),
 })
+
+
+def _check_cuda_inputs(fn: str, records: torch.Tensor, field_axis: int,
+                       starts: torch.Tensor, counts: torch.Tensor):
+    """Raise ValueError unless the kernel can take these tensors: records
+    a contiguous, 16-byte aligned 2-D f32 tensor with its REC_ROWS fields
+    along field_axis and a multiple of TRI_BLOCK pairs along the other,
+    starts and counts contiguous int32 on the same device."""
+    if records.device.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {records.device}")
+    if (records.dtype != torch.float32 or records.dim() != 2
+            or records.shape[field_axis] != REC_ROWS
+            or not records.is_contiguous() or records.data_ptr() % 16):
+        shape = ("(P, 16)", "(16, P)")[1 - field_axis]
+        raise ValueError(f"records must be a contiguous, 16-byte aligned "
+                         f"{shape} float32 tensor")
+    pairs = records.shape[1 - field_axis]
+    if pairs % TRI_BLOCK:
+        raise ValueError(f"pair capacity {pairs} is not a multiple of "
+                         f"{TRI_BLOCK}")
+    for name, t in (("starts", starts), ("counts", counts)):
+        if (t.dtype != torch.int32 or not t.is_contiguous()
+                or t.device != records.device):
+            raise ValueError(f"{name} must be a contiguous int32 tensor on "
+                             f"{records.device}")
+
+
+def _launch(entry: str, variant: str, records: torch.Tensor, args,
+            width: int, height: int, with_ids: bool, with_xrange: bool):
+    """Allocate the outputs, call the C entry (records pointer, then
+    args, then the output pointers, the column-guard flag and the
+    stream), raise on a refused launch, count it. Returns (depth, tid)."""
+    global LAUNCHES
+    lib = LIBRARY.load()
+    dev = records.device
+    depth = torch.empty((height, width), dtype=torch.float32, device=dev)
+    tid = (torch.empty((height, width), dtype=torch.int32, device=dev)
+           if with_ids else None)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(lib, entry)(
+            records.data_ptr(), *args, depth.data_ptr(),
+            tid.data_ptr() if with_ids else None, int(with_xrange), stream)
+    if rc != 0:
+        raise RuntimeError("raster kernel launch failed: "
+                           + lib.crychic_raster_error(rc).decode())
+    LAUNCHES += 1
+    LAUNCHES_BY_VARIANT[variant] += 1
+    return depth, tid
 
 
 def raster_tiles(records: torch.Tensor, starts: torch.Tensor,
@@ -326,43 +381,34 @@ def raster_tiles(records: torch.Tensor, starts: torch.Tensor,
     if records.device.type == "cpu":
         return rasterize_plain(records, starts, counts, width, height,
                                with_ids, with_xrange, tile_offset)
-    if records.device.type != "cuda":
-        raise ValueError(f"raster_tiles: unsupported device {records.device}")
-    global LAUNCHES
+    _check_cuda_inputs("raster_tiles", records, 1, starts, counts)
     ntx, off, grid = _launch_grid(starts, counts, width, height, tile_offset)
-    if (records.dtype != torch.float32 or records.dim() != 2
-            or records.shape[1] != REC_ROWS or not records.is_contiguous()
-            or records.data_ptr() % 16):
-        raise ValueError("records must be a contiguous, 16-byte aligned "
-                         f"(P, {REC_ROWS}) float32 tensor")
-    if records.shape[0] % TRI_BLOCK:
-        raise ValueError(f"pair capacity {records.shape[0]} is not a "
-                         f"multiple of {TRI_BLOCK}")
-    for name, t in (("starts", starts), ("counts", counts)):
-        if (t.dtype != torch.int32 or not t.is_contiguous()
-                or t.device != records.device):
-            raise ValueError(f"{name} must be a contiguous int32 tensor on "
-                             f"{records.device}")
-    lib = LIBRARY.load()
-    dev = records.device
-    depth = torch.empty((height, width), dtype=torch.float32, device=dev)
-    tid = (torch.empty((height, width), dtype=torch.int32, device=dev)
-           if with_ids else None)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.crychic_raster(
-            records.data_ptr(), starts.data_ptr(), counts.data_ptr(), off,
-            grid, ntx, width, height, depth.data_ptr(),
-            tid.data_ptr() if with_ids else None, int(with_xrange), stream)
-    if rc != 0:
-        raise RuntimeError("raster kernel launch failed: "
-                           + lib.crychic_raster_error(rc).decode())
-    LAUNCHES += 1
     variant = "ids" if with_ids else "depth"
     if tile_offset is not None:
         variant = "band_" + variant
-    LAUNCHES_BY_VARIANT[variant] += 1
-    return depth, tid
+    return _launch("crychic_raster", variant, records,
+                   (starts.data_ptr(), counts.data_ptr(), off, grid, ntx,
+                    width, height), width, height, with_ids, with_xrange)
+
+
+def raster_tiles_field(records_t: torch.Tensor, starts: torch.Tensor,
+                       counts: torch.Tensor, width: int, height: int,
+                       with_ids: bool = True, with_xrange: bool = False):
+    """The field-major launch (K4) of the full screen: records_t is the
+    (16, P) transpose of build_records' (P, 16), the layout the Pallas
+    kernels read. Same outputs as raster_tiles, bit for bit. CPU tensors
+    take rasterize_plain on the pair-major view; CUDA tensors launch
+    csrc/raster.cu's field-major kernel, or raise."""
+    if records_t.device.type == "cpu":
+        return rasterize_plain(records_t.t(), starts, counts, width, height,
+                               with_ids, with_xrange)
+    _check_cuda_inputs("raster_tiles_field", records_t, 0, starts, counts)
+    ntx, _, grid = _launch_grid(starts, counts, width, height, None)
+    return _launch("crychic_raster_field",
+                   "field_ids" if with_ids else "field_depth", records_t,
+                   (records_t.shape[1], starts.data_ptr(), counts.data_ptr(),
+                    grid, ntx, width, height), width, height, with_ids,
+                   with_xrange)
 
 
 def reset_launches():

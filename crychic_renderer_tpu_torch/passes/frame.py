@@ -85,14 +85,14 @@ class DeviceDraw:
     tri_rest: torch.Tensor = None  # (T, 3, 12) [posW3|nrm3|tan3|uv2|mat1]
 
     @staticmethod
-    def from_host(d, device="cpu") -> "DeviceDraw":
-        """From a models.scene.DrawBuffers (host numpy)."""
+    def from_host(d, device) -> "DeviceDraw":
+        """From a models.scene.DrawBuffers (host numpy), on `device`."""
         return DeviceDraw.from_numpy(vars(d), device)
 
     @staticmethod
-    def from_numpy(d: dict, device="cpu") -> "DeviceDraw":
+    def from_numpy(d: dict, device) -> "DeviceDraw":
         """From a mapping of field name -> numpy array (missing static
-        tables are None)."""
+        tables are None), on `device`."""
         return DeviceDraw(**{f.name: _tensor(d.get(f.name), device)
                              for f in dataclasses.fields(DeviceDraw)})
 
@@ -136,10 +136,10 @@ class DeviceScene:
             dual=self.pair_data.shape[-1] == sampling.PAIR_ROW_DUAL)
 
     @staticmethod
-    def from_numpy(d: dict, device="cpu") -> "DeviceScene":
+    def from_numpy(d: dict, device) -> "DeviceScene":
         """From a mapping of field name -> numpy array, with the draws
-        (opaque, shadow, alpha) as nested mappings and n_big_pairs an int.
-        Draws without static tables get them attached here."""
+        (opaque, shadow, alpha) as nested mappings and n_big_pairs an int,
+        on `device`. Draws without static tables get them attached here."""
         kw = {}
         for f in dataclasses.fields(DeviceScene):
             v = d.get(f.name)
@@ -174,8 +174,9 @@ class FrameConstants:
     total_time: torch.Tensor = 0.0
 
     @staticmethod
-    def from_numpy(d: dict, device="cpu") -> "FrameConstants":
-        """From a mapping of field name -> numpy array / float, in ONE
+    def from_numpy(d: dict, device) -> "FrameConstants":
+        """From a mapping of field name -> numpy array / float, on `device`,
+        in ONE
         host-to-device copy: the leaves are packed into one float32 vector
         (pinned when the target is a CUDA device, so the copy is
         asynchronous and never waits for the frame in flight) and split

@@ -1,8 +1,9 @@
 """The CUDA kernels against their plain versions, on the card.
 
 - The raster kernel (csrc/raster.cu): no tolerance, depth and tid must be
-  equal (torch.equal), for the full screen (K1, K2) and for every owner's
-  band launch (K3), whose bands reassembled equal the full screen's.
+  equal (torch.equal), for the full screen (K1, K2), for every owner's
+  band launch (K3), whose bands reassembled equal the full screen's, and
+  for the field-major launch (K4) on the transposed records.
 - The soft PCF kernel (csrc/pcf.cu): 1e-5. Both sum the same <= 64 tent
   weights from the same parameters; the kernel keeps the plain version's
   order and rounds each operation on its own, so it is expected to be
@@ -54,12 +55,19 @@ def cuda():
     return torch.device("cuda")
 
 
-def _check(rec, starts, counts, W, H, ids, xrange):
+def _check(rec, starts, counts, W, H, ids, xrange, field=False):
+    """One launch (field: K4 on the (16, P) transpose) against
+    rasterize_plain, and its count."""
     before = dict(raster.LAUNCHES_BY_VARIANT)
-    d, t = raster.raster_tiles(rec, starts, counts, W, H, with_ids=ids,
-                               with_xrange=xrange)
+    if field:
+        d, t = raster.raster_tiles_field(rec.t().contiguous(), starts,
+                                         counts, W, H, with_ids=ids,
+                                         with_xrange=xrange)
+    else:
+        d, t = raster.raster_tiles(rec, starts, counts, W, H, with_ids=ids,
+                                   with_xrange=xrange)
     torch.cuda.synchronize()
-    key = "ids" if ids else "depth"
+    key = ("field_" if field else "") + ("ids" if ids else "depth")
     assert raster.LAUNCHES_BY_VARIANT[key] == before[key] + 1
     d0, t0 = raster.rasterize_plain(rec, starts, counts, W, H, with_ids=ids,
                                     with_xrange=xrange)
@@ -83,8 +91,25 @@ def test_kernel_equals_plain(cuda, name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_field_major_kernel_equals_plain(cuda, name):
+    """K4: the field-major kernel on the transposed records, with ids and
+    depth-only with a column guard; ragged, empty and dense tiles."""
+    tris, W, H, cap = CASES[name](cuda)
+    T = tris.xy.shape[0]
+    for ids, xr in ((True, None),
+                    (False, (torch.full((T,), 8.0, device=cuda),
+                             torch.full((T,), 120.0, device=cuda)))):
+        rec, starts, counts, over = raster.binned_records(tris, W, H, cap,
+                                                          xrange=xr)
+        assert not bool(over)
+        _check(rec, starts, counts, W, H, ids, xr is not None, field=True)
+
+
+@pytest.mark.cuda
 def test_kernel_equals_plain_config4_small(cuda):
-    """Both of the frame's launches at 1/8 size, on the frame's inputs."""
+    """Both of the frame's launches at 1/8 size, on the frame's inputs,
+    with the records pair-major (K1, K2) and field-major (K4)."""
     from crychic_renderer_tpu_torch.app.renderer import Renderer
     from crychic_renderer_tpu_torch.models.scenes_baseline import CONFIGS
     from crychic_renderer_tpu_torch.passes import frame as fr
@@ -97,12 +122,14 @@ def test_kernel_equals_plain_config4_small(cuda):
     rec, st, cn, _ = raster.binned_records(tris, 240, 135,
                                            r.cfg.pair_capacity)
     _check(rec, st, cn, 240, 135, True, False)
+    _check(rec, st, cn, 240, 135, True, False, field=True)
     atris, xr = fr.shadow_atlas_tris(r.device_scene, c.shadow_visibility,
                                      c.cascade_view_projs, r.cfg)
     rec, st, cn, _ = raster.binned_records(atris, 1024, 256,
                                            r.cfg.shadow_pair_capacity,
                                            xrange=xr)
     _check(rec, st, cn, 1024, 256, False, True)
+    _check(rec, st, cn, 1024, 256, False, True, field=True)
 
 
 def _config4_small_inputs(device):
@@ -194,7 +221,8 @@ def test_sharded_frame_on_card(cuda):
     ref = fr.render_frame(r.device_scene, c, r.cfg).cpu().numpy()
     for (out,) in ranks:
         assert out["launches"] == dict(ids=0, depth=0, band_ids=1,
-                                       band_depth=1, pcf=0)
+                                       band_depth=1, field_ids=0,
+                                       field_depth=0, pcf=0)
         diff = np.abs(out["img"] - ref).max(axis=-1)
         assert (diff > 0.02).mean() <= 1e-3
 

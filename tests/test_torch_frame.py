@@ -70,7 +70,8 @@ def frames():
 
     tscene, tcfg, tlights = CONFIGS[4]()
     rt = Renderer(tscene, _small(tcfg), lights=tlights, device="cpu")
-    rt.device_scene = fr.DeviceScene.from_numpy(_leaves(rj.device_scene))
+    rt.device_scene = fr.DeviceScene.from_numpy(_leaves(rj.device_scene),
+                                                "cpu")
     got = rt.render_np(0.0)
     return rj, rt, ref, got
 

@@ -251,7 +251,7 @@ def test_front_end_matches_jax():
     jr = JRenderer(scene, cfg, lights=lights, auto_capacity=False)
     js = jr.device_scene
     consts = jr.frame_constants(0.0)
-    draw = fr.DeviceDraw.from_host(scene.opaque)
+    draw = fr.DeviceDraw.from_host(scene.opaque, "cpu")
     mt = _t(scene.material_bank.mat_transform)
     td = fr.draw_with_statics(draw, mt)
     for name in ("tri_posw_h", "tri_instance", "tri_rest"):
@@ -259,11 +259,12 @@ def test_front_end_matches_jax():
     tconsts = fr.FrameConstants.from_numpy(
         {f.name: np.asarray(getattr(consts, f.name))
          for f in dataclasses.fields(consts)
-         if getattr(consts, f.name) is not None})
+         if getattr(consts, f.name) is not None}, "cpu")
     tscene = dataclasses.replace(
         fr.DeviceScene.from_numpy({"opaque": {
             f.name: np.asarray(getattr(js.opaque, f.name))
-            for f in dataclasses.fields(js.opaque)}, "n_big_pairs": 0}),
+            for f in dataclasses.fields(js.opaque)}, "n_big_pairs": 0},
+            "cpu"),
         mat_transform=mt)
     tris_j, attr_j = jfr.main_view_tris(js, consts, cfg)
     tris_t, attr_t = fr.main_view_tris(tscene, tconsts, cfg)

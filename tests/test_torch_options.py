@@ -100,7 +100,8 @@ def test_frame_matches_jax(name):
     tscene, tcfg, tlights = CONFIGS[4]()
     rt = tren.Renderer(tscene, option(_small(tcfg)), lights=tlights,
                        device="cpu")
-    rt.device_scene = fr.DeviceScene.from_numpy(_leaves(rj.device_scene))
+    rt.device_scene = fr.DeviceScene.from_numpy(_leaves(rj.device_scene),
+                                                "cpu")
     got = rt.render_np(0.0)
     assert got.shape == ref.shape == (135, 240, 4)
     assert np.isfinite(got).all()
@@ -146,10 +147,11 @@ def base():
 
     tris, attr, depth, tid, maps = jax.jit(front)(js, jc)
     g = jfr.resolve_gbuffer(js, jc, cfg, tris, depth, tid, attr)
-    ts = fr.DeviceScene.from_numpy(_leaves(js))
+    ts = fr.DeviceScene.from_numpy(_leaves(js), "cpu")
     tc = fr.FrameConstants.from_numpy(
         {f.name: np.asarray(getattr(jc, f.name))
-         for f in dataclasses.fields(jc) if getattr(jc, f.name) is not None})
+         for f in dataclasses.fields(jc) if getattr(jc, f.name) is not None},
+        "cpu")
     return dict(cfg=cfg, js=js, jc=jc, ts=ts, tc=tc, tris=tris, attr=attr,
                 depth=depth, tid=tid, maps=maps, g=g,
                 ttris=rz.ScreenTris(*(_t(x) for x in tris)),

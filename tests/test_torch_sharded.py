@@ -77,7 +77,8 @@ def frame():
     rj.rebind_frame_fn()
     tscene, tcfg, tlights = CONFIGS[4]()
     rt = Renderer(tscene, _small(tcfg), lights=tlights, device="cpu")
-    rt.device_scene = fr.DeviceScene.from_numpy(_leaves(rj.device_scene))
+    rt.device_scene = fr.DeviceScene.from_numpy(_leaves(rj.device_scene),
+                                                "cpu")
     jc = rj.frame_constants(0.0)
     main, attr = jax.jit(lambda s, c: jfr.main_view_tris(s, c, rj.cfg))(
         rj.device_scene, jc)
