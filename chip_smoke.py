@@ -134,6 +134,15 @@ def phase(msg):
     print(msg, flush=True)
 
 
+def device_ms(fn, reps, kernel):
+    """Mean device ms of the kernel named `kernel` per call of fn()
+    (torch.profiler's kernel records, so the wrapper's host work is not
+    in it)."""
+    from crychic_renderer_tpu_torch.experiments import kernel_ab_probe
+
+    return kernel_ab_probe.device_ms(fn, reps, kernel)
+
+
 def cuda_ms(fn, reps):
     """Mean ms per call of fn() on the current stream, after one warm-up."""
     fn()
@@ -180,6 +189,10 @@ def main():
                       for lib in libs)
     phase(f"[2] built {built} in {time.perf_counter() - t0:.2f} s (nvcc "
           f"{' '.join(build.NVCC_FLAGS)})")
+    for lib in libs:  # ptxas: registers, shared memory, spills per kernel
+        for line in lib.build_log.splitlines():
+            if "ptxas" in line or "spill" in line:
+                print(f"[2] {lib.name}: {line.strip()}", flush=True)
 
     # 3. the Renderer at 1080p
     scene, cfg, lights = CONFIGS[4]()
@@ -241,6 +254,9 @@ def main():
         full_out[variant] = (d_k, t_k)
         ms = cuda_ms(lambda: raster.raster_tiles(
             rec, starts, counts, W, H, with_ids=ids, with_xrange=xrange), 20)
+        dev_ms = device_ms(lambda: raster.raster_tiles(
+            rec, starts, counts, W, H, with_ids=ids, with_xrange=xrange), 20,
+            "raster_tiles_kernel")
         plain_ms = cuda_ms(lambda: raster.rasterize_plain(
             rec, starts, counts, W, H, with_ids=ids, with_xrange=xrange), 3)
         pairs = int(counts.sum())
@@ -249,13 +265,15 @@ def main():
         nbytes = pairs * 64 + starts.numel() * 8 + W * H * (8 if ids else 4)
         b, note = bound(nbytes, pairs * RASTER_OPS_PER_PAIR[variant])
         phase(f"[4] {name}: {W}x{H}, {pairs} pairs, equal to "
-              f"rasterize_plain (max |err| {err}); kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, {note}")
+              f"rasterize_plain (max |err| {err}); kernel {ms:.4f} ms "
+              f"(device {dev_ms:.4f}), plain {plain_ms:.4f} ms, {note}; "
+              f"{reject_note(rec[:pairs], xrange)}")
         kernels.append(dict(name=name, route="cuda",
                             source="crychic_renderer_tpu_torch/csrc/raster.cu",
                             replaces=replaces, variant=variant,
                             runs=FRAME_RUNS, max_abs_err=err, ms=ms,
-                            plain_ms=plain_ms, library_ms=None, **b))
+                            device_ms=dev_ms, plain_ms=plain_ms,
+                            library_ms=None, **b))
         views[variant] = dict(
             view="main view" if ids else "atlas",
             tris=tris if ids else atris, xrange=xr if xrange else None,
@@ -288,8 +306,14 @@ def main():
                            tri_attr)
     maps = fr.render_shadow_atlas(r.device_scene, consts.shadow_visibility,
                                   consts.cascade_view_projs, cfg)
-    _, _, cascades, shadow_pos = shadows.cascade_select(
+    _, no_shadow, cascades, shadow_pos = shadows.cascade_select(
         consts.shadow_transforms, g["pos_w"], consts.eye_pos)
+    # the receiver-cascades whose factor the frame discards: both slots of
+    # sky and no-shadow pixels; the second slot of cascade-3 pixels (the
+    # deferred quirk blends only below cascade 3)
+    assert cfg.deferred
+    both = ~g["valid"] | no_shadow
+    discard = torch.stack([both, both | (cascades[..., 0] == 3)], dim=-1)
     params = pcf.receiver_params(shadow_pos.reshape(-1, 4),
                                  cascades.reshape(-1), S)
     qmap = pcf.quantize_map(maps)
@@ -302,6 +326,8 @@ def main():
     assert torch.isfinite(f_k).all(), "K6: non-finite factors"
     assert max_err <= PCF_TOL, f"K6: max |err| {max_err} vs plain"
     ms = cuda_ms(lambda: pcf.soft_pcf(qmap, params, SOFT), 20)
+    dev_ms = device_ms(lambda: pcf.soft_pcf(qmap, params, SOFT), 20,
+                       "soft_pcf_kernel")
     plain_ms = cuda_ms(lambda: pcf.soft_pcf_plain(qmap, params, SOFT), 3)
     m = params.shape[1]
     nbytes = params.numel() * 4 + qmap.numel() * 2 + m * 4
@@ -310,14 +336,20 @@ def main():
     phase(f"[7] K6 soft PCF: {m} receiver-cascades ({cfg.width}x"
           f"{cfg.height} x 2), {soft_share:.2%} in a penumbra; max |err| "
           f"{max_err} vs soft_pcf_plain, {above:.4%} above 1e-5; kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, {note}")
+          f"{ms:.4f} ms (device {dev_ms:.4f}), plain {plain_ms:.4f} ms, "
+          f"{note}; discarded by the "
+          f"frame: {float(discard.float().mean()):.2%} of receiver-cascades "
+          f"(sky {float((~g['valid']).float().mean()):.2%} and no shadow "
+          f"{float((no_shadow & g['valid']).float().mean()):.2%} of pixels, "
+          f"both slots; the second slot of cascade-3 pixels "
+          f"{float(((cascades[..., 0] == 3) & ~both).float().mean()):.2%})")
     kernels.append(dict(
         name="K6 soft-disk PCF: 16 taps, 2.5 texels, 2 cascades "
              "(shadows.py:319)", route="cuda",
         source="crychic_renderer_tpu_torch/csrc/pcf.cu",
         replaces="experiments/pcf_probe.py:46", variant="pcf",
-        runs=FRAME_RUNS, max_abs_err=max_err, ms=ms, plain_ms=plain_ms, library_ms=None,
-        **b))
+        runs=FRAME_RUNS, max_abs_err=max_err, ms=ms, device_ms=dev_ms,
+        plain_ms=plain_ms, library_ms=None, **b))
 
     # 8. the soft-disk paths: frames through Renderer.render
     frame_ms = {"config4": ms_frame}
@@ -428,7 +460,7 @@ def band_launches(name, variant, n, tris, W, H, cap, xrange, full):
     from crychic_renderer_tpu_torch.ops import raster
 
     ids = variant == "ids"
-    parts, owners, err = [], [], 0.0
+    parts, owners, err, recs = [], [], 0.0, []
     for d in range(n):
         rec, starts, counts, over = raster.binned_records(
             tris, W, H, cap, xrange=xrange, row_stride=(n, d))
@@ -446,9 +478,13 @@ def band_launches(name, variant, n, tris, W, H, cap, xrange, full):
             f"{name}, owner {d}: tid != plain"
         grid = rows // raster.TILE_H * (-(-W // raster.TILE_W))
         pairs = int(counts[off:off + grid].sum())
+        first = int(starts[off])
+        recs.append(rec[first:first + pairs])
         owners.append(dict(
             pairs=pairs,
             ms=cuda_ms(lambda: raster.raster_tiles(*args), 20),
+            device_ms=device_ms(lambda: raster.raster_tiles(*args), 20,
+                                "raster_tiles_kernel"),
             plain_ms=cuda_ms(lambda: raster.rasterize_plain(*args), 3),
             # records of the valid pairs, the grid's starts and counts,
             # depth (+ id) out
@@ -474,17 +510,34 @@ def band_launches(name, variant, n, tris, W, H, cap, xrange, full):
     phase(f"[9] {name}, {W}x{H} in {n} bands of {rows} rows: pairs per "
           f"owner {[o['pairs'] for o in owners]} (capacity {cap}); kernel "
           f"ms {[round(o['ms'], 4) for o in owners]}, plain ms "
-          f"{[round(o['plain_ms'], 3) for o in owners]}; every launch "
+          f"{[round(o['plain_ms'], 3) for o in owners]}, device ms "
+          f"{[round(o['device_ms'], 4) for o in owners]}; every launch "
           f"equal to rasterize_plain (max |err| {err}) and the bands "
           f"reassembled equal to "
           f"the full-frame launch (torch.equal); per launch: kernel "
-          f"{mean('ms'):.4f} ms, plain {mean('plain_ms'):.4f} ms, {note}")
+          f"{mean('ms'):.4f} ms (device {mean('device_ms'):.4f}), plain "
+          f"{mean('plain_ms'):.4f} ms, {note}; owners' records: "
+          f"{reject_note(torch.cat(recs), xrange is not None)}")
     return dict(name=name, route="cuda",
                 source="crychic_renderer_tpu_torch/csrc/raster.cu",
                 replaces="crychic_renderer_tpu/ops/raster_pallas.py:93",
                 variant="band_" + variant, runs=FRAME_RUNS,
-                max_abs_err=err, ms=mean("ms"),
+                max_abs_err=err, ms=mean("ms"), device_ms=mean("device_ms"),
                 plain_ms=mean("plain_ms"), library_ms=None, **b)
+
+
+def reject_note(records, with_xrange):
+    """The raster kernel's warp-level reject on these records
+    (raster.warp_rejects, its mirror): the share of (record, warp) pairs
+    it skips, and the share that have a covered pixel."""
+    from crychic_renderer_tpu_torch.ops import raster
+
+    rejected = raster.warp_rejects(records, with_xrange)
+    live = raster.warp_covers(records, with_xrange)
+    assert not bool((rejected & live).any()), "a rejected warp covers"
+    return (f"warp-level reject skips {float(rejected.float().mean()):.2%} "
+            f"of {rejected.numel()} (record, warp) pairs, "
+            f"{float(live.float().mean()):.2%} have a covered pixel")
 
 
 def sharded_frame(r, consts, band_cfg, dev):
@@ -599,6 +652,10 @@ def probe_runs(views, full_out, kernels, launches):
             rec_in, launch, plain_rec = rec, raster.raster_tiles, rec
         ms = cuda_ms(lambda: launch(rec_in, starts, counts, v["W"], v["H"],
                                     v["ids"], guard), 20)
+        dev_ms = device_ms(lambda: launch(rec_in, starts, counts, v["W"],
+                                          v["H"], v["ids"], guard), 20,
+                           "raster_tiles_field_kernel" if layout == "t"
+                           else "raster_tiles_kernel")
         plain_ms = cuda_ms(lambda: raster.rasterize_plain(
             plain_rec, starts, counts, v["W"], v["H"], v["ids"], guard), 3)
         kind = "field-major (16, P)" if layout == "t" else "pair-major (P, 16)"
@@ -606,14 +663,15 @@ def probe_runs(views, full_out, kernels, launches):
                 f"(fma_kernel_probe.py:145)")
         phase(f"[12] {name}: {v['W']}x{v['H']}, {v['pairs']} pairs, equal "
               f"to rasterize_plain and to phase 4's launch (torch.equal); "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, {v['note']}")
+              f"kernel {ms:.4f} ms (device {dev_ms:.4f}), plain "
+              f"{plain_ms:.4f} ms, {v['note']}")
         kernels.append(dict(
             name=name, route="cuda",
             source="crychic_renderer_tpu_torch/csrc/raster.cu",
             replaces="experiments/fma_kernel_probe.py:37",
             variant=("field_" if layout == "t" else "") + variant,
-            runs=["fma_probe"], max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            library_ms=None, **v["bound"]))
+            runs=["fma_probe"], max_abs_err=err, ms=ms, device_ms=dev_ms,
+            plain_ms=plain_ms, library_ms=None, **v["bound"]))
     phase(f"[12] rasterize_fma launches {launches['fma_probe']}")
 
     # 13. K5: the kernel alone inside the binning decomposition

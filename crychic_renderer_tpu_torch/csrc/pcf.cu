@@ -28,9 +28,36 @@
 //     the 3 outer taps (1, 7 and 13) count all 16 rows.
 //   - out[i] = sum / 16.
 // Each weight is evaluated with every operation rounded on its own (the
-// file is built with -fmad=false) and summed tap by tap, texel by texel,
-// in the order of the plain version (ops/pcf.py soft_pcf_plain), so the
+// file is built with -fmad=false) and summed tap by tap, then (ky, kx),
+// in the order of the plain version (ops/pcf.py soft_pcf_plain); a texel
+// that does not count adds +0.0, which leaves the sum as it was. So the
 // two agree to the last bit on the card.
+//
+// Work split. i = 2 * pixel + slot (cascades.reshape(-1) in
+// ops/shadows.py). Warp v of the grid takes slot v % 2 of the 32
+// consecutive pixels 32 * (v / 2) ..: i = 2 * (32 * (v / 2) + lane) + v % 2.
+// So a warp reads one cascade's map around 32 neighbouring receivers,
+// where one thread per consecutive i read two maps 8 MB apart.
+//
+// Footprint fetches. When the receiver's window lies inside the map
+// (qx0 and qy0 below the last 8-texel block), window texel (wy, wx) is map
+// texel (8*qy0 + wy, 8*qx0 + wx), so a tap's 2x2 footprint is 2x2
+// neighbouring texels, and one tex2Dgather fetches all four: the texture
+// object views the (C, S, S) map as a (C*S, S) 16-bit pitch-linear 2D
+// texture (point sampling, unnormalised coordinates, clamped at its
+// edges), and the gather at (X + 1, Y + 1) returns texels (X, Y), (X+1,
+// Y), (X, Y+1), (X+1, Y+1) as .w, .z, .x, .y. 16 fetches per receiver-
+// cascade replace 64 scalar loads. The window masks (columns in [0, 16),
+// the inner taps' 8 rows from oy) select the four weights without
+// branches; a texel outside the window (even one the texture clamped, or
+// one of the neighbouring cascade's rows) is fetched and masked away. A
+// receiver whose window reaches the map's last block, where
+// min(q + 1, S/8 - 1) repeats that block, and any receiver with a
+// non-finite or huge coordinate (its window clamps there) takes the
+// exact scalar path of the plain version in a branch. The C entry makes
+// the texture object at the first launch on a map pointer and shape and
+// caches it; a failure to make one is returned as an error, never worked
+// around.
 //
 // What bounds it. Per (receiver, cascade): 24 bytes of parameters in, 4
 // bytes out, and the 28 f32 operations per tap that the function needs
@@ -39,16 +66,26 @@
 // set-up (ops/pcf.py OPS_PER_RECEIVER). At 1080p that is 4.15M
 // receiver-cascades, 116 MB of parameters and output plus the 32 MB map,
 // against 1.9e9 operations: bound by memory (~45 us at 3.35 TB/s) more
-// than by f32 throughput (~29 us at 67 TFLOP/s). This kernel does more
-// arithmetic than that: it evaluates each texel's weight as a product of
-// two tents (the column tent once per row). The design is the simple
-// one: a thread per (receiver, cascade), texels through the read-only
-// cache (a receiver's 64 texel reads fall in one 16x16 window, and
-// neighbouring receivers share windows). Skipping dead receivers, and
-// sharing the tap offsets between the two cascades of a receiver, are
-// later work.
+// than by f32 throughput (~29 us at 67 TFLOP/s). The map fits in the 50
+// MB L2, so the former design (two cascades per warp, four 2-byte loads
+// per tap behind data-dependent branches, ~265M texel loads at 1080p) was
+// bound by load issue and L1 traffic, not DRAM: 0.372 ms on an H100 SXM
+// at 700 W. This one issues one gather and ~55 f32 and integer
+// instructions per tap (the tap position, floors, masks, four tents and
+// products, four selected adds), ~114M warp instructions at 1080p, ~0.12
+// ms at 132 SMs x 4 schedulers x ~1.75 GHz: it is bound by instruction
+// issue, and ran in 0.161 ms on the same card
+// (experiments/kernel_ab_probe.py). Comparing the texels with ceil(dq)
+// as integers, to save their conversion to f32, made it no faster. A
+// receiver's two cascades cannot share tap offsets: the rotation hash
+// reads each cascade's own uv (ops/pcf.py receiver_params), so their
+// angles differ. Skipping the receivers the frame discards (sky, no
+// shadow, the second cascade of cascade-3 pixels: 51.8% of config 4's
+// 1080p receiver-cascades, chip_smoke.py phase 7) is later work.
 
 #include <cuda_runtime.h>
+
+#include <mutex>
 
 namespace {
 
@@ -82,80 +119,213 @@ __device__ __forceinline__ int floor_sat(float x) {
                                 1073741824.0f));
 }
 
+// One receiver-cascade's window and parameters.
+struct Receiver {
+  float dq, c, s, fx, fy, fy_rel;
+  int cascade, qx0, qy0, oy;
+};
+
+// Tap t's position (tx, ty) in the window (ty relative to row0), its
+// row count and first window row.
+struct Tap {
+  float tx, ty, rows;
+  int row0;
+  __device__ __forceinline__ Tap(const Receiver& r, int t, float radius) {
+    const bool outer = (OUTER_TAPS >> t) & 1u;
+    const float px = kDiskX[t];
+    const float py = kDiskY[t];
+    const float dx = (px * r.c - py * r.s) * radius;
+    const float dy = (px * r.s + py * r.c) * radius;
+    tx = r.fx + dx;
+    ty = (outer ? r.fy : r.fy_rel) + dy;
+    rows = outer ? 16.0f : 8.0f;
+    row0 = outer ? 0 : r.oy;
+  }
+};
+
+// The window inside the map: one gather per tap, branch-free masks.
+__device__ __forceinline__ float taps_gather(const Receiver& r,
+                                             cudaTextureObject_t tex,
+                                             int size, float radius) {
+  // map row of window row 0 in the (C*S, S) texture, and column of
+  // window column 0; exact in f32 (< 2^24)
+  const float row_base =
+      static_cast<float>(r.cascade * size + 8 * r.qy0);
+  const float col_base = static_cast<float>(8 * r.qx0);
+  float acc = 0.0f;
+#pragma unroll
+  for (int t = 0; t < N_SAMPLE; ++t) {
+    const Tap p(r, t, radius);
+    const float x0 = floorf(p.tx);
+    const float y0 = floorf(p.ty);
+    const ushort4 q = tex2Dgather<ushort4>(
+        tex, col_base + x0 + 1.0f,
+        row_base + static_cast<float>(p.row0) + y0 + 1.0f, 0);
+    const float y1 = y0 + 1.0f;
+    const float x1 = x0 + 1.0f;
+    const bool in_y0 = y0 >= 0.0f && y0 < p.rows;  // NaN-safe
+    const bool in_y1 = y1 >= 0.0f && y1 < p.rows;
+    const bool in_x0 = x0 >= 0.0f && x0 < 16.0f;
+    const bool in_x1 = x1 >= 0.0f && x1 < 16.0f;
+    const float wy0 = tent(y0, p.ty);
+    const float wy1 = tent(y1, p.ty);
+    const float wx0 = tent(x0, p.tx);
+    const float wx1 = tent(x1, p.tx);
+    acc += (in_y0 && in_x0 && r.dq <= static_cast<float>(q.w)) ? wy0 * wx0
+                                                                : 0.0f;
+    acc += (in_y0 && in_x1 && r.dq <= static_cast<float>(q.z)) ? wy0 * wx1
+                                                                : 0.0f;
+    acc += (in_y1 && in_x0 && r.dq <= static_cast<float>(q.x)) ? wy1 * wx0
+                                                                : 0.0f;
+    acc += (in_y1 && in_x1 && r.dq <= static_cast<float>(q.y)) ? wy1 * wx1
+                                                                : 0.0f;
+  }
+  return acc;
+}
+
+// Any window, the clamped last block included: the plain version's
+// scalar reads.
+__device__ __noinline__ float taps_scalar(const Receiver& r,
+                                          const unsigned short* map,
+                                          int size, float radius) {
+  const int nb = size >> 3;
+  const unsigned short* cmap =
+      map + static_cast<size_t>(r.cascade) * size * size;
+  float acc = 0.0f;
+  for (int t = 0; t < N_SAMPLE; ++t) {
+    const Tap p(r, t, radius);
+    const float x0 = floorf(p.tx);
+    const float y0 = floorf(p.ty);
+    for (int ky = 0; ky < 2; ++ky) {
+      const float wyf = y0 + static_cast<float>(ky);
+      if (!(wyf >= 0.0f && wyf < p.rows)) continue;  // NaN-safe
+      const float wy = tent(wyf, p.ty);
+      const int wr = static_cast<int>(wyf) + p.row0;  // window row
+      const int mrow = min(r.qy0 + (wr >> 3), nb - 1) * 8 + (wr & 7);
+      const unsigned short* row = cmap + static_cast<size_t>(mrow) * size;
+      for (int kx = 0; kx < 2; ++kx) {
+        const float wxf = x0 + static_cast<float>(kx);
+        if (!(wxf >= 0.0f && wxf < 16.0f)) continue;
+        const int wc = static_cast<int>(wxf);
+        const int mcol = min(r.qx0 + (wc >> 3), nb - 1) * 8 + (wc & 7);
+        const float texel = static_cast<float>(__ldg(row + mcol));
+        if (r.dq <= texel) acc += wy * tent(wxf, p.tx);
+      }
+    }
+  }
+  return acc;
+}
+
 __global__ void __launch_bounds__(THREADS)
-soft_pcf_kernel(const unsigned short* __restrict__ map,
+soft_pcf_kernel(cudaTextureObject_t tex,
+                const unsigned short* __restrict__ map,
                 const float* __restrict__ params, int m, int num_cascades,
                 int size, float radius, float* __restrict__ out) {
-  const int i = blockIdx.x * THREADS + threadIdx.x;
+  const int v = (blockIdx.x * THREADS + threadIdx.x) / 32;  // grid warp
+  const int lane = threadIdx.x % 32;
+  const int i = 2 * (32 * (v / 2) + lane) + v % 2;
   if (i >= m) return;
   const size_t mm = static_cast<size_t>(m);
   const float cx = params[i];
   const float cy = params[mm + i];
-  const float dq = params[2 * mm + i];
-  const float c = params[3 * mm + i];
-  const float s = params[4 * mm + i];
-  const int cascade =
+  Receiver r;
+  r.dq = params[2 * mm + i];
+  r.c = params[3 * mm + i];
+  r.s = params[4 * mm + i];
+  r.cascade =
       min(max(static_cast<int>(params[5 * mm + i]), 0), num_cascades - 1);
 
   const int nb = size >> 3;
   const int x_lo = floor_sat(cx) - 3;
   const int y_lo = floor_sat(cy) - 3;
-  const int qx0 = min(max(x_lo >> 3, 0), nb - 1);
-  const int qy0 = min(max(y_lo >> 3, 0), nb - 1);
-  const int oy = min(max(y_lo - 8 * qy0, 0), 7);
-  const float fx = cx - static_cast<float>(8 * qx0);
-  const float fy = cy - static_cast<float>(8 * qy0);
-  const float fy_rel = fy - static_cast<float>(oy);
-  const unsigned short* cmap =
-      map + static_cast<size_t>(cascade) * size * size;
+  r.qx0 = min(max(x_lo >> 3, 0), nb - 1);
+  r.qy0 = min(max(y_lo >> 3, 0), nb - 1);
+  r.oy = min(max(y_lo - 8 * r.qy0, 0), 7);
+  r.fx = cx - static_cast<float>(8 * r.qx0);
+  r.fy = cy - static_cast<float>(8 * r.qy0);
+  r.fy_rel = r.fy - static_cast<float>(r.oy);
 
-  float acc = 0.0f;
-#pragma unroll
-  for (int t = 0; t < N_SAMPLE; ++t) {
-    const bool outer = (OUTER_TAPS >> t) & 1u;
-    const float px = kDiskX[t];
-    const float py = kDiskY[t];
-    const float dx = (px * c - py * s) * radius;
-    const float dy = (px * s + py * c) * radius;
-    const float tx = fx + dx;
-    const float ty = (outer ? fy : fy_rel) + dy;
-    const float rows = outer ? 16.0f : 8.0f;
-    const int row0 = outer ? 0 : oy;
-    const float x0 = floorf(tx);
-    const float y0 = floorf(ty);
-#pragma unroll
-    for (int ky = 0; ky < 2; ++ky) {
-      const float wyf = y0 + static_cast<float>(ky);
-      if (!(wyf >= 0.0f && wyf < rows)) continue;  // NaN-safe
-      const float wy = tent(wyf, ty);
-      const int wr = static_cast<int>(wyf) + row0;  // window row, [0, 16)
-      const int mrow = min(qy0 + (wr >> 3), nb - 1) * 8 + (wr & 7);
-      const unsigned short* row = cmap + static_cast<size_t>(mrow) * size;
-#pragma unroll
-      for (int kx = 0; kx < 2; ++kx) {
-        const float wxf = x0 + static_cast<float>(kx);
-        if (!(wxf >= 0.0f && wxf < 16.0f)) continue;
-        const int wc = static_cast<int>(wxf);
-        const int mcol = min(qx0 + (wc >> 3), nb - 1) * 8 + (wc & 7);
-        const float texel = static_cast<float>(__ldg(row + mcol));
-        if (dq <= texel) acc += wy * tent(wxf, tx);
-      }
+  const float acc = (r.qx0 < nb - 1 && r.qy0 < nb - 1)
+                        ? taps_gather(r, tex, size, radius)
+                        : taps_scalar(r, map, size, radius);
+  out[i] = acc * (1.0f / N_SAMPLE);
+}
+
+// Texture objects over the maps launched on so far, by device, pointer
+// and shape. A texture object views the memory, not a copy, so a new map
+// in the same allocation reads through the same object. When the cache is
+// full the device is synchronised (no launch may still read an object)
+// and every entry is destroyed: a rare event, since the caching allocator
+// hands a frame loop the same few pointers.
+struct TexEntry {
+  int device, num_cascades, size;
+  const void* map;
+  cudaTextureObject_t tex;
+};
+constexpr int TEX_CACHE = 64;
+std::mutex tex_mutex;
+TexEntry tex_cache[TEX_CACHE];
+int tex_count = 0;
+
+cudaError_t map_texture(const void* map, int num_cascades, int size,
+                        cudaTextureObject_t* tex) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(tex_mutex);
+  for (int k = 0; k < tex_count; ++k) {
+    const TexEntry& e = tex_cache[k];
+    if (e.device == device && e.map == map &&
+        e.num_cascades == num_cascades && e.size == size) {
+      *tex = e.tex;
+      return cudaSuccess;
     }
   }
-  out[i] = acc * (1.0f / N_SAMPLE);
+  if (tex_count == TEX_CACHE) {
+    err = cudaDeviceSynchronize();
+    if (err != cudaSuccess) return err;
+    for (int k = 0; k < tex_count; ++k)
+      cudaDestroyTextureObject(tex_cache[k].tex);
+    tex_count = 0;
+  }
+  cudaResourceDesc res = {};
+  res.resType = cudaResourceTypePitch2D;
+  res.res.pitch2D.devPtr = const_cast<void*>(map);
+  res.res.pitch2D.desc = cudaCreateChannelDesc<unsigned short>();
+  res.res.pitch2D.width = size;
+  res.res.pitch2D.height = static_cast<size_t>(num_cascades) * size;
+  res.res.pitch2D.pitchInBytes = static_cast<size_t>(size) * 2;
+  cudaTextureDesc desc = {};
+  desc.addressMode[0] = cudaAddressModeClamp;
+  desc.addressMode[1] = cudaAddressModeClamp;
+  desc.filterMode = cudaFilterModePoint;
+  desc.readMode = cudaReadModeElementType;
+  desc.normalizedCoords = 0;
+  err = cudaCreateTextureObject(tex, &res, &desc, nullptr);
+  if (err != cudaSuccess) return err;
+  tex_cache[tex_count++] = {device, num_cascades, size, map, *tex};
+  return cudaSuccess;
 }
 
 }  // namespace
 
 // Plain C entry point bound with ctypes (ops/pcf.py). map: (C, S, S)
 // 16-bit depths; params: (6, m) f32; out: (m,) f32. Returns
-// cudaGetLastError() after the launch (0 = launched).
+// cudaGetLastError() after the launch (0 = launched), or the error of
+// making the map's texture object (the map's address and row pitch must
+// meet the card's texture alignment) without launching.
 extern "C" int crychic_soft_pcf(const void* map, const void* params, int m,
                                 int num_cascades, int size, float radius,
                                 void* out, void* stream) {
-  const int blocks = (m + THREADS - 1) / THREADS;
+  cudaTextureObject_t tex = 0;
+  const cudaError_t err = map_texture(map, num_cascades, size, &tex);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // a pair of warps (the two slots) per 32 pixels
+  const int pixels = (m + 1) / 2;
+  const int warps = 2 * ((pixels + 31) / 32);
+  const int blocks = (warps * 32 + THREADS - 1) / THREADS;
   soft_pcf_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const unsigned short*>(map),
+      tex, static_cast<const unsigned short*>(map),
       static_cast<const float*>(params), m, num_cascades, size, radius,
       static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());

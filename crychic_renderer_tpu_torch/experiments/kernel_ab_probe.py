@@ -1,0 +1,187 @@
+"""A/B times of the raster kernel (K1, K2, K3) and the soft PCF kernel
+(K6) of two checkouts, on one card, on BASELINE config 4's 1080p inputs.
+
+    python -m crychic_renderer_tpu_torch.experiments.kernel_ab_probe \
+        --other build/parent [--reps 20]
+
+``--other`` is another checkout of the repository (for example a ``git
+archive`` of the parent commit unpacked under ``build/``). Its
+``csrc/raster.cu`` and ``csrc/pcf.cu`` are built beside this checkout's
+and launched through this checkout's wrappers (``ops/raster.raster_tiles``,
+``ops/pcf.soft_pcf``), whose C interfaces the two share, on the main view
+(K1), the atlas (K2), each owner's band launch at n=4 (K3) and both
+cascades of every pixel's receiver with the 2.5-texel disk (K6). Each
+kernel is timed in turns (other, this, this, other), two ways:
+
+- device ms: the kernel's own duration per launch, from torch.profiler's
+  CUDA kernel records; the host's work in the wrapper is not in it;
+- event ms: CUDA events around back-to-back wrapper calls, after one
+  warm-up (chip_smoke.py's method). When the host takes longer to issue a
+  call than the kernel runs, this is the host's issue time.
+
+The two checkouts' outputs are held equal (torch.equal for the raster,
+max |diff| <= 1e-5 for K6). Prints the card (nvidia-smi name, power
+limit) and one JSON line. Needs the card: on a CPU there is no kernel.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import os
+import subprocess
+
+import torch
+
+from ..ops import build, pcf, raster
+from . import config4_views, time_ms
+
+SOFT = 2.5
+N_BANDS = 4
+
+
+def device_ms(fn, reps: int, kernel: str) -> float:
+    """Mean device duration (ms) of one launch of the CUDA kernel whose
+    name holds `kernel`, over `reps` calls of fn() after one warm-up; each
+    call launches one. The profiler may miss a record (one of 20 was
+    seen missing), so the mean is over the records it kept, at least
+    half of them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and kernel in e.name]
+    if not reps // 2 <= len(times) <= reps:
+        raise RuntimeError(f"{len(times)} records of {kernel} in {reps} "
+                           "calls")
+    return sum(times) / len(times) / 1000.0
+
+
+def libraries(root: str):
+    """(raster, pcf) KernelLibrary of the checkout at `root`."""
+    csrc = os.path.join(os.path.abspath(root), "crychic_renderer_tpu_torch",
+                        "csrc")
+    return (build.KernelLibrary(os.path.join(csrc, "raster.cu"),
+                                raster.LIBRARY.name,
+                                raster.LIBRARY.signatures),
+            build.KernelLibrary(os.path.join(csrc, "pcf.cu"),
+                                pcf.LIBRARY.name, pcf.LIBRARY.signatures))
+
+
+@contextlib.contextmanager
+def using(libs):
+    """The wrappers launch `libs`' kernels inside the block."""
+    saved = raster.LIBRARY, pcf.LIBRARY
+    raster.LIBRARY, pcf.LIBRARY = libs
+    try:
+        yield
+    finally:
+        raster.LIBRARY, pcf.LIBRARY = saved
+
+
+def pcf_inputs(device):
+    """(qmap, params) of config 4's 1080p frame at time 0: the quantized
+    atlas and both cascades of every pixel's receiver (chip_smoke.py
+    phase 7's inputs)."""
+    from ..app.renderer import Renderer
+    from ..models.scenes_baseline import CONFIGS
+    from ..ops import shadows
+    from ..passes import frame as fr
+
+    scene, cfg, lights = CONFIGS[4]()
+    r = Renderer(scene, cfg, lights=lights, device=device)
+    cfg = r.cfg
+    c = r.frame_constants(0.0)
+    tris, attr = fr.main_view_tris(r.device_scene, c, cfg)
+    depth, tid, _ = raster.rasterize(tris, cfg.width, cfg.height,
+                                     cfg.pair_capacity)
+    g = fr.resolve_gbuffer(r.device_scene, c, cfg, tris, depth, tid, attr)
+    maps = fr.render_shadow_atlas(r.device_scene, c.shadow_visibility,
+                                  c.cascade_view_projs, cfg)
+    _, _, cascades, pos = shadows.cascade_select(c.shadow_transforms,
+                                                 g["pos_w"], c.eye_pos)
+    return (pcf.quantize_map(maps),
+            pcf.receiver_params(pos.reshape(-1, 4), cascades.reshape(-1),
+                                cfg.shadow_map_size))
+
+
+def launches(device):
+    """{kernel: (fn, kernel name, equal)} of K1, K2, K3 (one fn per
+    owner) and K6 on the 1080p inputs; equal(a, b) holds two outputs."""
+    out = {}
+    for name, tris, W, H, cap, xr, ids in config4_views(device):
+        key = "K1" if ids else "K2"
+        rec, st, cn, over = raster.binned_records(tris, W, H, cap,
+                                                  xrange=xr)
+        assert not bool(over), f"{key}: capacity overflow"
+        args = (rec, st, cn, W, H, ids, xr is not None)
+        out[key] = (lambda a=args: raster.raster_tiles(*a))
+        band_h = -(-H // (raster.TILE_H * N_BANDS)) * raster.TILE_H
+        for d in range(N_BANDS):
+            b = raster.binned_records(tris, W, N_BANDS * band_h, cap,
+                                      xrange=xr, row_stride=(N_BANDS, d))
+            off, rows = raster.band_grid(W, N_BANDS * band_h,
+                                         row_stride=(N_BANDS, d))
+            a = (*b[:3], W, rows, ids, xr is not None, off)
+            out[f"K3 {'main' if ids else 'atlas'} owner {d}"] = (
+                lambda a=a: raster.raster_tiles(*a))
+    qmap, params = pcf_inputs(device)
+    out["K6"] = lambda: (pcf.soft_pcf(qmap, params, SOFT), None)
+    return out
+
+
+def _same(key, a, b):
+    if key == "K6":
+        return float((a[0] - b[0]).abs().max()) <= 1e-5
+    return torch.equal(a[0], b[0]) and (
+        (a[1] is None and b[1] is None) or torch.equal(a[1], b[1]))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--other", required=True,
+                    help="root of the other checkout")
+    ap.add_argument("--reps", type=int, default=20)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_ab_probe: needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    libs = {"other": libraries(args.other), "this": (raster.LIBRARY,
+                                                      pcf.LIBRARY)}
+    for pair in libs.values():
+        for lib in pair:
+            lib.load(True)
+    fns = launches(dev)
+    result = {}
+    for key, fn in fns.items():
+        kernel = "soft_pcf_kernel" if key == "K6" else "raster_tiles_kernel"
+        times = {"other": {"device_ms": [], "event_ms": []},
+                 "this": {"device_ms": [], "event_ms": []}}
+        outs = {}
+        for side in ("other", "this", "this", "other"):
+            with using(libs[side]):
+                outs[side] = fn()
+                times[side]["device_ms"].append(
+                    device_ms(fn, args.reps, kernel))
+                times[side]["event_ms"].append(time_ms(fn, args.reps, dev))
+        assert _same(key, outs["other"], outs["this"]), \
+            f"{key}: the two checkouts' outputs differ"
+        result[key] = times
+    print(smi)
+    print(json.dumps({"card": smi, "other": args.other, "reps": args.reps,
+                      "kernels": result}))
+
+
+if __name__ == "__main__":
+    main()

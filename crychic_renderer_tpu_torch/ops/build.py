@@ -20,8 +20,11 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
+# -Xptxas -v: the build log reports each kernel's registers, shared memory
+# and spills
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-std=c++17", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 
 def _nvcc() -> str:
@@ -38,13 +41,15 @@ class KernelLibrary:
     ``load()`` builds on first use (or always with rebuild=True), binds the
     C functions with the given ctypes signatures and returns the CDLL;
     ``build_seconds`` is the nvcc wall time of the last build in this
-    process (None when the library was already on disk)."""
+    process (None when the library was already on disk) and
+    ``build_log`` its compiler output (ptxas' resource report)."""
 
     def __init__(self, source: str, name: str, signatures: dict):
         self.source = os.path.join(CSRC, source)
         self.name = name
         self.signatures = signatures  # fn name -> (argtypes, restype)
         self.build_seconds = None
+        self.build_log = None
         self._lib = None
 
     def path(self) -> str:
@@ -62,8 +67,13 @@ class KernelLibrary:
             os.makedirs(os.path.dirname(path), exist_ok=True)
             tmp = f"{path}.{os.getpid()}.tmp"
             t0 = time.perf_counter()
-            subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, self.source],
-                           check=True)
+            proc = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS, "-o", tmp, self.source],
+                capture_output=True, text=True)
+            self.build_log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {self.source}:\n"
+                                   f"{self.build_log}")
             self.build_seconds = time.perf_counter() - t0
             os.replace(tmp, path)
         lib = ctypes.CDLL(path)

@@ -20,6 +20,10 @@ torch code that both the kernel and the plain version read.
   with plain tensor ops. On the card it equals the kernel bit for bit:
   both evaluate ((A*px) + (B*py)) + C with each operation rounded on its
   own.
+- ``warp_rejects`` mirrors the kernel's warp-level reject (which records
+  each warp's 16x8 rectangle skips), and ``warp_covers`` says which
+  records cover a pixel of each rectangle: the tests hold that the first
+  never skips what the second covers.
 
 Record layout (``build_records``, one (16,) f32 row per sorted pair): 0-2
 edge A, 3-5 edge B, 6-8 TILE-LOCAL edge C (evaluated at the pair's tile
@@ -46,6 +50,10 @@ TRI_BLOCK = 128  # pair capacities are multiples of this
 # exact epsilon: snapped edge values are multiples of 1/SUBPIXEL^2
 EDGE_EPS = 0.5 / (rz.SUBPIXEL * rz.SUBPIXEL)
 REC_ROWS = 16
+# the kernel's warps: warp w of a tile's block owns columns
+# WARP_W * w .. + WARP_W - 1, all TILE_H rows
+WARP_W = 16
+WARPS = TILE_W // WARP_W
 
 # Launches of the CUDA kernel since import (or since a caller reset them),
 # in all and per variant: "ids" (depth + triangle id, the main view, K1),
@@ -229,6 +237,85 @@ def _assemble(flat: torch.Tensor, ntx: int, nty: int, width: int,
     return img.reshape(nty * TILE_H, ntx * TILE_W)[:height, :width]
 
 
+def warp_rejects(records: torch.Tensor, with_xrange: bool) -> torch.Tensor:
+    """(P, WARPS) bool: which records the raster kernel's warps skip.
+    Warp w owns the tile-local rectangle of pixel centres x in [16w + 0.5,
+    16w + 15.5], y in [0.5, 7.5], and skips a record when (a) with the
+    column guard, all its column centres lie outside [xlo, xhi), (b) an
+    edge's plane at the rectangle's maximising corner is below -m, or (c)
+    the depth plane's maximum is below -m or its minimum above 1 + m, with
+    m = 2^-20 * (|A|*128 + |B|*8 + |C|) + 2^-120 of that plane.
+
+    The mirror of csrc/raster.cu may_cover, op for op in f32 (see its
+    note for why no skipped record covers a pixel of the warp)."""
+    x0 = (torch.arange(WARPS, dtype=torch.float32, device=records.device)
+          * WARP_W + 0.5)
+    x1 = x0 + (WARP_W - 1)
+    y0, y1 = 0.5, TILE_H - 0.5
+
+    def col(k):
+        return records[:, k:k + 1]
+
+    def margin(a, b, c):
+        return ((a.abs() * 128.0 + b.abs() * 8.0) + c.abs()) * 2.0 ** -20 \
+            + 2.0 ** -120
+
+    def corner(a, b, c, hi):  # the plane at the max (hi) / min corner
+        x = torch.where((a >= 0.0) == hi, x1, x0)
+        y = torch.where((b >= 0.0) == hi, y1, y0)
+        return (a * x + b * y) + c
+
+    out = torch.zeros((records.shape[0], WARPS), dtype=torch.bool,
+                      device=records.device)
+    if with_xrange:
+        out |= (x1 < col(13)) | (x0 >= col(14))
+    for e in range(3):
+        a, b, c = col(e), col(3 + e), col(6 + e)
+        out |= corner(a, b, c, True) < -margin(a, b, c)
+    a, b, c = col(9), col(10), col(11)
+    mz = margin(a, b, c)
+    out |= corner(a, b, c, True) < -mz
+    out |= corner(a, b, c, False) > 1.0 + mz
+    return out
+
+
+def warp_covers(records: torch.Tensor, with_xrange: bool) -> torch.Tensor:
+    """(P, WARPS) bool: which records cover a pixel of each warp's
+    rectangle (pair_hits, in chunks of pairs): what warp_rejects must
+    never skip."""
+    return torch.cat([
+        pair_hits(records[c0:c0 + _PLAIN_CHUNK], with_xrange)[1]
+        .reshape(-1, TILE_H, WARPS, WARP_W).any(dim=3).any(dim=1)
+        for c0 in range(0, records.shape[0], _PLAIN_CHUNK)])
+
+
+def pair_hits(records: torch.Tensor, with_xrange: bool):
+    """Each record against its tile's 8x128 pixel centres, as the kernel
+    evaluates it: (z (P, 8, 128) f32, hit (P, 8, 128) bool), hit = all
+    edges >= 0, inside the column guard and z in [0, 1]."""
+    px = torch.arange(TILE_W, dtype=torch.float32,
+                      device=records.device).reshape(1, 1, TILE_W) + 0.5
+    py = torch.arange(TILE_H, dtype=torch.float32,
+                      device=records.device).reshape(1, TILE_H, 1) + 0.5
+
+    def col(k):
+        return records[:, k].reshape(-1, 1, 1)
+
+    # ((A*px) + (B*py)) + C: A*px and B*py are multiplied once per pair
+    # and column or row, then broadcast-added over the tile, as the kernel
+    # does
+    def plane(a, b, c):
+        return (col(a) * px + col(b) * py) + col(c)
+
+    hit = plane(0, 3, 6) >= 0.0
+    hit &= plane(1, 4, 7) >= 0.0
+    hit &= plane(2, 5, 8) >= 0.0
+    if with_xrange:
+        hit &= (px >= col(13)) & (px < col(14))
+    z = plane(9, 10, 11)
+    return z, hit & (z >= 0.0) & (z <= 1.0)
+
+
 def rasterize_plain(records: torch.Tensor, starts: torch.Tensor,
                     counts: torch.Tensor, width: int, height: int,
                     with_ids: bool = True, with_xrange: bool = False,
@@ -247,13 +334,6 @@ def rasterize_plain(records: torch.Tensor, starts: torch.Tensor,
     nty = num_tiles // ntx
     P = TILE_H * TILE_W
     lane = torch.arange(P, device=dev)
-    # pixel centres as a (1, 1, TILE_W) row and a (1, TILE_H, 1) column:
-    # A*px and B*py are multiplied once per pair and column or row, then
-    # broadcast-added over the tile, as the kernel does
-    px = torch.arange(TILE_W, dtype=torch.float32,
-                      device=dev).reshape(1, 1, TILE_W) + 0.5
-    py = torch.arange(TILE_H, dtype=torch.float32,
-                      device=dev).reshape(1, TILE_H, 1) + 0.5
     # the grid's runs are one contiguous pair range, tile by tile
     ends = (starts + counts)[off:off + num_tiles]
     first = int(starts[off])
@@ -265,22 +345,9 @@ def rasterize_plain(records: torch.Tensor, starts: torch.Tensor,
             j = torch.arange(c0, c1, dtype=torch.int32, device=dev)
             tile = torch.searchsorted(ends, j, right=True).long()
             r = records[c0:c1]
-
-            def col(k):
-                return r[:, k].reshape(-1, 1, 1)
-
-            def plane(a, b, c):  # ((A*px) + (B*py)) + C, (pairs, 8, 128)
-                return (col(a) * px + col(b) * py) + col(c)
-
-            cov = plane(0, 3, 6) >= 0.0
-            cov &= plane(1, 4, 7) >= 0.0
-            cov &= plane(2, 5, 8) >= 0.0
-            if with_xrange:
-                cov &= (px >= col(13)) & (px < col(14))
-            z = plane(9, 10, 11).reshape(-1, P)
-            hit = cov.reshape(-1, P) & (z >= 0.0) & (z <= 1.0)
+            z, hit = pair_hits(r, with_xrange)
             pix = tile[:, None] * P + lane  # flat (tile, lane) index
-            yield r, z, hit, pix
+            yield r, z.reshape(-1, P), hit.reshape(-1, P), pix
 
     depth = torch.ones(num_tiles * P, dtype=torch.float32, device=dev)
     for _, z, hit, pix in chunks():

@@ -3,11 +3,17 @@
 - The raster kernel (csrc/raster.cu): no tolerance, depth and tid must be
   equal (torch.equal), for the full screen (K1, K2), for every owner's
   band launch (K3), whose bands reassembled equal the full screen's, and
-  for the field-major launch (K4) on the transposed records.
+  for the field-major launch (K4) on the transposed records; on the
+  sliver set of its warp-level reject (sliver_tris, shared with
+  tests/test_torch_raster.py) and on atlas records under column guards
+  that cut through the warps' rectangles.
 - The soft PCF kernel (csrc/pcf.cu): 1e-5. Both sum the same <= 64 tent
   weights from the same parameters; the kernel keeps the plain version's
   order and rounds each operation on its own, so it is expected to be
-  equal, and the bound leaves room for the order of the sums.
+  equal, and the bound leaves room for the order of the sums. Also on
+  receivers near every edge and corner of the map (the gathered
+  footprints and the scalar path of the last block) and on NaN, infinite
+  and huge parameters.
 
 Imports torch and the port only (the card's machine has no jax). The
 cases marked ``cuda`` skip without a CUDA device; run them on the card
@@ -38,6 +44,80 @@ def _half_screen_tris(W, H, device):
     v = torch.tensor([[[-1, 1, 0.5, 1], [0, 1, 0.5, 1], [-1, -1, 0.5, 1]]],
                      dtype=torch.float32, device=device)
     return rz.setup_tri_verts(v, None, W, H)
+
+
+def sliver_tris(device, n=2048, seed=11):
+    """~2,000 seeded screen-space triangles that test the raster kernel's
+    warp-level reject at its edges, on a 512x64 screen (4 x 8 tiles): long
+    slivers down to 1/256 px wide, near-degenerate and sub-pixel ones,
+    ones with vertices on pixel centres at the warps' rectangle corners
+    (edges through corner centres), ones hugging tile corners (bbox in
+    tiles they do not cover) and a few huge ones; z in [-0.3, 1.3] at the
+    vertices; and a column guard per triangle, some of it on warp
+    boundaries. Returns (tris, W, H, pair capacity, xrange)."""
+    W, H = 512, 64
+    rng = np.random.default_rng(seed)
+    k = n // 4
+    # slivers: a long axis and a width of 1/256 .. 1 px
+    c = rng.uniform([-20, -20], [W + 20, H + 20], (k, 2))
+    ang = rng.uniform(0, 2 * np.pi, k)
+    d = np.stack([np.cos(ang), np.sin(ang)], -1)
+    nrm = np.stack([-d[:, 1], d[:, 0]], -1)
+    L = rng.uniform(20, 300, k)[:, None]
+    wd = (2.0 ** rng.uniform(-8, 0, k))[:, None]
+    t = rng.uniform(-0.4, 0.4, k)[:, None]
+    sliver = np.stack([c - 0.5 * L * d, c + 0.5 * L * d,
+                       c + t * L * d + wd * nrm], 1)
+    # near-degenerate: almost collinear, or under 1.5 px
+    p0 = rng.uniform([0, 0], [W, H], (k, 2))
+    v = rng.uniform(-40, 40, (k, 2))
+    eps = rng.uniform(1 / 256, 0.05, (k, 1)) * np.sign(rng.uniform(-1, 1,
+                                                                    (k, 1)))
+    tiny = rng.uniform(-1.5, 1.5, (k, 2, 2))
+    small = rng.uniform(0, 1, k) < 0.5
+    degen = np.stack([p0, p0 + v, p0 + 0.5 * v + eps * v[:, ::-1] * [1, -1]],
+                     1)
+    degen[small, 1] = p0[small] + tiny[small, 0]
+    degen[small, 2] = p0[small] + tiny[small, 1]
+    # pixel centres at the warps' rectangle corners (x = 16w + 0.5 or
+    # 16w + 15.5, y = 8r + 0.5 or 8r + 7.5), moved by whole pixels
+    cx = (16 * rng.integers(0, W // 16, (k, 3))
+          + rng.choice([0.5, 15.5], (k, 3)) + rng.integers(-3, 4, (k, 3)))
+    cy = (8 * rng.integers(0, H // 8, (k, 3)) + rng.choice([0.5, 7.5], (k, 3))
+          + rng.integers(-3, 4, (k, 3)))
+    lattice = np.stack([cx, cy], -1)
+    # tile-corner huggers: a right triangle in one quadrant of a tile
+    # corner whose hypotenuse passes the corner within ~1.5 px, so its
+    # bbox reaches the neighbouring tiles; and 16 huge ones
+    m = n - 3 * k
+    corner = np.stack([128 * rng.integers(1, W // 128, m),
+                       8 * rng.integers(1, H // 8, m)], -1).astype(np.float64)
+    s = rng.choice([-1.0, 1.0], (m, 2))
+    a = rng.uniform(2, 60, m)
+    b = rng.uniform(1, 6, m)
+    d1, d2 = rng.uniform(0, 1.5, (2, m))
+    hug = corner[:, None] + s[:, None] * np.stack(
+        [np.stack([a, -d1], -1), np.stack([-d2, b], -1),
+         np.stack([a, b], -1)], 1)
+    hug[:16] = rng.uniform(-1e4, 1e4, (16, 3, 2))
+    xy = np.concatenate([sliver, degen, lattice, hug]).astype(np.float32)
+    xy = rz.snap_xy(torch.from_numpy(xy)).numpy()
+    area2 = ((xy[:, 1, 0] - xy[:, 0, 0]) * (xy[:, 2, 1] - xy[:, 0, 1])
+             - (xy[:, 1, 1] - xy[:, 0, 1]) * (xy[:, 2, 0] - xy[:, 0, 0]))
+    xy = np.where((area2 < 0)[:, None, None], xy[:, ::-1], xy)
+    z = rng.uniform(-0.3, 1.3, (n, 3)).astype(np.float32)
+    tris = rz.ScreenTris(
+        torch.from_numpy(np.ascontiguousarray(xy)).to(device),
+        torch.from_numpy(z).to(device),
+        torch.ones((n, 3), device=device), torch.from_numpy(area2 != 0)
+        .to(device))
+    xlo = (rng.integers(-10, W, n) + rng.choice([0.0, 0.25, 0.5], n))
+    on_warp = rng.uniform(0, 1, n) < 0.3
+    xlo = np.where(on_warp, 16 * rng.integers(0, W // 16, n) + 0.5, xlo)
+    xhi = xlo + rng.integers(0, 200, n) + rng.choice([0.0, 0.5], n)
+    xrange = tuple(torch.from_numpy(x.astype(np.float32)).to(device)
+                   for x in (xlo, xhi))
+    return tris, W, H, 1 << 17, xrange
 
 
 CASES = {
@@ -132,6 +212,20 @@ def test_kernel_equals_plain_config4_small(cuda):
     _check(rec, st, cn, 1024, 256, False, True, field=True)
 
 
+@pytest.mark.cuda
+def test_kernel_equals_plain_slivers(cuda):
+    """The warp-level reject's sliver set (sliver_tris) with ids, depth
+    only, and depth with its column guard, pair-major (K1/K2) and
+    field-major (K4)."""
+    tris, W, H, cap, xr = sliver_tris(cuda)
+    for ids, guard in ((True, False), (False, False), (False, True)):
+        rec, st, cn, over = raster.binned_records(
+            tris, W, H, cap, xrange=xr if guard else None)
+        assert not bool(over)
+        for field in (False, True):
+            _check(rec, st, cn, W, H, ids, guard, field=field)
+
+
 def _config4_small_inputs(device):
     """(renderer, main-view tris, atlas tris, atlas xrange) of the 1/8
     config-4 frame on `device`."""
@@ -147,6 +241,25 @@ def _config4_small_inputs(device):
     atris, xr = fr.shadow_atlas_tris(r.device_scene, c.shadow_visibility,
                                      c.cascade_view_projs, r.cfg)
     return r, tris, atris, xr
+
+
+@pytest.mark.cuda
+def test_kernel_equals_plain_atlas_guards(cuda):
+    """The 1/8 atlas's triangles under seeded column guards that start on
+    and between the warps' 16-column boundaries, pair-major (K2) and
+    field-major (K4)."""
+    r, _, atris, _ = _config4_small_inputs(cuda)
+    T = atris.xy.shape[0]
+    rng = np.random.default_rng(5)
+    xlo = 16 * rng.integers(0, 64, T) + rng.choice([0.0, 0.5, 7.25, 15.5], T)
+    xhi = xlo + rng.integers(1, 300, T) + rng.choice([0.0, 0.5], T)
+    xr = tuple(torch.from_numpy(x.astype(np.float32)).to(cuda)
+               for x in (xlo, xhi))
+    rec, st, cn, over = raster.binned_records(
+        atris, 1024, 256, r.cfg.shadow_pair_capacity, xrange=xr)
+    assert not bool(over)
+    _check(rec, st, cn, 1024, 256, False, True)
+    _check(rec, st, cn, 1024, 256, False, True, field=True)
 
 
 @pytest.mark.cuda
@@ -265,6 +378,67 @@ def test_pcf_kernel_equals_plain(cuda):
     ref = pcf.soft_pcf_plain(qmap, params, 2.5)
     assert float((got - ref).abs().max()) <= 1e-5
     assert 0.1 < float(((ref > 0) & (ref < 1)).float().mean())
+
+
+def _edge_params(device, S=256, n=20001, seed=3):
+    """(qmap, params): n (odd) receivers whose window corner cx, cy lies
+    within 8 texels of the map's low edge, within 8 of its high edge, or
+    inside, independently in x and y, so every edge and corner is hit, in
+    all 4 cascades; depths near the map's."""
+    rng = np.random.default_rng(seed)
+
+    def coord():
+        return np.choose(rng.integers(0, 3, n),
+                         [rng.uniform(-8.5, 8.5, n),
+                          rng.uniform(S - 9.5, S + 7.5, n),
+                          rng.uniform(8.0, S - 9.0, n)])
+
+    yy, xx = np.meshgrid(np.arange(S), np.arange(S), indexing="ij")
+    maps = np.stack([0.5 + 0.3 * np.sin(xx / (7.0 + c))
+                     * np.cos(yy / (5.0 + c)) for c in range(4)])
+    cx, cy = coord(), coord()
+    casc = rng.integers(0, 4, n)
+    ix = np.clip(np.floor(cx + 0.5).astype(int), 0, S - 1)
+    iy = np.clip(np.floor(cy + 0.5).astype(int), 0, S - 1)
+    dq = (maps[casc, iy, ix] + rng.uniform(-0.05, 0.05, n)) * 65535.0 - 0.5
+    theta = rng.uniform(0, 2 * np.pi, n)
+    params = np.stack([cx, cy, dq, np.cos(theta), np.sin(theta), casc])
+    qmap = pcf.quantize_map(torch.from_numpy(maps).float().to(device))
+    return qmap, torch.from_numpy(params.astype(np.float32)).to(device)
+
+
+@pytest.mark.cuda
+def test_pcf_kernel_map_edges(cuda):
+    """K6 on receivers near every edge and corner of the map: both the
+    gathered footprints (window inside the map) and the scalar path (the
+    window reaches the last 8-texel block) agree with plain."""
+    qmap, params = _edge_params(cuda)
+    nb = qmap.shape[1] // 8
+    q = torch.clamp((torch.floor(params[:2]) - 3).long() >> 3, 0, nb - 1)
+    last = float((q == nb - 1).any(dim=0).float().mean())
+    assert 0.2 < last < 0.8, last
+    got = pcf.soft_pcf(qmap, params, 2.5)
+    torch.cuda.synchronize()
+    ref = pcf.soft_pcf_plain(qmap, params, 2.5)
+    assert float((got - ref).abs().max()) <= 1e-5
+    assert 0.05 < float(((ref > 0) & (ref < 1)).float().mean())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("value", [float("nan"), float("inf"),
+                                   float("-inf"), 1e30, -1e30])
+def test_pcf_kernel_nonfinite_params(cuda, value):
+    """Each of the six parameters set to NaN, +-inf or +-1e30 on its own
+    slice of receivers: finite factors within 1e-5 of plain."""
+    qmap, params = _pcf_inputs(cuda, n=6000)
+    params = params.clone()
+    for k in range(pcf.PARAMS):
+        params[k, 1000 * k:1000 * (k + 1)] = value
+    got = pcf.soft_pcf(qmap, params, 2.5)
+    torch.cuda.synchronize()
+    ref = pcf.soft_pcf_plain(qmap, params, 2.5)
+    assert bool(torch.isfinite(ref).all()) and bool(torch.isfinite(got).all())
+    assert float((got - ref).abs().max()) <= 1e-5
 
 
 @pytest.mark.cuda

@@ -30,6 +30,7 @@ from crychic_renderer_tpu.ops import raster_pallas as rp
 from crychic_renderer_tpu.ops import rasterizer as jrz
 from crychic_renderer_tpu_torch.ops import raster
 from crychic_renderer_tpu_torch.ops import rasterizer as rz
+from tests.test_torch_cuda import sliver_tris
 
 TID_FRAC = 1e-3   # tids may differ on at most 0.1% of pixels
 DZ = 1e-6         # max |depth difference| where the tids agree
@@ -193,6 +194,79 @@ def test_config4_records_match_jax(config4_small, view):
                                            xrange=_xrange_t(xrange))
     n = int(bins.num_valid)
     np.testing.assert_array_equal(rec_t.numpy()[:n], rec_j[:n])
+
+
+def _reject_case(request, case):
+    """(records of the valid pairs, with_xrange) of one reject case."""
+    if case.startswith("slivers"):
+        tris, W, H, cap, xr = sliver_tris("cpu")
+        guard = case == "slivers_guard"
+        rec, _, counts, over = raster.binned_records(
+            tris, W, H, cap, xrange=xr if guard else None)
+    else:
+        view = case.split("_")[1]
+        tris, W, H, cap, xrange, _ = _config4_view(
+            request.getfixturevalue("config4_small"), view)
+        guard = xrange is not None
+        rec, _, counts, over = raster.binned_records(
+            _to_torch(tris), W, H, cap, xrange=_xrange_t(xrange))
+    assert not bool(over)
+    return rec[:int(counts.sum())], guard
+
+
+# measured reject shares of (record, warp): config4_main 0.8268 (live
+# 0.0889), config4_atlas 0.8792 (0.0608), slivers 0.7710 (0.1798),
+# slivers_guard 0.9545 (0.0349)
+@pytest.mark.parametrize("case", ["config4_main", "config4_atlas", "slivers",
+                                  "slivers_guard"])
+def test_warp_reject_is_conservative(request, case):
+    """The raster kernel's warp-level reject, mirrored by
+    raster.warp_rejects (same margin, same corner choice), never skips a
+    (record, warp) whose rectangle holds a pixel that rasterize_plain's
+    arithmetic covers: on the 1/8-size config-4 main-view and atlas
+    records, and on ~2,000 seeded slivers, near-degenerate, corner-lattice
+    and off-tile triangles (tests/test_torch_cuda.py sliver_tris), with
+    and without their column guard. Prints the share it skips."""
+    rec, guard = _reject_case(request, case)
+    rejected = raster.warp_rejects(rec, guard)
+    live = raster.warp_covers(rec, guard)
+    wrong = rejected & live
+    assert not bool(wrong.any()), (
+        f"{case}: {int(wrong.sum())} rejected (record, warp) pairs cover a "
+        f"pixel")
+    share = float(rejected.float().mean())
+    print(f"{case}: {rec.shape[0]} records, reject share {share:.4f}, "
+          f"live share {float(live.float().mean()):.4f}")
+    assert share > 0.5
+
+
+@pytest.mark.parametrize("value", [float("nan"), float("inf"),
+                                   float("-inf")])
+def test_warp_reject_nonfinite_records(value):
+    """A NaN or infinite plane coefficient never gets a record rejected
+    (the kernel evaluates it as before); in the column guard the compare
+    is exact, so xlo = +inf or xhi = -inf (no centre inside) is rejected
+    and NaN is not. The record otherwise covers the whole tile (edges 1,
+    z 0.5); with edge 0's C at -1 it covers nothing and is rejected."""
+    base = torch.zeros((1, raster.REC_ROWS))
+    base[0, 6:9] = 1.0
+    base[0, 11] = 0.5
+    base[0, 13], base[0, 14] = -3e7, 3e7
+    recs, want = [base], [False]
+    dead = base.clone()
+    dead[0, 6] = -1.0
+    recs.append(dead)
+    want.append(True)
+    for k in [*range(12), 13, 14]:
+        r = base.clone()
+        r[0, k] = value
+        recs.append(r)
+        want.append((k == 13 and value == float("inf"))
+                    or (k == 14 and value == float("-inf")))
+    rec = torch.cat(recs)
+    rejected = raster.warp_rejects(rec, True)
+    assert rejected.tolist() == [[w] * raster.WARPS for w in want]
+    assert not bool((rejected & raster.warp_covers(rec, True)).any())
 
 
 @pytest.mark.parametrize("view", ["main", "atlas"])
