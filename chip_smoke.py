@@ -72,8 +72,29 @@ soft PCF kernel (csrc/pcf.cu). Phases, each printed as it ends:
    keys "wwjl", frames in flight): its caption lines, no overflow, one K1
    and one K2 launch per frame.
 
-Phases 6, 8, 10 and 14-15 count no field-major (K4) launch: the variant is
-kept off every frame path.
+16. the forward path: config 1 at its own 800x600 (forward PBR, sky, no
+   shadows) and config 4 at 1920x1080 with deferred=False, use_pbr=False
+   (config 2's Blinn-Phong lighting with the shadow atlas and the
+   ShadowDebug quad): each at 240x135 on the card against the CPU path
+   (<= 0.5% of pixels > 0.02), then 3 warm-up + 10 timed frames with the
+   launches counted (one K1 per frame, and one K2 with shadows);
+17. config 3's settings (deferred Blinn-Phong, 16 point lights) and light
+   rig on config 4's scene at 1920x1080: against the CPU path at 240x135
+   and timed the same way (one K1 per frame);
+18. the alpha-tested layer: fence_scene with the synthetic wire grid
+   (models/scenes_baseline.wire_fence_chain; WireFence.dds is absent) at
+   its own 480x270 against the CPU path, then at 1920x1080 with the
+   capacities capacity_requirements sizes, timed the same way (one K1 and
+   one K2 per frame), and profile_frame of the 1080p fence frame: the
+   alpha peel's stages (alpha_merge_main, alpha_merge_shadow);
+19. the soft PCF kernel (K6) on 520^2 maps, which the card cannot texture
+   (1,040-byte rows): the 1080p receivers of config 4 with 520^2 maps
+   against soft_pcf_plain (<= 1e-5), every receiver on the kernel's
+   scalar path, with both times; and 3 warm-up + 10 timed frames of that
+   config with the soft disk (one K1, K2 and K6 launch per frame).
+
+Phases 6, 8, 10, 14-16 and 18-19 count no field-major (K4) launch: the
+variant is kept off every frame path.
 
 Then one JSON line of per-kernel results (with each kernel's bound: the
 larger of the bytes its function must move over 3.35 TB/s and the f32
@@ -101,7 +122,8 @@ VIEWER_SCRIPT = "wwjl"
 # the frame paths whose launches count for K1-K3 and K6; the probes' runs
 # (phases 12, 13) count for K4 and K5
 FRAME_RUNS = ["config4", "soft", "soft_fast", "sharded", "profiler",
-              "parity", "viewer"]
+              "parity", "viewer", "config1", "forward", "rig", "fence",
+              "fence_profiler", "soft_520"]
 ZERO = dict(ids=0, depth=0, band_ids=0, band_depth=0, field_ids=0,
             field_depth=0, pcf=0)
 PIX_BOUND = 0.005
@@ -436,6 +458,14 @@ def main():
     t1 = time.perf_counter()
     phase(f"[15] phases 12-15 took {t1 - t0:.1f} s; the script "
           f"{t1 - t_script:.1f} s, kernel builds included")
+
+    # 16-19: the forward path, point lights, the alpha layer, K6 at S=520
+    forward_runs(dev, frame_ms, launches)
+    fence_runs(dev, frame_ms, launches)
+    kernels.append(pcf_520(dev, frame_ms, launches))
+    t2 = time.perf_counter()
+    phase(f"[19] phases 16-19 took {t2 - t1:.1f} s; the script "
+          f"{t2 - t_script:.1f} s, kernel builds included")
 
     kernels.sort(key=lambda k: k["name"])
     for k in kernels:
@@ -780,21 +810,165 @@ def run_frames(r, per_frame):
 def small_frame_vs_cpu(dev, options):
     """A 240x135 config-4 frame (with `options`) on the card against the
     port's CPU path: (share of pixels > 0.02, per-pixel max |diff|)."""
-    from crychic_renderer_tpu_torch.app.renderer import Renderer
     from crychic_renderer_tpu_torch.models.scenes_baseline import CONFIGS
 
     scene, cfg, lights = CONFIGS[4]()
-    small = dataclasses.replace(cfg, width=240, height=135,
-                                shadow_map_size=256, **options)
-    img_gpu = Renderer(scene, small, lights=lights, device=dev).render_np(0.0)
-    img_cpu = Renderer(scene, small, lights=lights,
+    return frame_vs_cpu(dev, scene, dataclasses.replace(
+        cfg, width=240, height=135, shadow_map_size=256, **options), lights)
+
+
+def frame_vs_cpu(dev, scene, cfg, lights):
+    """The frame of (scene, cfg, lights) on the card against the port's
+    CPU path: (share of pixels > 0.02, per-pixel max |diff|)."""
+    from crychic_renderer_tpu_torch.app.renderer import Renderer
+
+    img_gpu = Renderer(scene, cfg, lights=lights, device=dev).render_np(0.0)
+    img_cpu = Renderer(scene, cfg, lights=lights,
                        device="cpu").render_np(0.0)
     diff = np.abs(img_gpu - img_cpu).max(axis=-1)
     frac = float((diff > 0.02).mean())
     assert np.isfinite(img_gpu).all() and frac <= PIX_BOUND, (
-        f"small frame {options}: {frac:.4%} of pixels differ >0.02 from "
-        f"the CPU path")
+        f"{cfg.width}x{cfg.height} frame: {frac:.4%} of pixels differ "
+        f">0.02 from the CPU path")
     return frac, diff
+
+
+def timed_config(dev, name, scene, cfg, lights, per_frame, frame_ms,
+                 launches):
+    """FRAMES_WARMUP + FRAMES_TIMED frames of (scene, cfg, lights) at its
+    size through Renderer.render (run_frames: counts, overflow, finite);
+    records the median and the counts under `name`. Returns the
+    Renderer."""
+    from crychic_renderer_tpu_torch.app.renderer import Renderer
+
+    r = Renderer(scene, cfg, lights=lights, device=dev)
+    frame_ms[name], launches[name] = run_frames(r, dict(ZERO, **per_frame))
+    return r
+
+
+def forward_runs(dev, frame_ms, launches):
+    """Phases 16-17: config 1, config 4 forward Blinn-Phong with shadows
+    and config 3's point-light rig on config 4's scene (see the module
+    doc)."""
+    from crychic_renderer_tpu_torch.models import scenes_baseline as sb
+
+    def small(cfg):
+        return dataclasses.replace(cfg, width=240, height=135,
+                                   shadow_map_size=256)
+
+    scene4, cfg4, lights4 = sb.config4_shadow_pipeline()
+    forward = dataclasses.replace(cfg4, deferred=False, use_pbr=False)
+    scene1, cfg1, lights1 = sb.config1_woodcrate()
+    scene3, cfg3, lights3 = sb.config3_rig_on_config4()
+    for tag, name, scene, cfg, lights, per_frame in (
+            ("16", "config1", scene1, cfg1, lights1, dict(ids=1)),
+            ("16", "forward", scene4, forward, lights4, dict(ids=1, depth=1)),
+            ("17", "rig", scene3, cfg3, lights3, dict(ids=1))):
+        frac, diff = frame_vs_cpu(dev, scene, small(cfg), lights)
+        r = timed_config(dev, name, scene, cfg, lights, per_frame, frame_ms,
+                         launches)
+        phase(f"[{tag}] {name} (deferred={cfg.deferred}, use_pbr="
+              f"{cfg.use_pbr}, shadows={cfg.shadows_enabled}, lights "
+              f"{cfg.num_dir_lights} dir / {cfg.num_point_lights} point): "
+              f"240x135 on the card vs the CPU path {frac:.4%} of pixels "
+              f">0.02 (max {diff.max():.3g}); {r.cfg.width}x{r.cfg.height}: "
+              f"{FRAMES_WARMUP} warm-up + {FRAMES_TIMED} frames, median "
+              f"{frame_ms[name]:.3f} ms/frame; launches {launches[name]}; "
+              f"no overflow")
+        del r
+
+
+def fence_runs(dev, frame_ms, launches):
+    """Phase 18: the fence scene with the synthetic wire grid (see the
+    module doc)."""
+    from crychic_renderer_tpu_torch.app import profiler
+    from crychic_renderer_tpu_torch.app.renderer import synthetic_wire_fence
+    from crychic_renderer_tpu_torch.models import scenes_baseline as sb
+
+    scene, cfg, lights = sb.fence_scene(alpha_test=True)
+    with synthetic_wire_fence():
+        frac, diff = frame_vs_cpu(dev, scene, cfg, lights)
+        full = dataclasses.replace(cfg, width=1920, height=1080)
+        r = timed_config(dev, "fence", scene, full, lights,
+                         dict(ids=1, depth=1), frame_ms, launches)
+    req = r.capacity_requirements(0.0)
+    n = 3 + 2 * PROFILE_REPS
+    report, launches["fence_profiler"] = counted(
+        lambda: profiler.profile_frame(r, reps=PROFILE_REPS),
+        dict(ids=n, depth=n), "profile_frame of the fence")
+    assert "alpha_merge_main" in report and "alpha_merge_shadow" in report
+    frame_ms["fence_profile_stages"] = report
+    phase(f"[18] fence_scene (alpha test, synthetic wire grid): "
+          f"{cfg.width}x{cfg.height} on the card vs the CPU path "
+          f"{frac:.4%} of pixels >0.02 (max {diff.max():.3g}); 1920x1080 "
+          f"with capacities from capacity_requirements (main "
+          f"{req['main_pairs']} -> {r.cfg.pair_capacity}, shadow "
+          f"{req['shadow_pairs']} -> {r.cfg.shadow_pair_capacity}): "
+          f"{FRAMES_WARMUP} warm-up + {FRAMES_TIMED} frames, median "
+          f"{frame_ms['fence']:.3f} ms/frame; launches {launches['fence']} "
+          f"(K1 {launches['fence']['ids']}, K2 {launches['fence']['depth']})"
+          f"; profile_frame (ms): "
+          f"{ {k: round(v, 3) for k, v in report.items()} }, the peel's "
+          f"stages alpha_merge_main {report['alpha_merge_main']:.3f} and "
+          f"alpha_merge_shadow {report['alpha_merge_shadow']:.3f} ms; "
+          f"launches {launches['fence_profiler']}")
+
+
+def pcf_520(dev, frame_ms, launches):
+    """Phase 19: K6 on 520^2 maps (no texture object; see the module
+    doc). Returns the kernels-line entry."""
+    from crychic_renderer_tpu_torch.app.renderer import Renderer
+    from crychic_renderer_tpu_torch.models.scenes_baseline import CONFIGS
+    from crychic_renderer_tpu_torch.ops import pcf, raster, shadows
+    from crychic_renderer_tpu_torch.passes import frame as fr
+
+    S = 520
+    scene, cfg, lights = CONFIGS[4]()
+    cfg = dataclasses.replace(cfg, shadow_map_size=S, pcf_radius_texels=SOFT)
+    r = Renderer(scene, cfg, lights=lights, device=dev)
+    cfg = r.cfg
+    c = r.frame_constants(0.0)
+    tris, attr = fr.main_view_tris(r.device_scene, c, cfg)
+    depth, tid, _ = raster.rasterize(tris, cfg.width, cfg.height,
+                                     cfg.pair_capacity)
+    g = fr.resolve_gbuffer(r.device_scene, c, cfg, tris, depth, tid, attr)
+    maps = fr.render_shadow_atlas(r.device_scene, c.shadow_visibility,
+                                  c.cascade_view_projs, cfg)
+    _, _, cascades, pos = shadows.cascade_select(c.shadow_transforms,
+                                                 g["pos_w"], c.eye_pos)
+    qmap = pcf.quantize_map(maps)
+    params = pcf.receiver_params(pos.reshape(-1, 4), cascades.reshape(-1), S)
+    assert (2 * S) % 32 != 0, "S = 520 is meant to be off the pitch alignment"
+    f_k = pcf.soft_pcf(qmap, params, SOFT)
+    torch.cuda.synchronize()
+    f_p = pcf.soft_pcf_plain(qmap, params, SOFT)
+    err = float((f_k - f_p).abs().max())
+    assert torch.isfinite(f_k).all() and err <= PCF_TOL, \
+        f"K6 at S={S}: max |err| {err} vs plain"
+    ms = cuda_ms(lambda: pcf.soft_pcf(qmap, params, SOFT), 20)
+    dev_ms = device_ms(lambda: pcf.soft_pcf(qmap, params, SOFT), 20,
+                       "soft_pcf_kernel")
+    plain_ms = cuda_ms(lambda: pcf.soft_pcf_plain(qmap, params, SOFT), 3)
+    m = params.shape[1]
+    b, note = bound(params.numel() * 4 + qmap.numel() * 2 + m * 4,
+                    m * pcf.OPS_PER_RECEIVER)
+    frame_ms["soft_520"], launches["soft_520"] = run_frames(
+        r, dict(ZERO, ids=1, depth=1, pcf=1))
+    phase(f"[19] K6 soft PCF on {S}^2 maps (2*S = {2 * S} bytes a row: no "
+          f"texture object, every receiver on the scalar path): {m} "
+          f"receiver-cascades at {cfg.width}x{cfg.height}; max |err| {err} "
+          f"vs soft_pcf_plain; kernel {ms:.4f} ms (device {dev_ms:.4f}), "
+          f"plain {plain_ms:.4f} ms, {note}; the soft-disk frame on "
+          f"{S}^2 maps: {FRAMES_WARMUP} warm-up + {FRAMES_TIMED} frames, "
+          f"median {frame_ms['soft_520']:.3f} ms/frame; launches "
+          f"{launches['soft_520']}; no overflow")
+    return dict(
+        name=f"K6 soft-disk PCF at S={S}: scalar path, no texture object "
+             f"(shadows.py:319)", route="cuda",
+        source="crychic_renderer_tpu_torch/csrc/pcf.cu",
+        replaces="experiments/pcf_probe.py:46", variant="pcf",
+        runs=["soft_520"], max_abs_err=err, ms=ms, device_ms=dev_ms,
+        plain_ms=plain_ms, library_ms=None, **b)
 
 
 if __name__ == "__main__":

@@ -19,8 +19,8 @@ Usage::
         --out-dir goldens [--small] [--check goldens] [--device cuda]
     python -m crychic_renderer_tpu_torch.app.compare --parity --small
 
-Config 4 is the one the port renders on this tree: config 1 takes the
-forward path (not ported), configs 2, 3 and 5 load mesh assets.
+Configs 1 and 4 build on this tree; configs 2, 3 and 5 load mesh assets
+(Models/skull.txt, Models/car.txt) that the port cannot read yet.
 """
 from __future__ import annotations
 

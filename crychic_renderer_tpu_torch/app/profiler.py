@@ -9,7 +9,12 @@ view), ``raster_main`` (bin + records + K1), ``resolve_gbuffer``,
 ``ssao``, ``lighting`` (with the debug overlay) and ``TOTAL_fused``
 (``render_frame`` whole; the port fuses nothing, the key keeps the JAX
 name). ``bin_main`` is also inside ``raster_main``, so the stages sum to
-more than the frame.
+more than the frame. A frame with the alpha-tested layer adds two stages
+the JAX profiler does not have: ``alpha_merge_main`` (the layer's vertex
+stage, depth peel and merge into the visibility buffer) after
+``raster_main``, and ``alpha_merge_shadow`` (the shadow punch) after
+``shadow_maps_x4``. Forward and Blinn-Phong frames keep the JAX keys
+(the forward path's shadow quad is inside ``lighting``).
 
 Each stage is timed as the JAX ``_time`` does: one warm-up call, then the
 host clock around `reps` calls ending in ``torch.cuda.synchronize()``. On a
@@ -44,7 +49,6 @@ def run_stages(scene: fr.DeviceScene, consts: fr.FrameConstants, cfg,
     output. Returns the (H, W, 4) image chained through the stages."""
     H, W = cfg.height, cfg.width
     dev = consts.view_proj.device
-    fr._check_supported(cfg)
 
     tri_attr0 = stage("tri_attrs", lambda: fr.tri_attrs(
         scene.opaque, consts.opaque_visibility, consts.view_proj))
@@ -60,11 +64,20 @@ def run_stages(scene: fr.DeviceScene, consts: fr.FrameConstants, cfg,
                                                     cfg.pair_capacity))
     depth, tid, _ = stage("raster_main", lambda: raster.rasterize(
         tris, W, H, cfg.pair_capacity))
+    alpha_on = fr.alpha_enabled(scene, cfg)
+    if alpha_on:
+        depth, tid, tris, tri_attr = stage(
+            "alpha_merge_main", lambda: fr.alpha_merge_main(
+                scene, consts, cfg, depth, tid, tris, tri_attr))
     g = stage("resolve_gbuffer", lambda: fr.resolve_gbuffer(
         scene, consts, cfg, tris, depth, tid, tri_attr))
     if cfg.shadows_enabled:
         shadow_maps = stage("shadow_maps_x4", lambda: fr.render_shadow_atlas(
             scene, consts.shadow_visibility, consts.cascade_view_projs, cfg))
+        if alpha_on:
+            shadow_maps = stage("alpha_merge_shadow",
+                                lambda: fr.alpha_merge_shadow(
+                                    scene, consts, cfg, shadow_maps))
     else:
         shadow_maps = torch.ones((cfg.num_cascades, 2, 2),
                                  dtype=torch.float32, device=dev)

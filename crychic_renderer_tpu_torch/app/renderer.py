@@ -12,6 +12,7 @@ overflows are flagged on the device and OR-ed across frames;
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 
@@ -90,6 +91,29 @@ def load_texture_chains(names, asset_dir=None):
 
         load_dds(os.path.join(asset_dir, fn))  # raises: not ported yet
     return chains, anim_frames
+
+
+@contextlib.contextmanager
+def synthetic_wire_fence():
+    """In the block, load_texture_chains gives the WireFence slot the
+    synthetic wire grid of models.scenes_baseline.wire_fence_chain (the
+    asset is not in the repository, and the white 1x1 that stands in for
+    it passes every alpha clip); the other slots load as before."""
+    global load_texture_chains
+    from ..models.scenes_baseline import wire_fence_chain
+
+    real = load_texture_chains
+
+    def chains(names, asset_dir=None):
+        out, anim = real(names, asset_dir)
+        return [wire_fence_chain() if n == "WireFence" else c
+                for n, c in zip(names, out)], anim
+
+    load_texture_chains = chains
+    try:
+        yield
+    finally:
+        load_texture_chains = real
 
 
 def build_pair_pool(scene: Scene, asset_dir=None, dual: bool = True):

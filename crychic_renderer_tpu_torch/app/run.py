@@ -59,7 +59,7 @@ def profile_frames(r, frame_ms, opts, frames=3, top=8):
                 for name, ms in ms_by_name.most_common(top)]}))
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", type=int, default=4, choices=[1, 2, 3, 4, 5])
     ap.add_argument("--device", type=str, default="cuda")
@@ -75,7 +75,7 @@ def main():
                          "(pcf_radius_texels=2.5)")
     ap.add_argument("--profile", action="store_true",
                     help="device profile of 3 more frames (card only)")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
     device = torch.device(args.device)
     if args.profile and device.type != "cuda":
         ap.error("--profile reads device time: run it with --device cuda")

@@ -9,9 +9,9 @@ The PyTorch port carries the JAX package's RenderConfig over field for
 field, so scenes_baseline and every caller port unchanged. What the fields
 mean here:
 
-- Settings the port does not render yet make passes.frame.render_frame
-  raise NotImplementedError naming the field: deferred=False,
-  use_pbr=False and alpha_test_enabled.
+- Every rendering setting renders as in the JAX package: deferred or
+  forward, PBR or Blinn-Phong (directional, point and spot lights), the
+  alpha-tested layer, and the render options.
 - use_pallas, pallas_interpret, bin_cap, shadow_bin_cap,
   shade_tile_capacity and ssao_tile_capacity have no meaning in the port.
   They select TPU layouts (the Pallas-vs-XLA raster, tile compaction)

@@ -57,7 +57,11 @@
 // exact scalar path of the plain version in a branch. The C entry makes
 // the texture object at the first launch on a map pointer and shape and
 // caches it; a failure to make one is returned as an error, never worked
-// around.
+// around. A map whose rows (2*S bytes) or address do not meet the card's
+// texture pitch alignment or texture alignment (read once per device:
+// 32 and 512 bytes on an H100, so S = 520 has no texture) gets no texture
+// object: the launch sends every receiver down the scalar path, which
+// gives the same bits.
 //
 // What bounds it. Per (receiver, cascade): 24 bytes of parameters in, 4
 // bytes out, and the 28 f32 operations per tap that the function needs
@@ -85,6 +89,7 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
 #include <mutex>
 
 namespace {
@@ -217,7 +222,7 @@ __device__ __noinline__ float taps_scalar(const Receiver& r,
 }
 
 __global__ void __launch_bounds__(THREADS)
-soft_pcf_kernel(cudaTextureObject_t tex,
+soft_pcf_kernel(cudaTextureObject_t tex, int has_tex,
                 const unsigned short* __restrict__ map,
                 const float* __restrict__ params, int m, int num_cascades,
                 int size, float radius, float* __restrict__ out) {
@@ -245,7 +250,7 @@ soft_pcf_kernel(cudaTextureObject_t tex,
   r.fy = cy - static_cast<float>(8 * r.qy0);
   r.fy_rel = r.fy - static_cast<float>(r.oy);
 
-  const float acc = (r.qx0 < nb - 1 && r.qy0 < nb - 1)
+  const float acc = (has_tex && r.qx0 < nb - 1 && r.qy0 < nb - 1)
                         ? taps_gather(r, tex, size, radius)
                         : taps_scalar(r, map, size, radius);
   out[i] = acc * (1.0f / N_SAMPLE);
@@ -263,21 +268,46 @@ struct TexEntry {
   cudaTextureObject_t tex;
 };
 constexpr int TEX_CACHE = 64;
+constexpr int MAX_DEVICES = 64;
 std::mutex tex_mutex;
 TexEntry tex_cache[TEX_CACHE];
 int tex_count = 0;
+// the device's texturePitchAlignment and textureAlignment in bytes, read
+// at its first launch (0: not read yet)
+int pitch_align[MAX_DEVICES] = {};
+int base_align[MAX_DEVICES] = {};
 
+// The map's texture object in *tex and *has_tex = 1, or *has_tex = 0 when
+// its row pitch or address does not meet the device's texture alignment.
 cudaError_t map_texture(const void* map, int num_cascades, int size,
-                        cudaTextureObject_t* tex) {
+                        cudaTextureObject_t* tex, int* has_tex) {
+  *has_tex = 0;
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
+  if (device < 0 || device >= MAX_DEVICES) return cudaErrorInvalidDevice;
   std::lock_guard<std::mutex> lock(tex_mutex);
+  if (pitch_align[device] == 0) {
+    int pitch = 0, base = 0;
+    err = cudaDeviceGetAttribute(&pitch, cudaDevAttrTexturePitchAlignment,
+                                 device);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&base, cudaDevAttrTextureAlignment,
+                                 device);
+    if (err != cudaSuccess) return err;
+    if (pitch <= 0 || base <= 0) return cudaErrorInvalidValue;
+    pitch_align[device] = pitch;
+    base_align[device] = base;
+  }
+  if ((static_cast<size_t>(size) * 2) % pitch_align[device] != 0 ||
+      reinterpret_cast<uintptr_t>(map) % base_align[device] != 0)
+    return cudaSuccess;  // no texture: the scalar path for every receiver
   for (int k = 0; k < tex_count; ++k) {
     const TexEntry& e = tex_cache[k];
     if (e.device == device && e.map == map &&
         e.num_cascades == num_cascades && e.size == size) {
       *tex = e.tex;
+      *has_tex = 1;
       return cudaSuccess;
     }
   }
@@ -304,6 +334,7 @@ cudaError_t map_texture(const void* map, int num_cascades, int size,
   err = cudaCreateTextureObject(tex, &res, &desc, nullptr);
   if (err != cudaSuccess) return err;
   tex_cache[tex_count++] = {device, num_cascades, size, map, *tex};
+  *has_tex = 1;
   return cudaSuccess;
 }
 
@@ -312,20 +343,23 @@ cudaError_t map_texture(const void* map, int num_cascades, int size,
 // Plain C entry point bound with ctypes (ops/pcf.py). map: (C, S, S)
 // 16-bit depths; params: (6, m) f32; out: (m,) f32. Returns
 // cudaGetLastError() after the launch (0 = launched), or the error of
-// making the map's texture object (the map's address and row pitch must
-// meet the card's texture alignment) without launching.
+// reading the texture alignments or making the map's texture object
+// without launching. A map the card cannot texture launches with no
+// texture object (every receiver on the scalar path).
 extern "C" int crychic_soft_pcf(const void* map, const void* params, int m,
                                 int num_cascades, int size, float radius,
                                 void* out, void* stream) {
   cudaTextureObject_t tex = 0;
-  const cudaError_t err = map_texture(map, num_cascades, size, &tex);
+  int has_tex = 0;
+  const cudaError_t err =
+      map_texture(map, num_cascades, size, &tex, &has_tex);
   if (err != cudaSuccess) return static_cast<int>(err);
   // a pair of warps (the two slots) per 32 pixels
   const int pixels = (m + 1) / 2;
   const int warps = 2 * ((pixels + 31) / 32);
   const int blocks = (warps * 32 + THREADS - 1) / THREADS;
   soft_pcf_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      tex, static_cast<const unsigned short*>(map),
+      tex, has_tex, static_cast<const unsigned short*>(map),
       static_cast<const float*>(params), m, num_cascades, size, radius,
       static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());

@@ -5,9 +5,13 @@ package's probes in ``experiments/`` that launch a Pallas kernel.
   against the port's own pair-major layout.
 - ``bin_decomp_probe``: K5, the raster kernel launched alone, inside a
   piece-by-piece timing of binning and the record build.
+- ``kernel_ab_probe`` and ``sharded_ab_probe``: another checkout's
+  kernels, or its band-sharded frame, against this one's, in turns.
+- ``alpha_probe``: host and device time, launches and synchronizing
+  copies of the alpha-tested layer's two stages.
 
-Both run on ``cuda`` unless the caller passes ``device="cpu"``; there the
-kernels take their plain versions and a time is a host-clock time of the
+The first two and ``alpha_probe`` run on ``cuda`` unless the caller
+passes ``device="cpu"``; there the kernels take their plain versions and a time is a host-clock time of the
 CPU, never a device time.
 """
 from __future__ import annotations

@@ -17,6 +17,8 @@ Asset references: Models/skull.txt + Models/car.txt loaders
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 
 from . import geometry as gg
@@ -107,6 +109,34 @@ def config2_skull_forward():
     return scene, cfg, lights
 
 
+def point_light_rig() -> Lights:
+    """Config 3's light rig: 16 point lights on a ring of radius 8 at
+    heights 2-4, seeded colours, falloff 1-12."""
+    lights = Lights.empty(ambient=(0.15, 0.15, 0.2, 1.0))
+    rng = np.random.default_rng(7)
+    for i in range(16):
+        ang = 2 * np.pi * i / 16
+        lights.position[i] = (8.0 * np.cos(ang), 2.0 + (i % 3),
+                              8.0 * np.sin(ang))
+        col = 0.5 + 0.5 * rng.random(3)
+        lights.strength[i] = tuple(col)
+        lights.falloff_start[i] = 1.0
+        lights.falloff_end[i] = 12.0
+    lights.num_dir = 0
+    return lights
+
+
+def config3_rig_on_config4():
+    """Config 3's settings (deferred Blinn-Phong, 16 point lights, no
+    shadows or SSAO) and its light rig on config 4's cascade scene: the
+    point-light path on geometry that builds without Models/skull.txt."""
+    scene, cfg, _ = config4_shadow_pipeline()
+    cfg = dataclasses.replace(cfg, deferred=True, use_pbr=False,
+                              shadows_enabled=False, ssao_enabled=False,
+                              num_dir_lights=0, num_point_lights=16)
+    return scene, cfg, point_light_rig()
+
+
 def config3_deferred_pointlights():
     """Deferred skull+grid with 16 point lights (Blinn-Phong evaluators)."""
     mats = [
@@ -122,17 +152,7 @@ def config3_deferred_pointlights():
         make_item("grid", grid, LAYER_OPAQUE, mu.scaling(2, 2, 2),
                   material_indices=1),
     ]
-    lights = Lights.empty(ambient=(0.15, 0.15, 0.2, 1.0))
-    rng = np.random.default_rng(7)
-    for i in range(16):
-        ang = 2 * np.pi * i / 16
-        lights.position[i] = (8.0 * np.cos(ang), 2.0 + (i % 3),
-                              8.0 * np.sin(ang))
-        col = 0.5 + 0.5 * rng.random(3)
-        lights.strength[i] = tuple(col)
-        lights.falloff_start[i] = 1.0
-        lights.falloff_end[i] = 12.0
-    lights.num_dir = 0
+    lights = point_light_rig()
     scene = _scene_from_items(items, mats, [
         "white1x1", "default_nmap", "tile", "tile_nmap",
         "white1x1", "default_nmap", "sky_cube", "default_nmap",
@@ -263,6 +283,24 @@ def fence_scene(alpha_test: bool = True):
                        pair_capacity=1 << 16,
                        shadow_pair_capacity=1 << 16)
     return scene, cfg, lights
+
+
+def wire_fence_chain(seed: int = 0, size: int = 64) -> list:
+    """A synthetic stand-in for WireFence.dds: a (size, size) RGBA8 wire
+    grid (bars 5 texels wide every 16, alpha 255; holes alpha 0, a seeded
+    tenth of the hole texels opaque too) with random bar colours, and its
+    box-filtered mip chain. The fence scene's alpha test needs holes; the
+    white 1x1 that stands in for a missing asset passes every clip.
+    Returns the chain as a list of (h, w, 4) uint8 levels."""
+    from ..io.dds import generate_mips
+
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[:size, :size]
+    bar = (x % 16 < 5) | (y % 16 < 5) | (rng.random((size, size)) < 0.1)
+    img = np.empty((size, size, 4), np.uint8)
+    img[..., :3] = rng.integers(96, 256, (size, size, 3))
+    img[..., 3] = np.where(bar, 255, 0)
+    return generate_mips(img)
 
 
 CONFIGS = {

@@ -166,9 +166,10 @@ def soft_pcf(qmap: torch.Tensor, params: torch.Tensor,
     receiver-cascade parameters against the (C, S, S) int16-bit map. CPU
     tensors take soft_pcf_plain; CUDA tensors launch the kernel of
     csrc/pcf.cu on the current stream, or raise. The kernel reads the map
-    through a texture object, so on the card the map's address and its
-    2*S-byte rows must meet the card's texture alignment (S a multiple of
-    16 on the H100); the launch fails with the CUDA error otherwise."""
+    through a texture object where the map's address and its 2*S-byte
+    rows meet the card's texture alignment (S a multiple of 16 on the
+    H100); a map that does not (S = 520, say) launches without one, and
+    every receiver takes the kernel's scalar path, with the same result."""
     if not 0.0 <= radius_texels <= MAX_RADIUS_TEXELS:
         raise ValueError(f"radius {radius_texels} texels: the window bounds "
                          f"hold up to {MAX_RADIUS_TEXELS}")

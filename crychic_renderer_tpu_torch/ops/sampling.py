@@ -289,6 +289,16 @@ def sample_pair_trilinear(pool: PairPool, pair: torch.Tensor,
     return d0 * (1 - fb) + d1 * fb, n0 * (1 - fb) + n1 * fb
 
 
+def uv_derivatives(uv: torch.Tensor):
+    """Screen-space uv derivatives of a (H, W, 2) uv image by finite
+    differences — the software analogue of pixel-quad derivatives. Edges
+    reuse their neighbor's derivative (like HW helper lanes)."""
+    dx = torch.diff(uv, dim=1)
+    dy = torch.diff(uv, dim=0)
+    return (torch.cat([dx, dx[:, -1:]], dim=1),
+            torch.cat([dy, dy[-1:]], dim=0))
+
+
 def lod_from_derivatives(dx: torch.Tensor, dy: torch.Tensor):
     """Isotropic (trilinear) uv-space lod: log2 of the larger footprint."""
     rho = torch.maximum(torch.sqrt((dx * dx).sum(-1)),

@@ -9,13 +9,12 @@ Reference quirks replicated deliberately (for image parity):
 - PBR.hlsl:58 assigns nDotv = hDotv, so the Fresnel term and the specular
   denominator both use h·v where n·v was intended.
 - Only directional lights contribute in PBRShading (the point/spot loops'
-  accumulations are commented out, PBR.hlsl:122,145).
+  accumulations are commented out, PBR.hlsl:122,145); the Blinn-Phong
+  ComputeLighting (LightingUtil.hlsl) evaluates directional, point and
+  spot lights.
 - Directional shadow factors enter as pow(shadow, 5) (PBR.hlsl:105).
 - Direct light is tonemapped (x/(x+1), gamma 1/2.2) BEFORE ambient and sky
   reflection are added (Default.hlsl:167-179).
-
-The Blinn-Phong evaluators (forward path, point/spot lights) are not
-ported yet.
 """
 from __future__ import annotations
 
@@ -135,3 +134,74 @@ def tonemap_direct(direct):
     """Default.hlsl:167-168: x/(x+1) then gamma 1/2.2 on direct light only."""
     t = direct / (direct + 1.0)
     return torch.clamp(t, min=0.0) ** (1.0 / 2.2)
+
+
+# ---------------------------------------------------------------------------
+# Blinn-Phong (LightingUtil.hlsl) — the book's forward path
+# ---------------------------------------------------------------------------
+
+def _blinn_phong(light_strength, light_vec, normal, to_eye, diffuse_albedo,
+                 fresnel_r0, shininess):
+    m = shininess * 256.0
+    half_vec = normalize(to_eye + light_vec)
+    n_dot_h = torch.clamp((half_vec * normal).sum(-1, keepdim=True), min=0.0)
+    roughness_factor = (m + 8.0) * n_dot_h ** m / 8.0
+    fres = schlick_fresnel(fresnel_r0, half_vec, light_vec)
+    spec = fres * roughness_factor
+    spec = spec / (spec + 1.0)
+    return (diffuse_albedo + spec) * light_strength
+
+
+def _attenuation(d, falloff_start, falloff_end):
+    return saturate((falloff_end - d) / (falloff_end - falloff_start))
+
+
+def _local_light(lights, i, pos_w, normal):
+    """Point/spot light i at the pixels: (unit light vector, distance,
+    attenuated n.l strength, in-range mask as 0/1)."""
+    lv = lights.position[i] - pos_w
+    d = torch.sqrt((lv * lv).sum(-1, keepdim=True))
+    lvn = lv / torch.clamp(d, min=1e-8)
+    ndl = torch.clamp((normal * lvn).sum(-1, keepdim=True), min=0.0)
+    strength = (lights.strength[i] * ndl
+                * _attenuation(d, lights.falloff_start[i],
+                               lights.falloff_end[i]))
+    in_range = (d <= lights.falloff_end[i]).to(strength.dtype)
+    return lvn, strength, in_range
+
+
+def compute_lighting(lights, normal, to_eye, pos_w, diffuse_albedo,
+                     fresnel_r0, shininess, shadow_factor):
+    """ComputeLighting (LightingUtil.hlsl:156-186): num_dir directional,
+    then num_point point, then num_spot spot lights, the light index
+    running on across the three loops; only light 0 takes the shadow
+    factor, and a local light adds nothing past its falloff_end.
+
+    lights: passes.frame._LightsView (the (16, ...) light tensors with
+    static counts). Returns (..., 3) direct light (pre-tonemap)."""
+    result = torch.zeros_like(diffuse_albedo[..., :3])
+    albedo = diffuse_albedo[..., :3]
+    i = 0
+    for _ in range(lights.num_dir):
+        lv = -lights.direction[i]
+        ndl = torch.clamp((normal * lv).sum(-1, keepdim=True), min=0.0)
+        contrib = _blinn_phong(lights.strength[i] * ndl, lv, normal, to_eye,
+                               albedo, fresnel_r0, shininess)
+        sf = shadow_factor if i == 0 else 1.0
+        result = result + sf * contrib
+        i += 1
+    for _ in range(lights.num_point):
+        lvn, strength, in_range = _local_light(lights, i, pos_w, normal)
+        contrib = _blinn_phong(strength, lvn, normal, to_eye, albedo,
+                               fresnel_r0, shininess)
+        result = result + in_range * contrib
+        i += 1
+    for _ in range(lights.num_spot):
+        lvn, strength, in_range = _local_light(lights, i, pos_w, normal)
+        spot = torch.clamp((-lvn * lights.direction[i]).sum(
+            -1, keepdim=True), min=0.0) ** lights.spot_power[i]
+        contrib = _blinn_phong(strength * spot, lvn, normal, to_eye, albedo,
+                               fresnel_r0, shininess)
+        result = result + in_range * contrib
+        i += 1
+    return result

@@ -5,7 +5,9 @@
 torch.distributed process group on a FileStore under a temporary
 directory, runs ``fn(*args)`` on every rank and returns the n results in
 rank order. spawn pickles ``fn`` by its module and name, so it must be a
-module-level function of an importable module.
+module-level function of an importable module. CPU ranks share the
+caller's torch intra-op threads (``torch.get_num_threads()``) out among
+themselves.
 
 The backend and the device are the caller's choice (both required, no
 default), and nothing here changes them: ``nccl`` runs one rank per card
@@ -37,7 +39,7 @@ from . import sharded
 
 
 def _rank_main(rank: int, n: int, backend: str, store_path: str, device,
-               call_path: str, results):
+               threads: int, call_path: str, results):
     try:
         with open(call_path, "rb") as f:
             fn, args = pickle.load(f)
@@ -46,8 +48,8 @@ def _rank_main(rank: int, n: int, backend: str, store_path: str, device,
             if device.index is not None:
                 torch.cuda.set_device(device)
         else:
-            # n ranks share the host's cores
-            torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // n))
+            # n ranks share the caller's intra-op threads
+            torch.set_num_threads(max(1, threads // n))
         dist.init_process_group(backend, store=dist.FileStore(store_path, n),
                                 rank=rank, world_size=n)
         try:
@@ -78,7 +80,8 @@ def spawn_ranks(fn, n: int, backend: str, device, args=(),
             pickle.dump((fn, args), f, protocol=pickle.HIGHEST_PROTOCOL)
         procs = [ctx.Process(target=_rank_main, daemon=True,
                              args=(r, n, backend, os.path.join(tmp, "store"),
-                                   str(device), call_path, results))
+                                   str(device), torch.get_num_threads(),
+                                   call_path, results))
                  for r in range(n)]
         for p in procs:
             p.start()

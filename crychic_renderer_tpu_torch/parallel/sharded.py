@@ -43,13 +43,17 @@ owner's own shard in place of the others', so the gathered triangle
 tables hold the owner's 1/n_dev triangle chunk n_dev times: the band is
 rendered from that made-up scene, not the real frame's band.
 
+The alpha-tested layer: each rank peels its band at global rows (plus
+the halo row) into its slice of the visibility buffer; the shadow punch
+windows are split by cascade across the ranks, all-gathered and
+min-merged into the maps on every rank. The forward path's ShadowDebug
+quad is drawn at global row phase; the maps travel as f32.
+
 Left out of the JAX module: the u16-packed atlas transfer (a TPU layout
 that halves the atlas gather without changing a pixel), the per-cascade
-XLA raster branch (the port has one raster path), the vertex-sharded
+XLA raster branch (the port has one raster path) and the vertex-sharded
 branches for draws without static corner tables (the port's draws always
-carry them; a draw without them raises), and the alpha layer's band punch,
-which comes with the alpha layer (``render_frame_sharded`` raises
-NotImplementedError for it, as ``render_frame`` does).
+carry them; a draw without them raises).
 """
 from __future__ import annotations
 
@@ -247,6 +251,32 @@ def _band_shadow_maps(scene: fr.DeviceScene, consts: fr.FrameConstants,
     return torch.stack([full[:, c * S:(c + 1) * S] for c in range(C)])
 
 
+def _band_alpha_shadow(scene: fr.DeviceScene, consts: fr.FrameConstants,
+                       cfg: RenderConfig, shadow_maps, comm: _Comm,
+                       d: int) -> torch.Tensor:
+    """The alpha shadow punch split by cascade: rank d computes the punch
+    windows of cascades d*k .. d*k+k-1 (k = ceil(C / n_dev), wrapping
+    round), the small windows are all-gathered, and every rank min-merges
+    all of them into its maps: the per-cascade math of the single-card
+    alpha_merge_shadow."""
+    C = shadow_maps.shape[0]
+    n = comm.n_dev
+    k = -(-C // n)
+    tri_world, uv_tri, mat_tri = fr.alpha_shadow_geom(scene, consts)
+    parts = [fr.alpha_punch_window(scene, cfg, tri_world, uv_tri, mat_tri,
+                                   consts.cascade_view_projs[(d * k + j) % C])
+             for j in range(k)]
+
+    def gather(i):  # field i of every rank's windows -> (C, ...)
+        x = torch.stack([p[i] for p in parts])  # (k, ...)
+        return comm.all_gather(x).reshape((n * k,) + x.shape[1:])[:C]
+
+    az, aid, oy, ox = (gather(i) for i in range(4))
+    return torch.stack([fr.alpha_apply_punch(shadow_maps[c], az[c], aid[c],
+                                             oy[c], ox[c])
+                        for c in range(C)])
+
+
 def _band_ssao(scene: fr.DeviceScene, consts: fr.FrameConstants,
                cfg: RenderConfig, normal_v, depth, comm: _Comm, d: int,
                band_h: int) -> torch.Tensor:
@@ -321,7 +351,6 @@ def _band_render(scene: fr.DeviceScene, consts: fr.FrameConstants,
     use the TRUE cfg.height, so pad rows (>= cfg.height) hold don't-care
     values the caller crops. stats (optional dict) receives this rank's
     raster overflow flags as 0-d bool tensors."""
-    fr._check_supported(cfg)
     stats = {} if stats is None else stats
     d = comm.index()
     n = comm.n_dev
@@ -353,6 +382,14 @@ def _band_render(scene: fr.DeviceScene, consts: fr.FrameConstants,
     y0 = d * band_h
     depth = reassemble(dpart)[y0:y0 + band_h + 1]
     tid = reassemble(tpart)[y0:y0 + band_h + 1]
+    if fr.alpha_enabled(scene, cfg):
+        # the alpha peel over the band's GLOBAL rows and the halo row: the
+        # single-card merge's math, so the band stays equal to it
+        depth, tid, tris, tri_attr = fr.alpha_merge_main(
+            scene, consts, cfg, depth, tid, tris, tri_attr, row_offset=y0)
+        if cfg.shadows_enabled:
+            shadow_maps = _band_alpha_shadow(scene, consts, cfg,
+                                             shadow_maps, comm, d)
     g = fr.resolve_gbuffer(scene, consts, cfg, tris, depth, tid, tri_attr,
                            row_offset=y0, out_rows=band_h)
     depth = depth[:band_h]
@@ -384,8 +421,7 @@ def render_frame_sharded(scene: fr.DeviceScene, consts: fr.FrameConstants,
     end). Every rank of the group calls it with the same scene, constants
     and config. stats (optional dict) receives this rank's raster
     overflow flags ("main_overflowed", "shadow_overflowed"), 0-d bool
-    tensors read by nobody here. Settings outside the port raise
-    NotImplementedError, as render_frame's do."""
+    tensors read by nobody here."""
     band_h = band_height(cfg, mesh.size)
     comm = _Comm(mesh.group, mesh.size)
     img = _band_render(scene, consts, cfg, comm, band_h, stats)

@@ -15,18 +15,23 @@ reference's deferred branch:
     [3] SSAO occlusion (half-res) + 3x blur
     [5] deferred PBR lighting + cascade PCF + ambient*SSAO + sky
 
-The port renders the deferred PBR frame of BASELINE config 4 with its
-render options (fast preset, soft PCF disk, trilinear and other
-anisotropy settings, single-mip pool, cubemap sky, debug views): both
-raster launches go through ``ops.raster`` and the soft PCF through
-``ops.pcf`` (CUDA kernels on the card); the resolve, SSAO and the rest of
-the lighting are dense tensor code (the JAX package's tile compaction and
-dead-pixel gather spreads only move gather indices and are left out). The
-resolve, lighting and overlay passes also render a row band of the screen
-at global rows (``row_offset``), for the band-sharded frame of
-``parallel/sharded.py``. The forward path, Blinn-Phong lighting and the
-alpha layer raise NotImplementedError from ``render_frame``, naming the
-field.
+The port renders every RenderConfig setting of the JAX package's
+``render_frame``: the deferred and the forward path (``cfg.deferred``;
+the forward path takes the shininess from the normal map's alpha, lets
+the cascade blend use its PCF factor as is, and draws the ShadowDebug
+quad), PBR or Blinn-Phong lighting (``cfg.use_pbr``; Blinn-Phong
+evaluates directional, point and spot lights), the alpha-tested layer
+(``cfg.alpha_test_enabled``: a dense depth peel merged into the
+visibility buffer and punched into the shadow maps) and the render
+options (fast preset, soft PCF disk, trilinear and other anisotropy
+settings, single-mip pool, cubemap sky, debug views). Both raster
+launches go through ``ops.raster`` and the soft PCF through ``ops.pcf``
+(CUDA kernels on the card); the resolve, SSAO, the alpha peel and the
+rest of the lighting are dense tensor code (the JAX package's tile
+compaction and dead-pixel gather spreads only move gather indices and
+are left out). The resolve, alpha merge, lighting and overlay passes also
+render a row band of the screen at global rows (``row_offset``), for the
+band-sharded frame of ``parallel/sharded.py``.
 """
 from __future__ import annotations
 
@@ -206,7 +211,13 @@ class _LightsView:
     def __init__(self, scene: DeviceScene, cfg: RenderConfig):
         self.strength = scene.light_strength
         self.direction = scene.light_direction
+        self.position = scene.light_position
+        self.falloff_start = scene.light_falloff_start
+        self.falloff_end = scene.light_falloff_end
+        self.spot_power = scene.light_spot_power
         self.num_dir = cfg.num_dir_lights
+        self.num_point = cfg.num_point_lights
+        self.num_spot = cfg.num_spot_lights
 
 
 # ---------------------------------------------------------------------------
@@ -279,17 +290,22 @@ def shadow_tri_world(draw: DeviceDraw, visibility: torch.Tensor):
             * visibility[draw.tri_instance.long()][:, None, None])
 
 
-def main_view_tris(scene: DeviceScene, consts: FrameConstants,
-                   cfg: RenderConfig):
-    """Vertex stage + near clip + screen setup for the main view."""
-    tri_attr = tri_attrs(scene.opaque, consts.opaque_visibility,
-                         consts.view_proj)
+def _view_tris(draw: DeviceDraw, visibility: torch.Tensor,
+               consts: FrameConstants, cfg: RenderConfig):
+    """Vertex stage + near clip + screen setup of one main-layer draw."""
+    tri_attr = tri_attrs(draw, visibility, consts.view_proj)
     tri_attr, tri_valid = clipping.clip_near(
         tri_attr, torch.ones(tri_attr.shape[0], dtype=torch.bool,
                              device=tri_attr.device))
     tris = rz.setup_tri_verts(tri_attr[..., :4], tri_valid,
                               cfg.width, cfg.height)
     return tris, tri_attr
+
+
+def main_view_tris(scene: DeviceScene, consts: FrameConstants,
+                   cfg: RenderConfig):
+    """Vertex stage + near clip + screen setup for the main view."""
+    return _view_tris(scene.opaque, consts.opaque_visibility, consts, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -580,8 +596,10 @@ def lighting_pass(scene: DeviceScene, consts: FrameConstants,
                   depth: torch.Tensor, row_offset: int = 0,
                   full_height: int = None,
                   shadow_factor: torch.Tensor = None) -> torch.Tensor:
-    """Deferred PBR lighting (DeferredShading.hlsl PS) + cascade PCF (the
-    compiled zero radius, or the soft disk of cfg.pcf_radius_texels) + sky
+    """Lighting (DeferredShading.hlsl PS, or the forward Default.hlsl PS
+    with cfg.deferred False; PBRShading, or the Blinn-Phong
+    ComputeLighting with cfg.use_pbr False) + cascade PCF (the compiled
+    zero radius, or the soft disk of cfg.pcf_radius_texels) + sky
     (procedural, or sampled from the scene's cubemap). With
     cfg.fast_shadow_factor the PCF factor is evaluated on every other
     pixel of every other row and upsampled bilinearly.
@@ -625,11 +643,19 @@ def lighting_pass(scene: DeviceScene, consts: FrameConstants,
     else:
         sf = torch.ones_like(roughness)
 
-    # deferred shininess alpha is gBuffer2.w == 1 (GBuffer.hlsl:28)
-    shininess = 1.0 - roughness
+    lights = _LightsView(scene, cfg)
+    # deferred shininess alpha is gBuffer2.w == 1 (GBuffer.hlsl:28);
+    # forward uses the normal map alpha (Default.hlsl:159)
+    alpha = (torch.ones_like(roughness) if cfg.deferred
+             else g["shininess_alpha"])
+    shininess = (1.0 - roughness) * alpha
 
-    direct = shading.pbr_shading(_LightsView(scene, cfg), normal, view,
-                                 pos_w, albedo, roughness, metalness, sf)
+    if cfg.use_pbr:
+        direct = shading.pbr_shading(lights, normal, view, pos_w, albedo,
+                                     roughness, metalness, sf)
+    else:
+        direct = shading.compute_lighting(lights, normal, view, pos_w,
+                                          albedo, fresnel_r0, shininess, sf)
     direct = shading.tonemap_direct(direct)
     lit = ambient[..., :3] + direct
 
@@ -668,6 +694,224 @@ def lighting_pass(scene: DeviceScene, consts: FrameConstants,
 
 
 # ---------------------------------------------------------------------------
+# Alpha-tested layer (the ALPHA_TEST shader variants, CRYCHIC.cpp:1205-1218:
+# Default.hlsl / Shadows.hlsl clip(a - 0.1))
+# ---------------------------------------------------------------------------
+
+# Elements of one (triangles, rows, columns) slab of the alpha peel: the
+# triangles are evaluated in chunks of this many pixel-triangle pairs
+PEEL_CHUNK_ELEMS = 1 << 23
+
+
+def alpha_view_tris(scene: DeviceScene, consts: FrameConstants,
+                    cfg: RenderConfig):
+    """Vertex stage + near clip for the AlphaTested layer (same pipeline
+    as main_view_tris, over scene.alpha)."""
+    return _view_tris(scene.alpha, consts.alpha_visibility, consts, cfg)
+
+
+def _alpha_peel(tris: rz.ScreenTris, uv_tri, mat_tri, scene: DeviceScene,
+                px, py, n_peels: int, clip_thr: float):
+    """Dense small-N rasterization of alpha-tested triangles with depth
+    peeling: per pixel, the nearest fragment whose sampled alpha passes
+    clip(a - thr).
+
+    A GPU's pixel shader clips before the depth test (Shadows.hlsl:49-65);
+    a visibility-buffer rasterizer decides coverage without textures, so
+    the layer (a handful of fence or foliage quads) is rasterized densely
+    here: ``n_peels`` rounds of (nearest fragment above the last peel's
+    depth, its uv and alpha). Fragments behind ``n_peels`` failing layers
+    are dropped (the JAX package's approximation; 2 covers every
+    two-sided fence).
+
+    The JAX package loops over the triangles one at a time; here chunks
+    of triangles are evaluated as dense (chunk, rows, columns) tensors
+    (PEEL_CHUNK_ELEMS elements at most), with the same arithmetic and the
+    same strict ``<``: the earliest triangle wins a depth tie, as in the
+    sequential order.
+
+    tris: (T,) screen triangles; uv_tri: (T, 3, 2); mat_tri: (T,).
+    px/py: pixel-center coordinate grids (broadcastable to the output).
+    Returns (z, idx): idx -1 where no passing fragment."""
+    A, B, C, area2, top_left = rz._edge_coeffs(tris.xy)
+    inv_a2 = 1.0 / torch.where(area2 == 0, torch.ones_like(area2), area2)
+    zA = (A * tris.z * inv_a2[:, None]).sum(-1)
+    zB = (B * tris.z * inv_a2[:, None]).sum(-1)
+    zC = (C * tris.z * inv_a2[:, None]).sum(-1)
+    T = tris.xy.shape[0]
+    shape = torch.broadcast_shapes(px.shape, py.shape)
+    pxb, pyb = px.expand(shape), py.expand(shape)
+    dev = pxb.device
+    inf = float("inf")
+
+    # 16-wide per-triangle record: xy(6) inv_w(3) uv(6) mat(1) — one row
+    # gather per pixel per peel recovers the winner's interpolation data
+    rec = torch.cat([tris.xy.reshape(-1, 6), tris.inv_w, uv_tri[:, 0],
+                     uv_tri[:, 1], uv_tri[:, 2],
+                     mat_tri.to(torch.float32)[:, None]], dim=-1)
+    chunk = max(1, PEEL_CHUNK_ELEMS // max(1, shape[0] * shape[1]))
+
+    def nearest_above(zfloor):
+        zb = torch.full(shape, inf, device=dev)
+        ib = torch.full(shape, -1, dtype=torch.int32, device=dev)
+        for t0 in range(0, T, chunk):
+            t1 = min(T, t0 + chunk)
+
+            def per_tri(x):  # (T,) -> (chunk, 1, 1)
+                return x[t0:t1, None, None]
+
+            cov = None
+            for e in range(3):
+                E = (per_tri(A[:, e]) * pxb + per_tri(B[:, e]) * pyb
+                     + per_tri(C[:, e]))
+                c = (E > 0) | ((E == 0) & per_tri(top_left[:, e]))
+                cov = c if cov is None else cov & c
+            z = per_tri(zA) * pxb + per_tri(zB) * pyb + per_tri(zC)
+            cand = (cov & per_tri(tris.valid) & (z >= 0.0) & (z <= 1.0)
+                    & (z > zfloor))
+            zc = torch.where(cand, z, inf)
+            zmin = zc.amin(0)
+            t = torch.arange(t0, t1, dtype=torch.int32, device=dev)
+            first = torch.where(cand & (zc == zmin), t[:, None, None],
+                                T).amin(0)
+            better = zmin < zb
+            zb = torch.where(better, zmin, zb)
+            ib = torch.where(better, first, ib)
+        return zb, ib
+
+    res_z = torch.full(shape, inf, device=dev)
+    res_id = torch.full(shape, -1, dtype=torch.int32, device=dev)
+    resolved = torch.zeros(shape, dtype=torch.bool, device=dev)
+    zfloor = torch.full(shape, -1.0, device=dev)
+    pool = scene.pair_pool
+    for _ in range(n_peels):
+        zb, ib = nearest_above(zfloor)
+        r = rec[torch.clamp(ib, min=0).long()]
+        xy = r[..., :6].reshape(shape + (3, 2))
+        wgt = rz.barycentrics_at(xy, pxb, pyb) * r[..., 6:9]
+        den = wgt.sum(-1, keepdim=True)
+        # sign-preserving guard: extrapolated barycentrics (a pixel whose
+        # record is a fallback triangle) can sum NEGATIVE; clamping to
+        # +1e-20 would flip the sign and explode uv, which leaks into
+        # neighbors through the uv derivatives
+        wgt = wgt / torch.where(torch.abs(den) < 1e-20,
+                                torch.full_like(den, 1e-20), den)
+        uv = (wgt[..., 0:1] * r[..., 9:11] + wgt[..., 1:2] * r[..., 11:13]
+              + wgt[..., 2:3] * r[..., 13:15])
+        mat = r[..., 15].long()
+        pairidx = _mat_select(scene.mat_pair, mat).long()
+        lod = sampling.lod_from_derivatives(*sampling.uv_derivatives(uv))
+        dsample, _ = sampling.sample_pair_trilinear(pool, pairidx, uv, lod)
+        aval = dsample[..., 3] * _mat_select(scene.mat_albedo, mat)[..., 3]
+        passing = (ib >= 0) & (aval - clip_thr >= 0.0)
+        take = ~resolved & passing
+        res_z = torch.where(take, zb, res_z)
+        res_id = torch.where(take, ib, res_id)
+        resolved = resolved | take
+        zfloor = torch.where(ib >= 0, zb, inf)
+    return res_z, res_id
+
+
+def alpha_merge_main(scene: DeviceScene, consts: FrameConstants,
+                     cfg: RenderConfig, depth, tid, tris, tri_attr,
+                     row_offset: int = 0):
+    """Rasterize the AlphaTested layer and merge it into the opaque
+    visibility buffer; the layer's triangle records are APPENDED to the
+    screen-triangle and attribute tables, so resolve_gbuffer shades its
+    winners through the same path (tid indexes the concatenated table).
+
+    row_offset: first GLOBAL pixel row of `depth` (band rendering: the
+    peel evaluates at global rows, so bands equal the full frame)."""
+    H, W = depth.shape
+    dev = depth.device
+    a_tris, a_attr = alpha_view_tris(scene, consts, cfg)
+    px = (torch.arange(W, dtype=torch.float32, device=dev) + 0.5)[None, :]
+    py = (float(row_offset) + torch.arange(H, dtype=torch.float32,
+                                           device=dev) + 0.5)[:, None]
+    az, aid = _alpha_peel(a_tris, a_attr[:, :, 13:15], a_attr[:, 0, 15],
+                          scene, px, py, cfg.alpha_peels, cfg.alpha_clip)
+    t_base = tris.xy.shape[0]
+    win = (aid >= 0) & (az < depth)
+    depth = torch.where(win, az, depth)
+    tid = torch.where(win, t_base + aid, tid)
+    tris = rz.ScreenTris(*(torch.cat([a, b]) for a, b in zip(tris, a_tris)))
+    return depth, tid, tris, torch.cat([tri_attr, a_attr])
+
+
+def alpha_shadow_geom(scene: DeviceScene, consts: FrameConstants):
+    """Cascade-independent inputs of the alpha shadow punch, computed
+    once: per-triangle world-space vertices, and the uv and material ids
+    of the draw's static corner tables (frame-constant)."""
+    draw = scene.alpha
+    return (shadow_tri_world(draw, consts.alpha_visibility),
+            draw.tri_rest[..., 9:11], draw.tri_rest[:, 0, 11].long())
+
+
+def alpha_punch_window(scene: DeviceScene, cfg: RenderConfig, tri_world,
+                       uv_tri, mat_tri, vp):
+    """One cascade's punch data: depth-peel the alpha triangles inside a
+    statically sized window placed over the layer's light-space bounding
+    box. Returns (az (Wn, Wn), aid (Wn, Wn) int32, oy, ox) with the
+    window's origin as 0-d int64 tensors (no host read). The shadow map
+    is not read, so this can run on another rank than the merge
+    (parallel.sharded distributes the cascades)."""
+    S = cfg.shadow_map_size
+    Wn = min(cfg.alpha_shadow_window, S)
+    t = rz.setup_tri_verts(shading.rowmat(tri_world, vp), None, S, S)
+    t = _shadow_bias(t)
+    vx = torch.where(t.valid[:, None, None], t.xy,
+                     torch.full_like(t.xy, float("inf")))
+
+    def origin(lo):
+        # floor(min) - 1 clamped to the map in float: equal to the JAX
+        # package's int32 clip for any finite min, and defined when no
+        # triangle is valid (min = inf; every id is -1 then)
+        return torch.clamp(torch.floor(lo) - 1.0, 0.0, float(S - Wn)).long()
+
+    ox = origin(vx[..., 0].min())
+    oy = origin(vx[..., 1].min())
+    ramp = torch.arange(Wn, dtype=torch.float32, device=t.xy.device)
+    px = (ox.to(torch.float32) + ramp + 0.5)[None, :]
+    py = (oy.to(torch.float32) + ramp + 0.5)[:, None]
+    az, aid = _alpha_peel(t, uv_tri, mat_tri, scene, px, py,
+                          cfg.alpha_peels, cfg.alpha_clip)
+    return az, aid, oy, ox
+
+
+def alpha_apply_punch(shadow_map, az, aid, oy, ox):
+    """Min-merge one cascade's punch window into its (S, S) shadow map
+    (a new tensor; index tensors, so the origin stays on the device)."""
+    Wn = az.shape[0]
+    ramp = torch.arange(Wn, device=shadow_map.device)
+    rows, cols = (oy + ramp)[:, None], (ox + ramp)[None, :]
+    window = shadow_map[rows, cols]
+    out = shadow_map.clone()
+    out[rows, cols] = torch.where(aid >= 0, torch.minimum(window, az),
+                                  window)
+    return out
+
+
+def alpha_merge_shadow(scene: DeviceScene, consts: FrameConstants,
+                       cfg: RenderConfig, shadow_maps):
+    """Punch the AlphaTested casters into the cascade shadow maps
+    (Shadows.hlsl ALPHA_TEST PS, :49-65): per cascade, depth-peel the
+    alpha triangles inside a statically sized window over the layer's
+    light-space bounding box and min-merge the passing fragments."""
+    tri_world, uv_tri, mat_tri = alpha_shadow_geom(scene, consts)
+    return torch.stack([
+        alpha_apply_punch(shadow_maps[c], *alpha_punch_window(
+            scene, cfg, tri_world, uv_tri, mat_tri,
+            consts.cascade_view_projs[c]))
+        for c in range(shadow_maps.shape[0])])
+
+
+def alpha_enabled(scene: DeviceScene, cfg: RenderConfig) -> bool:
+    """Whether the frame runs the alpha layer: alpha_test_enabled with no
+    alpha draw in the scene counts as off, as in the JAX package."""
+    return cfg.alpha_test_enabled and scene.alpha is not None
+
+
+# ---------------------------------------------------------------------------
 # Capacity counts
 # ---------------------------------------------------------------------------
 
@@ -703,21 +947,6 @@ def capacity_requirements(scene: DeviceScene, consts: FrameConstants,
 # Full frame
 # ---------------------------------------------------------------------------
 
-def _check_supported(cfg: RenderConfig):
-    """Raise NotImplementedError for settings outside the ported slices."""
-    unsupported = [
-        ("deferred", not cfg.deferred, "the forward path"),
-        ("use_pbr", not cfg.use_pbr, "Blinn-Phong lighting"),
-        ("alpha_test_enabled", cfg.alpha_test_enabled,
-         "the alpha-tested layer"),
-    ]
-    for name, bad, what in unsupported:
-        if bad:
-            raise NotImplementedError(
-                f"RenderConfig.{name}={getattr(cfg, name)!r}: {what} is "
-                f"not ported yet")
-
-
 def render_frame(scene: DeviceScene, consts: FrameConstants,
                  cfg: RenderConfig, stats: dict = None) -> torch.Tensor:
     """One full frame -> (H, W, 4) float32 linear color (see module doc).
@@ -725,7 +954,6 @@ def render_frame(scene: DeviceScene, consts: FrameConstants,
     stats (optional dict) receives the raster launches' overflow flags as
     0-d bool tensors ("main_overflowed", "shadow_overflowed"), read by
     nobody here, so the frame never waits on the device."""
-    _check_supported(cfg)
     H, W = cfg.height, cfg.width
     dev = consts.view_proj.device
     stats = {} if stats is None else stats
@@ -736,12 +964,20 @@ def render_frame(scene: DeviceScene, consts: FrameConstants,
     depth, tid, stats["main_overflowed"] = raster.rasterize(
         tris, W, H, cfg.pair_capacity)
 
+    alpha_on = alpha_enabled(scene, cfg)
+    if alpha_on:
+        depth, tid, tris, tri_attr = alpha_merge_main(
+            scene, consts, cfg, depth, tid, tris, tri_attr)
+
     g = resolve_gbuffer(scene, consts, cfg, tris, depth, tid, tri_attr)
 
     if cfg.shadows_enabled:
         shadow_maps = render_shadow_atlas(scene, consts.shadow_visibility,
                                           consts.cascade_view_projs, cfg,
                                           stats)
+        if alpha_on:
+            shadow_maps = alpha_merge_shadow(scene, consts, cfg,
+                                             shadow_maps)
     else:
         shadow_maps = torch.ones((cfg.num_cascades, 2, 2),
                                  dtype=torch.float32, device=dev)
@@ -766,16 +1002,18 @@ def apply_debug_overlay(consts: FrameConstants, cfg: RenderConfig,
     `full_height`-row screen).
 
     - ShadowDebug.hlsl quad (CRYCHIC.cpp:406-407, PSO "debug"): the
-      shadow-map blit quad, drawn for cfg.debug_view == "shadow_cascade3".
-      (The reference's forward branch draws it always; that waits for the
-      forward path.)
+      reference's forward branch always draws the shadow-map blit quad;
+      drawn whenever the forward path has shadow maps to show, or on
+      demand with cfg.debug_view == "shadow_cascade3".
     - "cascades": Default.hlsl:152-156 (commented out in the reference)
       colorizes pixels by their selected cascade.
     """
     H, W = img.shape[:2]
     full_h = H if full_height is None else full_height
     dev = img.device
-    if cfg.debug_view == "shadow_cascade3":
+    draw_quad = cfg.debug_view == "shadow_cascade3" or (
+        not cfg.deferred and cfg.shadows_enabled and cfg.debug_view is None)
+    if draw_quad:
         # blit gShadowMap[3] onto the debug quad, which
         # CreateQuad(0,0,1,1,0) places in the bottom-right screen quadrant
         qh, qw = full_h // 2, W // 2

@@ -12,8 +12,12 @@
   order and rounds each operation on its own, so it is expected to be
   equal, and the bound leaves room for the order of the sums. Also on
   receivers near every edge and corner of the map (the gathered
-  footprints and the scalar path of the last block) and on NaN, infinite
-  and huge parameters.
+  footprints and the scalar path of the last block), on NaN, infinite
+  and huge parameters, and on maps the card cannot texture (S = 520, an
+  unaligned address: every receiver on the scalar path).
+- Frames on the card against the port's CPU path at 240x135 (at most
+  0.5% of pixels above 0.02): the forward Blinn-Phong frame with shadows,
+  the fence scene's alpha layer and the soft disk on 520^2 maps.
 
 Imports torch and the port only (the card's machine has no jax). The
 cases marked ``cuda`` skip without a CUDA device; run them on the card
@@ -27,6 +31,9 @@ import torch
 
 from crychic_renderer_tpu_torch.ops import pcf, raster
 from crychic_renderer_tpu_torch.ops import rasterizer as rz
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 
 def _random_tris(W, H, T, seed, device):
@@ -464,3 +471,56 @@ def test_cuda_inputs_never_reach_the_plain_versions(cuda, monkeypatch):
     torch.cuda.synchronize()
     assert img.is_cuda and bool(torch.isfinite(img).all())
     assert pcf.LAUNCHES == before + 1
+
+
+@pytest.mark.cuda
+def test_pcf_kernel_untexturable_maps(cuda):
+    """K6 on maps the card cannot texture: S = 520 (1,040-byte rows, off
+    the H100's 32-byte texture pitch alignment) and an S = 256 map at an
+    address off the texture alignment. Each launches with no texture
+    object, every receiver on the scalar path: within 1e-5 of plain."""
+    for qmap, params in (_pcf_inputs(cuda, S=520), _edge_params(cuda, S=520)):
+        before = pcf.LAUNCHES
+        got = pcf.soft_pcf(qmap, params, 2.5)
+        torch.cuda.synchronize()
+        assert pcf.LAUNCHES == before + 1
+        ref = pcf.soft_pcf_plain(qmap, params, 2.5)
+        assert float((got - ref).abs().max()) <= 1e-5
+    qmap, params = _pcf_inputs(cuda)
+    buf = torch.empty(qmap.numel() + 1, dtype=qmap.dtype, device=cuda)
+    shifted = buf[1:].view(qmap.shape)
+    shifted.copy_(qmap)
+    assert shifted.data_ptr() % 512 != 0 and shifted.is_contiguous()
+    got = pcf.soft_pcf(shifted, params, 2.5)
+    torch.cuda.synchronize()
+    ref = pcf.soft_pcf_plain(qmap, params, 2.5)
+    assert float((got - ref).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["forward", "fence", "soft_520"])
+def test_frame_on_card_matches_cpu(cuda, case):
+    """240x135 frames on the card against the port's CPU path (at most
+    0.5% of pixels above 0.02): config 4 forward with Blinn-Phong and
+    shadows (K1, K2 and the quad), the fence scene with the synthetic
+    wire grid (the alpha peel and punch), and config 4 with the soft disk
+    on 520^2 maps (K6 without a texture object)."""
+    from crychic_renderer_tpu_torch.app import renderer as tren
+    from crychic_renderer_tpu_torch.models import scenes_baseline as sb
+
+    if case == "fence":
+        scene, cfg, lights = sb.fence_scene(alpha_test=True)
+        cfg = dataclasses.replace(cfg, width=240, height=135)
+    else:
+        scene, cfg, lights = sb.config4_shadow_pipeline()
+        over = (dict(deferred=False, use_pbr=False) if case == "forward"
+                else dict(shadow_map_size=520, pcf_radius_texels=2.5))
+        cfg = dataclasses.replace(cfg, width=240, height=135,
+                                  **{"shadow_map_size": 256, **over})
+    with tren.synthetic_wire_fence():
+        imgs = [tren.Renderer(scene, cfg, lights=lights,
+                              device=d).render_np(0.0)
+                for d in (cuda, "cpu")]
+    assert np.isfinite(imgs[0]).all()
+    diff = np.abs(imgs[0] - imgs[1]).max(axis=-1)
+    assert (diff > 0.02).mean() <= 0.005, (case, (diff > 0.02).mean())

@@ -11,8 +11,8 @@ contracts the depth-plane sums into FMAs (see test_torch_raster.py), so
 its depths differ from the port's by up to ~4e-4 while every triangle id
 agrees.
 
-Also here: the guards of the port's package — it never imports jax, it
-pins f32 matmuls, and settings outside the slice raise.
+Also here: the guards of the port's package — it never imports jax and
+it pins f32 matmuls — and the settings it once refused now render.
 """
 import dataclasses
 import os
@@ -22,16 +22,19 @@ import sys
 import jax
 import numpy as np
 import pytest
+import torch
 
 from crychic_renderer_tpu.app.renderer import Renderer as JRenderer
 from crychic_renderer_tpu.models.scenes_baseline import CONFIGS as JCONFIGS
 from crychic_renderer_tpu.ops import raster_pallas as rp
 from crychic_renderer_tpu.passes import frame as jfr
 from crychic_renderer_tpu_torch.app.renderer import Renderer
-from crychic_renderer_tpu_torch.config import RenderConfig
 from crychic_renderer_tpu_torch.models.scenes_baseline import CONFIGS
 from crychic_renderer_tpu_torch.ops import raster
 from crychic_renderer_tpu_torch.passes import frame as fr
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PIX_BOUND = 0.005  # share of pixels whose max-RGB |diff| exceeds 0.02
@@ -167,7 +170,9 @@ def test_atlas_capacity_counts_the_binned_pairs(frames):
 # ---------------------------------------------------------------------------
 
 def _run(code):
-    return subprocess.run([sys.executable, "-c", code], cwd=REPO,
+    # the child's torch gets this worker's share of the cores
+    env = dict(os.environ, OMP_NUM_THREADS=str(torch.get_num_threads()))
+    return subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
 
 
@@ -224,7 +229,16 @@ def test_import_pins_f32_matmul():
 
 @pytest.mark.parametrize("field,value", [
     ("deferred", False), ("use_pbr", False), ("alpha_test_enabled", True)])
-def test_unported_setting_raises(field, value):
-    cfg = dataclasses.replace(RenderConfig(), **{field: value})
-    with pytest.raises(NotImplementedError, match=field):
-        fr.render_frame(None, None, cfg)
+def test_unported_setting_raises(frames, field, value):
+    """The settings render_frame used to refuse with NotImplementedError
+    (the name is kept) now render the 1/8 config-4 frame: the forward path
+    and Blinn-Phong change the image (tests/test_torch_forward.py holds
+    them against the JAX frame); alpha_test_enabled without an alpha draw
+    in the scene counts as off, as in the JAX package."""
+    _, rt, _, _ = frames
+    consts = rt.frame_constants(0.0)
+    base = fr.render_frame(rt.device_scene, consts, rt.cfg)
+    img = fr.render_frame(rt.device_scene, consts,
+                          dataclasses.replace(rt.cfg, **{field: value}))
+    assert img.shape == base.shape and bool(img.isfinite().all())
+    assert torch.equal(img, base) == (field == "alpha_test_enabled")

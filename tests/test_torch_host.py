@@ -14,6 +14,9 @@ from crychic_renderer_tpu.ops import ssao as jssao
 from crychic_renderer_tpu_torch.app import renderer as tren
 from crychic_renderer_tpu_torch.models import scenes_baseline as tsb
 from crychic_renderer_tpu_torch.ops import ssao as tssao
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 
 def _eq(a, b, what):

@@ -24,6 +24,9 @@ from crychic_renderer_tpu.ops import shadows as jshadows
 from crychic_renderer_tpu.ops import ssao as jssao
 from crychic_renderer_tpu_torch.ops import clipping, sampling, shading
 from crychic_renderer_tpu_torch.ops import shadows, ssao
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 ATOL = 1e-5
 

@@ -3,20 +3,13 @@ soft PCF disk, the fast preset, trilinear and other anisotropy settings,
 the single-mip pool, quarter-res SSAO, cubemap sampling and the debug
 views.
 
-Full frames (1/8 size, 240x135, 256^2 cascades), as tests/test_torch_frame.py
-renders them: the JAX frame jitted on the interpret-mode Pallas raster,
-the port through its Renderer on the CPU, from identical scene leaves and
-frame constants. Bound: <= 0.5% of pixels with max-RGB |diff| > 0.02.
-The soft disk's rotation hash amplifies rounding: in the port itself, a
-one-ulp change of the world positions moves 0.025% of the soft-disk
-lighting's pixels and 0% of the fast preset's by more than 0.02
-(test_soft_disk_noise_floor). The port differs from the jitted JAX
-frame by more than an ulp in places (XLA contracts the projections into
-FMAs, and its sin differs by an ulp on ~4% of angles, see
-test_torch_pcf.py). Measured here: soft 0.127% (41 of 32,400 pixels, max
-0.038), soft + fast 0% (max 0.018).
+The full frames of the soft disk and the fast preset are in
+test_torch_options_frame.py. The soft disk's rotation hash amplifies
+rounding: in the port itself, a one-ulp change of the world positions
+moves 0.025% of the soft-disk lighting's pixels and 0% of the fast
+preset's by more than 0.02 (test_soft_disk_noise_floor).
 
-Every other option is compared at the pass it changes, on one shared set
+Every option is compared at the pass it changes, on one shared set
 of JAX intermediates (main-view raster, shadow maps, G-buffer), with the
 JAX pass run eagerly so that XLA rounds op by op as torch does. The
 material maps here are white 1x1 assets, so the resolve tests replace the
@@ -46,6 +39,9 @@ from crychic_renderer_tpu_torch.ops import rasterizer as rz
 from crychic_renderer_tpu_torch.ops import ssao as ssao_ops
 from crychic_renderer_tpu_torch.passes import frame as fr
 from test_torch_frame import PIX_BOUND, _leaves, _small
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 ATOL = 1e-5
 SOFT = 2.5
@@ -73,43 +69,6 @@ def shared_hash(monkeypatch):
         return jnp.asarray(pcf.nrand(_t(np.asarray(uv))).numpy())
 
     monkeypatch.setattr(jshadows, "nrand", port_nrand)
-
-
-# ---------------------------------------------------------------------------
-# Full frames
-# ---------------------------------------------------------------------------
-
-FRAME_OPTIONS = {
-    "soft": lambda c: dataclasses.replace(c, pcf_radius_texels=SOFT),
-    "soft_fast": lambda c: dataclasses.replace(c.fast_preset(),
-                                               pcf_radius_texels=SOFT),
-}
-
-
-@pytest.mark.parametrize("name", sorted(FRAME_OPTIONS))
-def test_frame_matches_jax(name):
-    option = FRAME_OPTIONS[name]
-    scene, cfg, lights = JCONFIGS[4]()
-    rj = JRenderer(scene, option(_small(cfg)), lights=lights)
-    rj.cfg = dataclasses.replace(rj.cfg, use_pallas=True,
-                                 pallas_interpret=True)
-    rj._autosize_capacity()
-    rj.rebind_frame_fn()
-    ref = rj.render_np(0.0)
-
-    tscene, tcfg, tlights = CONFIGS[4]()
-    rt = tren.Renderer(tscene, option(_small(tcfg)), lights=tlights,
-                       device="cpu")
-    rt.device_scene = fr.DeviceScene.from_numpy(_leaves(rj.device_scene),
-                                                "cpu")
-    got = rt.render_np(0.0)
-    assert got.shape == ref.shape == (135, 240, 4)
-    assert np.isfinite(got).all()
-    diff = np.abs(ref - got).max(axis=-1)
-    frac = (diff > 0.02).mean()
-    assert frac <= PIX_BOUND, (f"{name}: {frac:.4%} of pixels >0.02 "
-                               f"(max {diff.max():.4f})")
-    rt.check_overflow()
 
 
 # ---------------------------------------------------------------------------

@@ -37,6 +37,9 @@ from jax.experimental import pallas as pl
 
 from crychic_renderer_tpu.ops import shadows as jshadows
 from crychic_renderer_tpu_torch.ops import pcf, shadows
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 S, C = 256, 4

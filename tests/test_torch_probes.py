@@ -30,6 +30,9 @@ from crychic_renderer_tpu_torch.experiments import fma_kernel_probe as fma
 from crychic_renderer_tpu_torch.ops import raster
 from crychic_renderer_tpu_torch.ops import rasterizer as rz
 from test_torch_raster import _compare
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PIECES = ["bin_triangles", "tile_bbox", "tri_of_pair", "packed_gather",

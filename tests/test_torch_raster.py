@@ -31,6 +31,9 @@ from crychic_renderer_tpu.ops import rasterizer as jrz
 from crychic_renderer_tpu_torch.ops import raster
 from crychic_renderer_tpu_torch.ops import rasterizer as rz
 from tests.test_torch_cuda import sliver_tris
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 TID_FRAC = 1e-3   # tids may differ on at most 0.1% of pixels
 DZ = 1e-6         # max |depth difference| where the tids agree
