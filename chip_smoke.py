@@ -159,7 +159,8 @@ def phase(msg):
 def device_ms(fn, reps, kernel):
     """Mean device ms of the kernel named `kernel` per call of fn()
     (torch.profiler's kernel records, so the wrapper's host work is not
-    in it)."""
+    in it; CUDA events around each queued call where the profiler keeps
+    too few records, see kernel_ab_probe.device_ms)."""
     from crychic_renderer_tpu_torch.experiments import kernel_ab_probe
 
     return kernel_ab_probe.device_ms(fn, reps, kernel)

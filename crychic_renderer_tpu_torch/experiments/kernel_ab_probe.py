@@ -40,27 +40,59 @@ SOFT = 2.5
 N_BANDS = 4
 
 
-def device_ms(fn, reps: int, kernel: str) -> float:
+def device_ms(fn, reps: int, kernel: str, windows: int = 3) -> float:
     """Mean device duration (ms) of one launch of the CUDA kernel whose
     name holds `kernel`, over `reps` calls of fn() after one warm-up; each
-    call launches one. The profiler may miss a record (one of 20 was
-    seen missing), so the mean is over the records it kept, at least
-    half of them."""
+    call launches one.
+
+    The profiler may drop records: one of 20 was seen missing, and once
+    all 20 of a window. So the mean is over the records a window kept,
+    when that is at least half of them; a window that kept fewer is
+    profiled again, up to `windows` windows. When none kept enough, the
+    time comes from CUDA events around each call instead
+    (`queued_event_ms`, all of fn()'s device work), and a line says so."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    times = [e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and kernel in e.name]
-    if not reps // 2 <= len(times) <= reps:
-        raise RuntimeError(f"{len(times)} records of {kernel} in {reps} "
-                           "calls")
-    return sum(times) / len(times) / 1000.0
+    kept = []
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        times = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and kernel in e.name]
+        if len(times) > reps:
+            raise RuntimeError(f"{len(times)} records of {kernel} in {reps} "
+                               "calls")
+        if len(times) >= reps // 2:
+            return sum(times) / len(times) / 1000.0
+        kept.append(len(times))
+    ms = queued_event_ms(fn, reps)
+    print(f"device ms of {kernel} from CUDA events ({ms:.4f} ms): the "
+          f"profiler kept {kept} records of {reps} calls in {windows} "
+          "windows", flush=True)
+    return ms
+
+
+def queued_event_ms(fn, reps: int, sleep_cycles: int = 4_000_000) -> float:
+    """Mean ms per call of fn() between CUDA events recorded just before
+    and after it, each call queued behind a device sleep of `sleep_cycles`
+    clocks (about 2 ms on an H100) so that the host's issue time of the
+    events and of fn()'s launches is not in the interval."""
+    total = 0.0
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(sleep_cycles)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        total += start.elapsed_time(stop)
+    return total / reps
 
 
 def libraries(root: str):
