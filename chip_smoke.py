@@ -93,7 +93,24 @@ soft PCF kernel (csrc/pcf.cu). Phases, each printed as it ends:
    scalar path, with both times; and 3 warm-up + 10 timed frames of that
    config with the soft disk (one K1, K2 and K6 launch per frame).
 
-Phases 6, 8, 10, 14-16 and 18-19 count no field-major (K4) launch: the
+20. config 5 (skull + car + instanced boxes + grid, PBR, shadows, SSAO,
+   the animated BoltAnim slot) from files on disk: the full-size
+   synthetic asset set (experiments/synthetic_assets.py: DXT5/DXT1/RGBA8
+   textures of 512², 60 + 120 BMP frames, a DXT1 cubemap of 6 x 1024²,
+   the published skull and car counts) written under build/, with its
+   write time, the decode time of the meshes, the textures and the cube,
+   and the pair pool's and the cube's bytes on the card; a 240x135 frame
+   with the loaded cube on the card against the CPU path (<= 0.5% of
+   pixels > 0.02); 3 warm-up + 10 timed frames at 1920x1080 whose times
+   walk the BoltAnim slot through 7 of its frames (the material's pair
+   must change), one K1 and one K2 launch per frame, no overflow, finite
+   pixels, the median ms/frame; and profile_frame of that frame;
+21. configs 2 (forward Blinn-Phong, 3 lights) and 3 (deferred, 16 point
+   lights) as written, on the synthetic skull and textures: each at
+   240x135 on the card against the CPU path, then 3 warm-up + 10 timed
+   frames at 1920x1080 (one K1 launch per frame).
+
+Phases 6, 8, 10, 14-16 and 18-21 count no field-major (K4) launch: the
 variant is kept off every frame path.
 
 Then one JSON line of per-kernel results (with each kernel's bound: the
@@ -105,6 +122,8 @@ so does a machine without CUDA, and a directory without the repository.
 """
 import dataclasses
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -123,7 +142,8 @@ VIEWER_SCRIPT = "wwjl"
 # (phases 12, 13) count for K4 and K5
 FRAME_RUNS = ["config4", "soft", "soft_fast", "sharded", "profiler",
               "parity", "viewer", "config1", "forward", "rig", "fence",
-              "fence_profiler", "soft_520"]
+              "fence_profiler", "soft_520", "config5", "config5_profiler",
+              "config2", "config3"]
 ZERO = dict(ids=0, depth=0, band_ids=0, band_depth=0, field_ids=0,
             field_depth=0, pcf=0)
 PIX_BOUND = 0.005
@@ -467,6 +487,12 @@ def main():
     t2 = time.perf_counter()
     phase(f"[19] phases 16-19 took {t2 - t1:.1f} s; the script "
           f"{t2 - t_script:.1f} s, kernel builds included")
+
+    # 20-21: configs 5, 2 and 3 from the synthetic asset set on disk
+    asset_runs(dev, frame_ms, launches)
+    t3 = time.perf_counter()
+    phase(f"[21] phases 20-21 took {t3 - t2:.1f} s; the script "
+          f"{t3 - t_script:.1f} s, kernel builds included")
 
     kernels.sort(key=lambda k: k["name"])
     for k in kernels:
@@ -818,14 +844,16 @@ def small_frame_vs_cpu(dev, options):
         cfg, width=240, height=135, shadow_map_size=256, **options), lights)
 
 
-def frame_vs_cpu(dev, scene, cfg, lights):
+def frame_vs_cpu(dev, scene, cfg, lights, **kw):
     """The frame of (scene, cfg, lights) on the card against the port's
-    CPU path: (share of pixels > 0.02, per-pixel max |diff|)."""
+    CPU path, both Renderers built with the keywords `kw`: (share of
+    pixels > 0.02, per-pixel max |diff|)."""
     from crychic_renderer_tpu_torch.app.renderer import Renderer
 
-    img_gpu = Renderer(scene, cfg, lights=lights, device=dev).render_np(0.0)
-    img_cpu = Renderer(scene, cfg, lights=lights,
-                       device="cpu").render_np(0.0)
+    img_gpu = Renderer(scene, cfg, lights=lights, device=dev,
+                       **kw).render_np(0.0)
+    img_cpu = Renderer(scene, cfg, lights=lights, device="cpu",
+                       **kw).render_np(0.0)
     diff = np.abs(img_gpu - img_cpu).max(axis=-1)
     frac = float((diff > 0.02).mean())
     assert np.isfinite(img_gpu).all() and frac <= PIX_BOUND, (
@@ -835,14 +863,14 @@ def frame_vs_cpu(dev, scene, cfg, lights):
 
 
 def timed_config(dev, name, scene, cfg, lights, per_frame, frame_ms,
-                 launches):
+                 launches, **kw):
     """FRAMES_WARMUP + FRAMES_TIMED frames of (scene, cfg, lights) at its
     size through Renderer.render (run_frames: counts, overflow, finite);
     records the median and the counts under `name`. Returns the
-    Renderer."""
+    Renderer (built with the keywords `kw`)."""
     from crychic_renderer_tpu_torch.app.renderer import Renderer
 
-    r = Renderer(scene, cfg, lights=lights, device=dev)
+    r = Renderer(scene, cfg, lights=lights, device=dev, **kw)
     frame_ms[name], launches[name] = run_frames(r, dict(ZERO, **per_frame))
     return r
 
@@ -913,6 +941,95 @@ def fence_runs(dev, frame_ms, launches):
           f"stages alpha_merge_main {report['alpha_merge_main']:.3f} and "
           f"alpha_merge_shadow {report['alpha_merge_shadow']:.3f} ms; "
           f"launches {launches['fence_profiler']}")
+
+
+def asset_runs(dev, frame_ms, launches):
+    """Phases 20-21: configs 5, 2 and 3 from the full-size synthetic asset
+    set written under build/ (see the module doc)."""
+    from crychic_renderer_tpu_torch.app import profiler
+    from crychic_renderer_tpu_torch.app import renderer as ren
+    from crychic_renderer_tpu_torch.experiments import synthetic_assets as sa
+    from crychic_renderer_tpu_torch.models import scenes_baseline as sb
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "synthetic_assets")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    paths = sa.write_asset_set(root, sa.FULL, seed=0)
+    write_s = time.perf_counter() - t0
+    sb.REF_MODELS = paths["models"]
+    kw = dict(asset_dir=paths["textures"], sky_cubemap_path=paths["sky_cube"])
+    t0 = time.perf_counter()
+    scene, cfg, lights = sb.CONFIGS[5]()
+    t1 = time.perf_counter()
+    chains, anim = ren.load_texture_chains(scene.texture_names,
+                                           paths["textures"])
+    t2 = time.perf_counter()
+    faces = ren.load_sky_cubemap(paths["sky_cube"])
+    t3 = time.perf_counter()
+    n_frames = {scene.texture_names[s]: len(f) for s, (f, _) in anim.items()}
+    assert n_frames == {"bolt_anim": 15, "fire_anim": 15}, n_frames
+    side, cube = sa.FULL.texture, sa.FULL.cube
+    assert chains[0][0].shape == (side, side, 4), chains[0][0].shape
+    assert len(chains[0]) == side.bit_length(), len(chains[0])
+    assert faces.shape == (6, cube, cube, 4), faces.shape
+    small = dataclasses.replace(cfg, width=240, height=135,
+                                shadow_map_size=256)
+    frac, diff = frame_vs_cpu(dev, scene, small, lights, **kw)
+    t4 = time.perf_counter()
+    r = timed_config(dev, "config5", scene, cfg, lights,
+                     dict(ids=1, depth=1), frame_ms, launches, **kw)
+    bolt = 6  # config 5's "bolt" material, the BoltAnim slot's
+    base, count, fps = r.anim_specs[bolt]
+    walked = sorted({base + int(i / 60.0 * fps) % count for i in
+                     range(FRAMES_WARMUP + FRAMES_TIMED)})
+    last = int(r.device_scene.mat_pair[bolt])
+    assert len(walked) > 1 and last == walked[-1] != \
+        int(r._base_mat_pair[bolt]), (walked, last)
+    req = r.capacity_requirements(0.0)
+    n = 3 + 2 * PROFILE_REPS
+    report, launches["config5_profiler"] = counted(
+        lambda: profiler.profile_frame(r, reps=PROFILE_REPS),
+        dict(ids=n, depth=n), "profile_frame of config 5")
+    frame_ms["config5_profile_stages"] = report
+    phase(f"[20] config 5 from the synthetic set (seed 0, {side}^2 "
+          f"textures, {cube}^2 cube faces): written in "
+          f"{write_s:.2f} s; decoded: meshes + scene {t1 - t0:.2f} s, "
+          f"textures and {sum(n_frames.values())} BMP frames "
+          f"{t2 - t1:.2f} s, the DXT1 cube {t3 - t2:.2f} s; "
+          f"pair pool on the card {r.device_scene.pair_data.numel() * 4} "
+          f"bytes ({r.device_scene.n_big_pairs} big pairs), cube "
+          f"{r.device_scene.cubemap.numel() * 4} bytes; 240x135 with the "
+          f"loaded cube on the card vs the CPU path {frac:.4%} of pixels "
+          f">0.02 (max {diff.max():.3g}; both Renderers built from the "
+          f"files in {t4 - t3:.1f} s); {r.cfg.width}x{r.cfg.height} (main "
+          f"{req['main_pairs']} -> {r.cfg.pair_capacity}, shadow "
+          f"{req['shadow_pairs']} -> {r.cfg.shadow_pair_capacity} pairs): "
+          f"{FRAMES_WARMUP} warm-up + {FRAMES_TIMED} frames, median "
+          f"{frame_ms['config5']:.3f} ms/frame; BoltAnim pairs walked "
+          f"{walked}; launches {launches['config5']}; no overflow; "
+          f"profile_frame (ms): "
+          f"{ {k: round(v, 3) for k, v in report.items()} }, "
+          f"resolve_gbuffer "
+          f"{report['resolve_gbuffer'] / report['TOTAL_fused']:.1%} of "
+          f"TOTAL_fused; launches {launches['config5_profiler']}")
+    del r
+
+    for name in ("config2", "config3"):
+        scene, cfg, lights = sb.CONFIGS[int(name[-1])]()
+        small = dataclasses.replace(cfg, width=240, height=135)
+        frac, diff = frame_vs_cpu(dev, scene, small, lights,
+                                  asset_dir=paths["textures"])
+        r = timed_config(dev, name, scene, cfg, lights, dict(ids=1),
+                         frame_ms, launches, asset_dir=paths["textures"])
+        phase(f"[21] {name} as written (synthetic skull, {cfg.width}x"
+              f"{cfg.height}, deferred={cfg.deferred}, lights "
+              f"{cfg.num_dir_lights} dir / {cfg.num_point_lights} point): "
+              f"240x135 on the card vs the CPU path {frac:.4%} of pixels "
+              f">0.02 (max {diff.max():.3g}); {FRAMES_WARMUP} warm-up + "
+              f"{FRAMES_TIMED} frames, median {frame_ms[name]:.3f} ms/frame;"
+              f" launches {launches[name]}; no overflow")
+        del r
 
 
 def pcf_520(dev, frame_ms, launches):

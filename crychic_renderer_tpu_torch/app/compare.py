@@ -19,8 +19,10 @@ Usage::
         --out-dir goldens [--small] [--check goldens] [--device cuda]
     python -m crychic_renderer_tpu_torch.app.compare --parity --small
 
-Configs 1 and 4 build on this tree; configs 2, 3 and 5 load mesh assets
-(Models/skull.txt, Models/car.txt) that the port cannot read yet.
+Configs 1 and 4 build from code alone; configs 2, 3 and 5 load
+Models/skull.txt and Models/car.txt from scenes_baseline.REF_MODELS, and
+every config reads its textures from the Renderer's default asset
+directory (a missing texture renders as white 1x1).
 """
 from __future__ import annotations
 

@@ -20,12 +20,16 @@ import numpy as np
 import torch
 
 from ..config import RenderConfig
+from ..io import dds
 from ..models import cascades as casc
 from ..models.camera import BoundingFrustum, Camera, cull_instances
 from ..models.materials import build_reference_lights
 from ..models.scene import Scene
+from ..models.scenes_baseline import REFERENCE_DIR
 from ..ops import sampling, ssao as ssao_ops
 from ..passes import frame as fr
+
+DEFAULT_ASSET_DIR = os.path.join(REFERENCE_DIR, "Textures")
 
 # Texture slot names -> DDS file stems (LoadTextures, CRYCHIC.cpp:939-974).
 _TEXTURE_FILES = {
@@ -54,16 +58,15 @@ _ANIM_SLOTS = {
 }
 
 
-def load_texture_chains(names, asset_dir=None):
-    """The named texture slots as mip chains.
-
-    A missing asset falls back to a white 1x1 chain, exactly as the JAX
-    package does; asset_dir=None means no assets at all. A PRESENT asset
-    raises NotImplementedError naming the file: DDS/BMP decoding
-    (io/dds.py) is not ported yet.
+def load_texture_chains(names, asset_dir=DEFAULT_ASSET_DIR):
+    """The named texture slots as mip chains, decoded from the DDS files
+    (and the BMP frames of the animated slots) under asset_dir; mips are
+    generated for a mipless texture. A missing asset falls back to a white
+    1x1 chain, as in the JAX package.
 
     Returns (chains, anim_frames): chains[slot] = [(H, W, 4) u8 mips];
-    anim_frames[slot] = ([per-frame chains], fps) for animated slots.
+    anim_frames[slot] = ([per-frame chains], fps) for animated slots
+    (the BoltAnim/FireAnim BMP sequences, every `step`-th frame).
     """
     white = [np.full((1, 1, 4), 255, np.uint8)]
     chains = []
@@ -74,22 +77,23 @@ def load_texture_chains(names, asset_dir=None):
             continue
         if name in _ANIM_SLOTS:
             subdir, step, fps = _ANIM_SLOTS[name]
-            d = os.path.join(asset_dir, subdir) if asset_dir else None
-            if d and os.path.isdir(d) and os.listdir(d):
-                raise NotImplementedError(
-                    f"{d}: BMP animation frames need io/dds.py load_bmp, "
-                    f"which is not ported yet")
-            chains.append(white)  # slot shows frame 0
-            anim_frames[slot] = ([white], fps)
+            d = os.path.join(asset_dir, subdir)
+            files = sorted(os.listdir(d))[::step] if os.path.isdir(d) else []
+            frames = [dds.generate_mips(dds.load_bmp(os.path.join(d, f)))
+                      for f in files]
+            if not frames:
+                frames = [white]
+            chains.append(frames[0])  # slot shows frame 0
+            anim_frames[slot] = (frames, fps)
             continue
         fn = _TEXTURE_FILES.get(name)
-        if (fn is None or asset_dir is None
-                or not os.path.exists(os.path.join(asset_dir, fn))):
+        if fn is None or not os.path.exists(os.path.join(asset_dir, fn)):
             chains.append(white)
             continue
-        from ..io.dds import load_dds
-
-        load_dds(os.path.join(asset_dir, fn))  # raises: not ported yet
+        mips = dds.load_dds(os.path.join(asset_dir, fn)).mips
+        if len(mips) == 1 and mips[0].shape[0] > 1:
+            mips = dds.generate_mips(mips[0])
+        chains.append(mips)
     return chains, anim_frames
 
 
@@ -104,7 +108,7 @@ def synthetic_wire_fence():
 
     real = load_texture_chains
 
-    def chains(names, asset_dir=None):
+    def chains(names, asset_dir=DEFAULT_ASSET_DIR):
         out, anim = real(names, asset_dir)
         return [wire_fence_chain() if n == "WireFence" else c
                 for n, c in zip(names, out)], anim
@@ -116,7 +120,8 @@ def synthetic_wire_fence():
         load_texture_chains = real
 
 
-def build_pair_pool(scene: Scene, asset_dir=None, dual: bool = True):
+def build_pair_pool(scene: Scene, asset_dir=DEFAULT_ASSET_DIR,
+                    dual: bool = True):
     """Build the (diffuse, normal) pair pool for a scene's materials (see
     ops.sampling.PairPool). Static material pairs are deduplicated into
     the big class; animated materials get one small-class pair per
@@ -171,18 +176,38 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def build_device_scene(scene: Scene, asset_dir=None, lights=None,
-                       ssao_dims=(540, 960), dual_mip_rows: bool = True,
-                       device="cuda"):
-    """The scene's device containers on `device`, static tables attached.
-    Returns (DeviceScene, anim_specs)."""
+def load_sky_cubemap(path: str) -> np.ndarray:
+    """(6, S, S, 4) float [0,1] faces from a DDS cubemap file, D3D face
+    order: the LoadTextures path for gCubeMap (CRYCHIC.cpp:960 requests
+    snowcube1024.dds, which the reference repository does not ship; any
+    DDS cubemap slots in here). BC6H faces are HDR float32, used as they
+    are."""
+    tex = dds.load_dds(path)
+    if not tex.is_cubemap:
+        raise ValueError(f"{path} is not a cubemap")
+    faces = np.stack([f[0] for f in tex.faces])
+    if faces.dtype == np.uint8:
+        return faces.astype(np.float32) / 255.0
+    return faces.astype(np.float32)
+
+
+def build_device_scene(scene: Scene, asset_dir=DEFAULT_ASSET_DIR,
+                       lights=None, ssao_dims=(540, 960),
+                       sky_cubemap_path: str = None,
+                       dual_mip_rows: bool = True, device="cuda"):
+    """The scene's device containers on `device`, static tables attached;
+    the sky cube is the file at sky_cubemap_path, else the procedural
+    sky's. Returns (DeviceScene, anim_specs)."""
     device = resolve_device(device)
     if lights is None:
         lights = build_reference_lights()
     pool, mat_pair, anim_specs = build_pair_pool(scene, asset_dir,
                                                  dual=dual_mip_rows)
     mb = scene.material_bank
-    cubemap = sampling.pack_cubemap(sampling.procedural_sky_cubemap(256))
+    if sky_cubemap_path:
+        cubemap = sampling.pack_cubemap(load_sky_cubemap(sky_cubemap_path))
+    else:
+        cubemap = sampling.pack_cubemap(sampling.procedural_sky_cubemap(256))
 
     def t(x):
         return fr._tensor(x, device)
@@ -224,9 +249,13 @@ class Renderer:
     the caller asks for the CPU)."""
 
     def __init__(self, scene: Scene, cfg: RenderConfig,
-                 camera: Camera = None, asset_dir=None, lights=None,
-                 auto_capacity: bool = True, device="cuda"):
+                 camera: Camera = None, asset_dir=DEFAULT_ASSET_DIR,
+                 lights=None, auto_capacity: bool = True,
+                 sky_cubemap_path: str = None, device="cuda"):
         self.device = resolve_device(device)
+        if sky_cubemap_path and cfg.procedural_sky:
+            # a file-loaded sky is sampled from its cube, not evaluated
+            cfg = dataclasses.replace(cfg, procedural_sky=False)
         self.scene = scene
         self.cfg = cfg
         self.camera = camera or self._default_camera()
@@ -235,6 +264,7 @@ class Renderer:
         self.device_scene, self.anim_specs = build_device_scene(
             scene, asset_dir, lights,
             ssao_dims=(cfg.ssao_height, cfg.ssao_width),
+            sky_cubemap_path=sky_cubemap_path,
             dual_mip_rows=cfg.dual_mip_rows, device=self.device)
         self._base_mat_pair = self.device_scene.mat_pair.cpu().numpy()
         self._auto_capacity = auto_capacity

@@ -1,1 +1,2 @@
 from . import dds
+from . import mesh_txt

@@ -18,6 +18,7 @@ Asset references: Models/skull.txt + Models/car.txt loaders
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 
@@ -27,6 +28,11 @@ from .scene import (LAYER_OPAQUE, LAYER_OPAQUE_SHADOW, LAYER_ALPHA_TESTED,
                     Scene, make_item, flatten_items, _box_grid_instances)
 from ..config import RenderConfig
 from ..utils import mathutil as mu
+
+# The reference repository's checkout, with its Models/ and Textures/: the
+# JAX package's location for it, in the root user's home directory.
+REFERENCE_DIR = os.path.join(os.path.expanduser("~root"), "reference")
+REF_MODELS = os.path.join(REFERENCE_DIR, "Models")
 
 
 def _scene_from_items(items, materials, texture_names):
@@ -71,15 +77,15 @@ def config1_woodcrate():
 
 
 def _skull_mesh():
-    raise NotImplementedError(
-        "Models/skull.txt needs io/mesh_txt.py, which the port has not "
-        "carried over yet (configs 2, 3 and 5)")
+    from ..io.mesh_txt import load_mesh_txt
+
+    return load_mesh_txt(os.path.join(REF_MODELS, "skull.txt"))
 
 
 def _car_mesh():
-    raise NotImplementedError(
-        "Models/car.txt needs io/mesh_txt.py, which the port has not "
-        "carried over yet (config 5)")
+    from ..io.mesh_txt import load_mesh_txt
+
+    return load_mesh_txt(os.path.join(REF_MODELS, "car.txt"))
 
 
 def config2_skull_forward():

@@ -17,7 +17,9 @@
   unaligned address: every receiver on the scalar path).
 - Frames on the card against the port's CPU path at 240x135 (at most
   0.5% of pixels above 0.02): the forward Blinn-Phong frame with shadows,
-  the fence scene's alpha layer and the soft disk on 520^2 maps.
+  the fence scene's alpha layer, the soft disk on 520^2 maps, and config
+  5 built from the SMALL synthetic asset set with its loaded cube, at two
+  BoltAnim frames.
 
 Imports torch and the port only (the card's machine has no jax). The
 cases marked ``cuda`` skip without a CUDA device; run them on the card
@@ -524,3 +526,30 @@ def test_frame_on_card_matches_cpu(cuda, case):
     assert np.isfinite(imgs[0]).all()
     diff = np.abs(imgs[0] - imgs[1]).max(axis=-1)
     assert (diff > 0.02).mean() <= 0.005, (case, (diff > 0.02).mean())
+
+
+@pytest.mark.cuda
+def test_config5_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
+    """Config 5 from files (the SMALL synthetic asset set: DXT5/DXT1/RGBA8
+    textures, BMP frames, a DXT1 cube, the car and a 2,000-triangle
+    skull) at 240x135 on the card against the port's CPU path, at t = 0
+    and 0.1 (two BoltAnim frames): at most 0.5% of pixels above 0.02."""
+    from crychic_renderer_tpu_torch.app import renderer as tren
+    from crychic_renderer_tpu_torch.experiments import synthetic_assets as sa
+    from crychic_renderer_tpu_torch.models import scenes_baseline as sb
+
+    paths = sa.write_asset_set(str(tmp_path), sa.SMALL, seed=0)
+    monkeypatch.setattr(sb, "REF_MODELS", paths["models"])
+    scene, cfg, lights = sb.CONFIGS[5]()
+    cfg = dataclasses.replace(cfg, width=240, height=135,
+                              shadow_map_size=256)
+    rs = [tren.Renderer(scene, cfg, lights=lights, device=d,
+                        asset_dir=paths["textures"],
+                        sky_cubemap_path=paths["sky_cube"])
+          for d in (cuda, "cpu")]
+    for t in (0.0, 0.1):
+        imgs = [r.render_np(t) for r in rs]
+        assert np.isfinite(imgs[0]).all()
+        diff = np.abs(imgs[0] - imgs[1]).max(axis=-1)
+        assert (diff > 0.02).mean() <= 0.005, (t, (diff > 0.02).mean())
+    rs[0].check_overflow()

@@ -32,9 +32,11 @@ def configs():
     return jsb.CONFIGS[4](), tsb.CONFIGS[4]()
 
 
-@pytest.mark.parametrize("cfg_id", [1, 4])
-def test_scene_and_config_equal(cfg_id):
-    (js, jc, jl), (ts, tc, tl) = jsb.CONFIGS[cfg_id](), tsb.CONFIGS[cfg_id]()
+def assert_configs_equal(jax_config, port_config):
+    """The (scene, cfg, lights) that each package's function of one
+    BASELINE config returns: equal config, texture names and every scene
+    and light leaf."""
+    (js, jc, jl), (ts, tc, tl) = jax_config, port_config
     assert dataclasses.asdict(jc) == dataclasses.asdict(tc)
     assert js.texture_names == ts.texture_names
     for layer in ("opaque", "shadow"):
@@ -46,6 +48,11 @@ def test_scene_and_config_equal(cfg_id):
             getattr(ts.material_bank, f.name), f"material_bank.{f.name}")
     for f in dataclasses.fields(jl):
         _eq(getattr(jl, f.name), getattr(tl, f.name), f"lights.{f.name}")
+
+
+@pytest.mark.parametrize("cfg_id", [1, 4])
+def test_scene_and_config_equal(cfg_id):
+    assert_configs_equal(jsb.CONFIGS[cfg_id](), tsb.CONFIGS[cfg_id]())
 
 
 def test_pair_pool_equal(configs):
