@@ -14,7 +14,10 @@ soft PCF kernel (csrc/pcf.cu). Phases, each printed as it ends:
 2. both kernels built from the checkout's sources, one nvcc each, started
    together, and their build times;
 3. the Renderer at 1080p, with the capacities it sized (the atlas pair
-   count is what the atlas binning expands);
+   count is what the atlas binning expands), and which of config 4's
+   texture slots the default asset directory (the JAX package's) holds:
+   phases 1-19 build their Renderers without asset_dir, so they render
+   white 1x1 chains unless the host has the files;
 4. the raster kernel on the frame's own main-view (K1) and atlas (K2)
    inputs, equal to rasterize_plain bit for bit (torch.equal), with the
    kernel's and the plain version's times from CUDA events after warm-up;
@@ -104,11 +107,15 @@ soft PCF kernel (csrc/pcf.cu). Phases, each printed as it ends:
    pixels > 0.02); 3 warm-up + 10 timed frames at 1920x1080 whose times
    walk the BoltAnim slot through 7 of its frames (the material's pair
    must change), one K1 and one K2 launch per frame, no overflow, finite
-   pixels, the median ms/frame; and profile_frame of that frame;
+   pixels, the median ms/frame; the raster kernel on the last timed
+   frame's own 1080p main-view (K1) and atlas (K2) inputs, binned at the
+   frame's capacities, equal to rasterize_plain (torch.equal), with the
+   pair counts; and profile_frame of that frame;
 21. configs 2 (forward Blinn-Phong, 3 lights) and 3 (deferred, 16 point
    lights) as written, on the synthetic skull and textures: each at
    240x135 on the card against the CPU path, then 3 warm-up + 10 timed
-   frames at 1920x1080 (one K1 launch per frame).
+   frames at 1920x1080 (one K1 launch per frame), and K1 on the last
+   timed frame's main-view inputs against rasterize_plain as in phase 20.
 
 Phases 6, 8, 10, 14-16 and 18-21 count no field-major (K4) launch: the
 variant is kept off every frame path.
@@ -259,6 +266,7 @@ def main():
           f"{cfg.pair_capacity}; atlas pairs {req['shadow_pairs']} "
           f"(per-cascade count, the JAX package's estimate: {per_cascade})"
           f" -> shadow_pair_capacity {cfg.shadow_pair_capacity}")
+    phase(f"[3] {default_textures(scene)}")
 
     # 4. K1 and K2 on the frame's own inputs, kernel vs plain version
     tris, _ = fr.main_view_tris(r.device_scene, consts, cfg)
@@ -281,19 +289,9 @@ def main():
     views = {}  # variant -> the launch's inputs, plain output, time, bound
     for name, variant, replaces, inputs, W, H, ids, xrange in \
             raster_launches:
-        rec, starts, counts, over = inputs
-        assert not bool(over), f"{name}: capacity overflow"
-        d_k, t_k = raster.raster_tiles(rec, starts, counts, W, H,
-                                       with_ids=ids, with_xrange=xrange)
-        torch.cuda.synchronize()
-        d_p, t_p = raster.rasterize_plain(rec, starts, counts, W, H,
-                                          with_ids=ids, with_xrange=xrange)
-        err = float((d_k - d_p).abs().max())
-        if ids:
-            err = max(err, float((t_k - t_p).abs().max()))
-            assert torch.equal(t_k, t_p), f"{name}: tid differs from plain"
-        assert torch.equal(d_k, d_p), f"{name}: depth differs from plain"
-        assert bool((d_k < 1.0).any()), f"{name}: nothing rasterized"
+        rec, starts, counts, _ = inputs
+        (d_k, t_k), (d_p, t_p), err = raster_vs_plain(name, inputs, W, H,
+                                                      ids, xrange)
         full_out[variant] = (d_k, t_k)
         ms = cuda_ms(lambda: raster.raster_tiles(
             rec, starts, counts, W, H, with_ids=ids, with_xrange=xrange), 20)
@@ -806,6 +804,79 @@ def app_runs(dev, launches):
           f"overflow; launches {launches['viewer']}")
 
 
+def default_textures(scene):
+    """Which of `scene`'s texture slots a Renderer built without asset_dir
+    reads from files: the default asset directory is the JAX package's,
+    and a slot whose file is absent renders white 1x1, so phases 1-19
+    measure textured work only on a host that holds the files."""
+    from crychic_renderer_tpu_torch.app import renderer as ren
+
+    d = ren.DEFAULT_ASSET_DIR
+    found = [n for n in scene.texture_names
+             if (n in ren._TEXTURE_FILES and os.path.isfile(
+                 os.path.join(d, ren._TEXTURE_FILES[n])))
+             or (n in ren._ANIM_SLOTS and os.path.isdir(
+                 os.path.join(d, ren._ANIM_SLOTS[n][0])))]
+    return (f"default asset dir {d}: present {os.path.isdir(d)}; slots "
+            f"read from files {found}, the other "
+            f"{len(scene.texture_names) - len(found)} white 1x1 (phases "
+            f"1-19 build their Renderers with this default)")
+
+
+def raster_vs_plain(name, records, W, H, ids, xrange):
+    """The raster kernel (raster_tiles: K1 with ids, K2 with the column
+    guard) against rasterize_plain on the same binned records: no
+    overflow, depth (and tid) equal bit for bit (torch.equal), something
+    rasterized. Returns (the kernel's (depth, tid), the plain version's,
+    max |err|)."""
+    from crychic_renderer_tpu_torch.ops import raster
+
+    rec, starts, counts, over = records
+    assert not bool(over), f"{name}: capacity overflow"
+    d_k, t_k = raster.raster_tiles(rec, starts, counts, W, H,
+                                   with_ids=ids, with_xrange=xrange)
+    torch.cuda.synchronize()
+    d_p, t_p = raster.rasterize_plain(rec, starts, counts, W, H,
+                                      with_ids=ids, with_xrange=xrange)
+    err = float((d_k - d_p).abs().max())
+    if ids:
+        err = max(err, float((t_k - t_p).abs().max()))
+        assert torch.equal(t_k, t_p), f"{name}: tid differs from plain"
+    assert torch.equal(d_k, d_p), f"{name}: depth differs from plain"
+    assert bool((d_k < 1.0).any()), f"{name}: nothing rasterized"
+    return (d_k, t_k), (d_p, t_p), err
+
+
+def frame_raster_vs_plain(r, t):
+    """Phase 4's check on the inputs that the frame of the Renderer `r` at
+    time `t` gives the raster kernel: the main view (K1) and, with
+    shadows, the atlas (K2), binned at r's capacities. Returns a note
+    with each view's pair count."""
+    from crychic_renderer_tpu_torch.ops import raster
+    from crychic_renderer_tpu_torch.passes import frame as fr
+
+    cfg = r.cfg
+    consts = r.frame_constants(t)
+    tris, _ = fr.main_view_tris(r.device_scene, consts, cfg)
+    views = [("K1 main view", tris, None, cfg.width, cfg.height,
+              cfg.pair_capacity, True)]
+    if cfg.shadows_enabled:
+        S = cfg.shadow_map_size
+        atris, xr = fr.shadow_atlas_tris(
+            r.device_scene, consts.shadow_visibility,
+            consts.cascade_view_projs, cfg)
+        views.append(("K2 atlas", atris, xr, 4 * S, S,
+                      cfg.shadow_pair_capacity, False))
+    notes = []
+    for name, tris_v, xr, W, H, cap, ids in views:
+        records = raster.binned_records(tris_v, W, H, cap, xrange=xr)
+        _, _, err = raster_vs_plain(name, records, W, H, ids, xr is not None)
+        notes.append(f"{name} {W}x{H}: {int(records[2].sum())} pairs "
+                     f"(capacity {cap}) equal to rasterize_plain (max "
+                     f"|err| {err})")
+    return "; ".join(notes)
+
+
 def run_frames(r, per_frame):
     """FRAMES_WARMUP + FRAMES_TIMED frames through r.render with every
     launch count set to 0 just before and read just after. Checks the
@@ -986,6 +1057,8 @@ def asset_runs(dev, frame_ms, launches):
     last = int(r.device_scene.mat_pair[bolt])
     assert len(walked) > 1 and last == walked[-1] != \
         int(r._base_mat_pair[bolt]), (walked, last)
+    last_t = (FRAMES_WARMUP + FRAMES_TIMED - 1) / 60.0
+    raster_note = frame_raster_vs_plain(r, last_t)
     req = r.capacity_requirements(0.0)
     n = 3 + 2 * PROFILE_REPS
     report, launches["config5_profiler"] = counted(
@@ -1007,8 +1080,8 @@ def asset_runs(dev, frame_ms, launches):
           f"{req['shadow_pairs']} -> {r.cfg.shadow_pair_capacity} pairs): "
           f"{FRAMES_WARMUP} warm-up + {FRAMES_TIMED} frames, median "
           f"{frame_ms['config5']:.3f} ms/frame; BoltAnim pairs walked "
-          f"{walked}; launches {launches['config5']}; no overflow; "
-          f"profile_frame (ms): "
+          f"{walked}; launches {launches['config5']}; no overflow; at "
+          f"t={last_t:.4f} s {raster_note}; profile_frame (ms): "
           f"{ {k: round(v, 3) for k, v in report.items()} }, "
           f"resolve_gbuffer "
           f"{report['resolve_gbuffer'] / report['TOTAL_fused']:.1%} of "
@@ -1022,13 +1095,15 @@ def asset_runs(dev, frame_ms, launches):
                                   asset_dir=paths["textures"])
         r = timed_config(dev, name, scene, cfg, lights, dict(ids=1),
                          frame_ms, launches, asset_dir=paths["textures"])
+        raster_note = frame_raster_vs_plain(r, last_t)
         phase(f"[21] {name} as written (synthetic skull, {cfg.width}x"
               f"{cfg.height}, deferred={cfg.deferred}, lights "
               f"{cfg.num_dir_lights} dir / {cfg.num_point_lights} point): "
               f"240x135 on the card vs the CPU path {frac:.4%} of pixels "
               f">0.02 (max {diff.max():.3g}); {FRAMES_WARMUP} warm-up + "
               f"{FRAMES_TIMED} frames, median {frame_ms[name]:.3f} ms/frame;"
-              f" launches {launches[name]}; no overflow")
+              f" launches {launches[name]}; no overflow; at t={last_t:.4f}"
+              f" s {raster_note}")
         del r
 
 

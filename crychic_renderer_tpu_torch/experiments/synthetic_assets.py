@@ -19,6 +19,7 @@ moves a sample only a little. Random blocks belong in the decoder tests.
 | Textures/tile.dds | DXT1 (BC1), full chain | 512² |
 | Textures/bricks2_nmap.dds, tile_nmap.dds | RGBA8 with masks, full chain | 512² |
 | Textures/white1x1.dds, default_nmap.dds | RGBA8 with masks | 1x1 |
+| Textures/WireFence.dds | RGBA8 with masks, full chain: the fence scene's wire grid (scenes_baseline.wire_fence_chain) | 64² |
 | Textures/BoltAnim/*.bmp | 60 frames, 24 bpp, bottom-up | 64x64 |
 | Textures/FireAnim/*.bmp | 120 frames, 24 bpp, bottom-up | 64x64 |
 | Textures/snowcube1024.dds | cubemap, DXT1, full chain per face | 6 x 1024² |
@@ -41,6 +42,8 @@ import os
 import struct
 
 import numpy as np
+
+from ..models.scenes_baseline import wire_fence_chain
 
 DDS_MAGIC = 0x20534444
 _DDSD = 0x1 | 0x2 | 0x4 | 0x1000  # CAPS | HEIGHT | WIDTH | PIXELFORMAT
@@ -413,6 +416,8 @@ def write_asset_set(root: str, sizes: AssetSizes = FULL, seed: int = 0):
     write("white1x1.dds", _dds_file("RGBA8", [np.full((1, 1, 4), 255.0)]))
     write("default_nmap.dds", _dds_file(
         "RGBA8", [np.array([[[128.0, 128.0, 255.0, 255.0]]])]))
+    write("WireFence.dds", _dds_file("RGBA8", [
+        lv.astype(np.float64) for lv in wire_fence_chain()]))
     for subdir, base in (("BoltAnim", (120, 150, 230)),
                          ("FireAnim", (230, 120, 40))):
         os.makedirs(os.path.join(tex, subdir), exist_ok=True)

@@ -30,8 +30,8 @@ from ..config import RenderConfig
 from ..utils import mathutil as mu
 
 # The reference repository's checkout, with its Models/ and Textures/: the
-# JAX package's location for it, in the root user's home directory.
-REFERENCE_DIR = os.path.join(os.path.expanduser("~root"), "reference")
+# JAX package's absolute location for it, the same on every host.
+REFERENCE_DIR = os.path.join(os.sep, "root", "reference")
 REF_MODELS = os.path.join(REFERENCE_DIR, "Models")
 
 

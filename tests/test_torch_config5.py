@@ -13,7 +13,8 @@ packages' scenes_baseline.REF_MODELS point at its Models/.
 
 - configs 2, 3 and 5 build with every scene leaf EQUAL to the JAX
   package's, and config 5's texture chains and pair pool are equal leaf
-  for leaf;
+  for leaf; the set's WireFence.dds decodes in both packages to the
+  fence's synthetic wire grid;
 - config 5 at 240x135 (256² cascades) with the loaded cube renders
   within the parity bound of the live JAX frame (the JAX frame forced
   onto its Pallas kernel in interpret mode, as tests/test_fuzz_parity.py
@@ -62,6 +63,18 @@ def test_scene_and_config_equal(assets, config):
     assert_configs_equal(jsb.CONFIGS[config](), ts)
     skull = next(i for i in ts[0].items if i.name == "skull")
     assert skull.mesh.num_triangles == sa.SMALL.skull[1]
+
+
+def test_wire_fence_file_decodes_to_the_fence_chain(assets):
+    """The set's WireFence.dds (RGBA8, full chain) decodes, in both
+    packages, to the wire grid that synthetic_wire_fence patches in."""
+    want = tsb.wire_fence_chain()
+    for ren in (jren, tren):
+        (got,), anim = ren.load_texture_chains(["WireFence"],
+                                               assets["textures"])
+        assert not anim and len(got) == len(want)
+        for m, (a, b) in enumerate(zip(got, want)):
+            _eq(a, b, f"{ren.__name__} mip {m}")
 
 
 def test_texture_chains_and_pair_pool_equal(assets):
