@@ -14,7 +14,8 @@ soft PCF kernel (csrc/pcf.cu). Phases, each printed as it ends:
 2. both kernels built from the checkout's sources, one nvcc each, started
    together, and their build times;
 3. the Renderer at 1080p, with the capacities it sized (the atlas pair
-   count is what the atlas binning expands), and which of config 4's
+   count is what the atlas binning expands; the tile capacities of the
+   compacted passes beside their grids), and which of config 4's
    texture slots the default asset directory (the JAX package's) holds:
    phases 1-19 build their Renderers without asset_dir, so they render
    white 1x1 chains unless the host has the files;
@@ -27,9 +28,10 @@ soft PCF kernel (csrc/pcf.cu). Phases, each printed as it ends:
 6. 3 warm-up + 10 timed frames through Renderer.render: finite, with
    covered and sky pixels, exactly one K1 and one K2 launch per frame, no
    capacity overflow; the median ms/frame;
-7. the soft PCF kernel (K6) on the 1080p frame's own receivers, both
-   cascades of all 2.07M pixels, against soft_pcf_plain: max |err| <=
-   1e-5, with both times;
+7. the soft PCF kernel (K6) on the dense 1080p receivers, both cascades
+   of all 2.07M pixels, against soft_pcf_plain: max |err| <= 1e-5, with
+   both times and the share of them the frame discards (phase 22 checks
+   it on the compacted receivers the frame hands it now);
 8. 3 warm-up + 10 timed frames each of config 4 with the soft disk, and of
    the same with the fast preset: finite, one K1, one K2 and one K6 launch
    per frame, no overflow, the median ms/frame of each; and a 240x135
@@ -117,7 +119,26 @@ soft PCF kernel (csrc/pcf.cu). Phases, each printed as it ends:
    frames at 1920x1080 (one K1 launch per frame), and K1 on the last
    timed frame's main-view inputs against rasterize_plain as in phase 20.
 
-Phases 6, 8, 10, 14-16 and 18-21 count no field-major (K4) launch: the
+22. tile-compacted shading (every Renderer above sizes the tile
+   capacities, so every phase renders compacted frames; the band frame
+   stays dense): config 4 with the zero-radius PCF and with the soft
+   disk, config 5 from the phase-20 files and config 2 as written, at
+   1920x1080. For each: the occupied shade and SSAO tiles (the frame's
+   coverage and capacity_requirements' bound) beside CB and NT; the
+   compacted frame against the same Renderer's inputs with both
+   capacities None (max |diff| <= 1e-5, no pixel > 0.02); the three
+   compacted passes under torch.cuda.set_sync_debug_mode("error"); the
+   device ms of the resolve_gbuffer, ssao and lighting stages of both
+   (torch.profiler's summed kernel and copy durations, and CUDA events
+   around each call queued behind a device sleep); ms/frame of both, 3
+   warm-up + 10 frames each, in turns compacted, dense, dense,
+   compacted, with the launches counted (one K1, K2 and K6 per frame as
+   the cell has them). On the soft-disk frame, K6 on the compacted
+   receivers it was handed (2 x CB x 1024) against soft_pcf_plain (<=
+   1e-5), with both times, their bound (the kernels line's K6 entry) and
+   the share of them the frame discards.
+
+Phases 6, 8, 10, 14-16 and 18-22 count no field-major (K4) launch: the
 variant is kept off every frame path.
 
 Then one JSON line of per-kernel results (with each kernel's bound: the
@@ -147,10 +168,15 @@ PROFILE_REPS = 5
 VIEWER_SCRIPT = "wwjl"
 # the frame paths whose launches count for K1-K3 and K6; the probes' runs
 # (phases 12, 13) count for K4 and K5
+# phase 22's cells, each timed compacted and dense in turns
+P22_CELLS = ("config4", "config4_soft", "config5", "config2")
+P22_TURNS = ("compacted", "dense", "dense", "compacted")
 FRAME_RUNS = ["config4", "soft", "soft_fast", "sharded", "profiler",
               "parity", "viewer", "config1", "forward", "rig", "fence",
               "fence_profiler", "soft_520", "config5", "config5_profiler",
-              "config2", "config3"]
+              "config2", "config3"] + [
+                  f"p22_{cell}_{mode}_{i}" for cell in P22_CELLS
+                  for i, mode in enumerate(P22_TURNS)]
 ZERO = dict(ids=0, depth=0, band_ids=0, band_depth=0, field_ids=0,
             field_depth=0, pcf=0)
 PIX_BOUND = 0.005
@@ -265,7 +291,8 @@ def main():
           f"main pairs {req['main_pairs']} -> pair_capacity "
           f"{cfg.pair_capacity}; atlas pairs {req['shadow_pairs']} "
           f"(per-cascade count, the JAX package's estimate: {per_cascade})"
-          f" -> shadow_pair_capacity {cfg.shadow_pair_capacity}")
+          f" -> shadow_pair_capacity {cfg.shadow_pair_capacity}; "
+          f"{tile_note(cfg, req)}")
     phase(f"[3] {default_textures(scene)}")
 
     # 4. K1 and K2 on the frame's own inputs, kernel vs plain version
@@ -374,8 +401,10 @@ def main():
     nbytes = params.numel() * 4 + qmap.numel() * 2 + m * 4
     b, note = bound(nbytes, m * pcf.OPS_PER_RECEIVER)
     soft_share = float(((f_p > 0) & (f_p < 1)).float().mean())
-    phase(f"[7] K6 soft PCF: {m} receiver-cascades ({cfg.width}x"
-          f"{cfg.height} x 2), {soft_share:.2%} in a penumbra; max |err| "
+    phase(f"[7] K6 soft PCF on the dense receivers (the frame now hands "
+          f"it the compacted ones, phase 22): {m} receiver-cascades "
+          f"({cfg.width}x{cfg.height} x 2), {soft_share:.2%} in a penumbra; "
+          f"max |err| "
           f"{max_err} vs soft_pcf_plain, {above:.4%} above 1e-5; kernel "
           f"{ms:.4f} ms (device {dev_ms:.4f}), plain {plain_ms:.4f} ms, "
           f"{note}; discarded by the "
@@ -384,13 +413,6 @@ def main():
           f"{float((no_shadow & g['valid']).float().mean()):.2%} of pixels, "
           f"both slots; the second slot of cascade-3 pixels "
           f"{float(((cascades[..., 0] == 3) & ~both).float().mean()):.2%})")
-    kernels.append(dict(
-        name="K6 soft-disk PCF: 16 taps, 2.5 texels, 2 cascades "
-             "(shadows.py:319)", route="cuda",
-        source="crychic_renderer_tpu_torch/csrc/pcf.cu",
-        replaces="experiments/pcf_probe.py:46", variant="pcf",
-        runs=FRAME_RUNS, max_abs_err=max_err, ms=ms, device_ms=dev_ms,
-        plain_ms=plain_ms, library_ms=None, **b))
 
     # 8. the soft-disk paths: frames through Renderer.render
     frame_ms = {"config4": ms_frame}
@@ -487,10 +509,16 @@ def main():
           f"{t2 - t_script:.1f} s, kernel builds included")
 
     # 20-21: configs 5, 2 and 3 from the synthetic asset set on disk
-    asset_runs(dev, frame_ms, launches)
+    assets = asset_runs(dev, frame_ms, launches)
     t3 = time.perf_counter()
     phase(f"[21] phases 20-21 took {t3 - t2:.1f} s; the script "
           f"{t3 - t_script:.1f} s, kernel builds included")
+
+    # 22: tile-compacted shading against the dense passes
+    kernels.append(compaction_runs(dev, assets, frame_ms, launches))
+    t4 = time.perf_counter()
+    phase(f"[22] phase 22 took {t4 - t3:.1f} s; the script "
+          f"{t4 - t_script:.1f} s, kernel builds included")
 
     kernels.sort(key=lambda k: k["name"])
     for k in kernels:
@@ -1105,6 +1133,7 @@ def asset_runs(dev, frame_ms, launches):
               f" launches {launches[name]}; no overflow; at t={last_t:.4f}"
               f" s {raster_note}")
         del r
+    return kw
 
 
 def pcf_520(dev, frame_ms, launches):
@@ -1162,6 +1191,304 @@ def pcf_520(dev, frame_ms, launches):
         replaces="experiments/pcf_probe.py:46", variant="pcf",
         runs=["soft_520"], max_abs_err=err, ms=ms, device_ms=dev_ms,
         plain_ms=plain_ms, library_ms=None, **b)
+
+
+DEVICE_STAGES = ("resolve_gbuffer", "ssao", "lighting")
+# device sleep that queues a stage's calls behind it (~0.2 s on an H100),
+# longer than the host may take to issue one stage (STAGE_HOST_MS)
+STAGE_SLEEP_CYCLES = 400_000_000
+STAGE_HOST_MS = 100.0
+
+
+def tile_grids(cfg):
+    """(NT of the shade tiles, NT of the SSAO tiles) of cfg's screen."""
+    from crychic_renderer_tpu_torch.passes import frame as fr
+
+    return (-(-cfg.height // fr.SHADE_TILE_H) * -(-cfg.width //
+                                                  fr.SHADE_TILE_W),
+            -(-cfg.ssao_height // fr.SSAO_TILE_H) * -(-cfg.ssao_width //
+                                                      fr.SSAO_TILE_W))
+
+
+def tile_note(cfg, req):
+    """The tile capacities the Renderer sized, their counts and grids."""
+    nt, snt = tile_grids(cfg)
+    return (f"shade tiles {req['shade_tiles']} -> shade_tile_capacity "
+            f"{cfg.shade_tile_capacity} of {nt} (8, 128) tiles; ssao tiles "
+            f"{req['ssao_tiles']} -> ssao_tile_capacity "
+            f"{cfg.ssao_tile_capacity} of {snt} (8, 32) half-res tiles")
+
+
+def occupied_tiles(cfg, tid):
+    """The tiles the compacted passes evaluate on this coverage: shade
+    tiles with a covered pixel, SSAO tiles within the blurs' reach."""
+    from crychic_renderer_tpu_torch.passes import frame as fr
+
+    valid = tid >= 0
+    tiles, _, _ = fr._tiles(valid, fr.SHADE_TILE_H, fr.SHADE_TILE_W, False)
+    shade = int(tiles.any(dim=1).sum())
+    if not cfg.ssao_enabled:
+        return shade, 0
+    k, h, w = cfg.ssao_scale, cfg.ssao_height, cfg.ssao_width
+    vh = valid[:h * k, :w * k].reshape(h, k, w, k).any(dim=3).any(dim=1)
+    _, snt = tile_grids(cfg)
+    occ = fr._ssao_tile_occupancy(vh, -(-h // fr.SSAO_TILE_H),
+                                  -(-w // fr.SSAO_TILE_W))
+    assert occ.numel() == snt
+    return shade, int(occ.sum())
+
+
+def stage_device_ms(scene, consts, cfg, reps=3):
+    """Device time per call of the resolve_gbuffer, ssao and lighting
+    stages of profiler.run_stages (the frame's stage chain), after one
+    warm-up: {stage: (busy ms, span ms, launches, host ms)}. busy: the
+    summed durations of the CUDA kernels and copies one call queues
+    (torch.profiler); span: CUDA events around each call queued behind a
+    device sleep (kernel_ab_probe.queued_event_ms), so the host's issue
+    time is not in it and the stage's kernels run back to back. The span
+    holds only while the host can queue the whole stage behind the sleep:
+    a stage of thousands of launches (SSAO's ~3,100) fills the card's
+    launch queue, and the host's issue time enters the span. host: the
+    host clock around one call, without a synchronize (its issue time,
+    while the launch queue has room)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from crychic_renderer_tpu_torch.app import profiler
+    from crychic_renderer_tpu_torch.experiments import kernel_ab_probe
+
+    out = {}
+
+    def stage(name, fn):
+        if name in DEVICE_STAGES:
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            ev = [e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+            t0 = time.perf_counter()
+            fn()
+            host_ms = 1000.0 * (time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            assert host_ms < STAGE_HOST_MS, \
+                f"{name}: host issue {host_ms:.1f} ms"
+            span = kernel_ab_probe.queued_event_ms(fn, reps,
+                                                   STAGE_SLEEP_CYCLES)
+            out[name] = (sum(ev) / 1000.0 / reps, span, len(ev) / reps,
+                         host_ms)
+        return fn()
+
+    profiler.run_stages(scene, consts, cfg, stage)
+    return out
+
+
+def capture_soft_pcf(fn):
+    """fn() with ops.pcf.soft_pcf recording its (qmap, params, radius):
+    the K6 inputs the frame builds. Returns (fn's result, the calls)."""
+    from crychic_renderer_tpu_torch.ops import pcf
+
+    calls = []
+    real = pcf.soft_pcf
+
+    def recording(qmap, params, radius):
+        calls.append((qmap, params, radius))
+        return real(qmap, params, radius)
+
+    pcf.soft_pcf = recording
+    try:
+        return fn(), calls
+    finally:
+        pcf.soft_pcf = real
+
+
+def no_sync_passes(r, consts):
+    """The three compacted passes of r's frame (the resolve, the SSAO
+    occlusion, the PCF factor) under torch.cuda.set_sync_debug_mode
+    ("error"), after one warm-up call each outside it: a host sync inside
+    them raises. Returns the passes checked."""
+    from crychic_renderer_tpu_torch.ops import raster, shadows
+    from crychic_renderer_tpu_torch.passes import frame as fr
+
+    scene, cfg = r.device_scene, r.cfg
+    tris, attr = fr.main_view_tris(scene, consts, cfg)
+    depth, tid, _ = raster.rasterize(tris, cfg.width, cfg.height,
+                                     cfg.pair_capacity)
+    rec = fr._build_resolve_records(tris, attr)
+    g, _ = fr._resolve_compacted(scene, consts, cfg, rec, tid)
+    calls = {"resolve": lambda: fr._resolve_compacted(scene, consts, cfg,
+                                                      rec, tid)}
+    if cfg.ssao_enabled:
+        n_half, d_half = fr.ssao_inputs_half(cfg, g["normal_v"], depth)
+        calls["ssao"] = lambda: fr._ssao_occlusion_compacted(
+            scene, consts, cfg, n_half, d_half, depth, tid >= 0)
+    if cfg.shadows_enabled:
+        maps = fr.render_shadow_atlas(scene, consts.shadow_visibility,
+                                      consts.cascade_view_projs, cfg)
+
+        def sf_fn(pw, dead):
+            return shadows.cascade_shadow_factor(
+                maps, consts.shadow_transforms, pw, consts.eye_pos,
+                cfg.shadow_map_size, deferred_blend_quirk=cfg.deferred,
+                soft_radius_texels=cfg.pcf_radius_texels, dead=dead)
+
+        calls["pcf"] = lambda: fr._pcf_factor_compacted(
+            cfg, g["pos_w"], g["valid"], sf_fn)
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for fn in calls.values():
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return list(calls)
+
+
+def compaction_runs(dev, assets, frame_ms, launches):
+    """Phase 22 (see the module doc). Returns the kernels-line entry of
+    K6, measured on the soft-disk frame's compacted receivers."""
+    from crychic_renderer_tpu_torch.app.renderer import Renderer
+    from crychic_renderer_tpu_torch.models import scenes_baseline as sb
+    from crychic_renderer_tpu_torch.ops import raster
+    from crychic_renderer_tpu_torch.passes import frame as fr
+
+    scene4, cfg4, lights4 = sb.CONFIGS[4]()
+    cells = [  # in P22_CELLS' order
+        ("config4", scene4, cfg4, lights4, {}, dict(ids=1, depth=1)),
+        ("config4_soft", scene4,
+         dataclasses.replace(cfg4, pcf_radius_texels=SOFT), lights4, {},
+         dict(ids=1, depth=1, pcf=1)),
+        ("config5", *sb.CONFIGS[5](), assets, dict(ids=1, depth=1)),
+        ("config2", *sb.CONFIGS[2](), dict(asset_dir=assets["asset_dir"]),
+         dict(ids=1)),
+    ]
+    assert tuple(c[0] for c in cells) == P22_CELLS
+    k6 = None
+    for name, scene, cfg, lights, kw, per_frame in cells:
+        r = Renderer(scene, cfg, lights=lights, device=dev, **kw)
+        cfg = r.cfg
+        dense = dataclasses.replace(cfg, shade_tile_capacity=None,
+                                    ssao_tile_capacity=None)
+        assert cfg.shade_tile_capacity and (
+            cfg.ssao_tile_capacity or not cfg.ssao_enabled), name
+        req = r.capacity_requirements(0.0)
+        consts = r.frame_constants(0.0)
+        tris, attr = fr.main_view_tris(r.device_scene, consts, cfg)
+        depth, tid, _ = raster.rasterize(tris, cfg.width, cfg.height,
+                                         cfg.pair_capacity)
+        occ, socc = occupied_tiles(cfg, tid)
+        nt, snt = tile_grids(cfg)
+
+        # the compacted frame against the dense one, same inputs
+        img_c, k6_calls = capture_soft_pcf(
+            lambda: fr.render_frame(r.device_scene, consts, cfg))
+        img_d = fr.render_frame(r.device_scene, consts, dense)
+        diff = (img_c - img_d).abs().amax(dim=-1)
+        max_diff = float(diff.max())
+        above = int((diff > 0.02).sum())
+        assert bool(img_c.isfinite().all()), f"{name}: non-finite pixels"
+        assert max_diff <= PCF_TOL and above == 0, \
+            f"{name}: compacted vs dense max {max_diff}, {above} > 0.02"
+
+        checked = no_sync_passes(r, consts)
+        stages = {mode: stage_device_ms(r.device_scene, consts, c)
+                  for mode, c in (("compacted", cfg), ("dense", dense))}
+
+        # ms/frame in turns: compacted, dense, dense, compacted
+        ms = {"compacted": [], "dense": []}
+        for i, mode in enumerate(P22_TURNS):
+            r.cfg = cfg if mode == "compacted" else dense
+            run = f"p22_{name}_{mode}_{i}"
+            t, launches[run] = run_frames(r, dict(ZERO, **per_frame))
+            ms[mode].append(t)
+        r.cfg = cfg
+        frame_ms[f"p22_{name}"] = ms
+
+        note = ""
+        if k6_calls:
+            assert len(k6_calls) == 1, f"{name}: {len(k6_calls)} K6 calls"
+            g = fr.resolve_gbuffer(r.device_scene, consts, cfg, tris,
+                                   depth, tid, attr)
+            k6, note = k6_compacted(r, consts, k6_calls[0], tid, g["pos_w"])
+        stage_note = "; ".join(
+            f"{mode}: " + ", ".join(
+                f"{st} busy {b:.3f} span {sp:.3f} host {h:.3f} ms ({n:.0f} "
+                f"launches)" for st, (b, sp, n, h) in stages[mode].items())
+            for mode in stages)
+        phase(f"[22] {name} {cfg.width}x{cfg.height}: shade tiles occupied "
+              f"{occ} (bound {req['shade_tiles']}), CB "
+              f"{cfg.shade_tile_capacity} / NT {nt}; ssao tiles occupied "
+              f"{socc} (bound {req['ssao_tiles']}), CB "
+              f"{cfg.ssao_tile_capacity} / NT {snt}; compacted vs dense "
+              f"frame: max |diff| {max_diff:.3g}, {above} pixels > 0.02; "
+              f"no host sync in {checked} (sync debug mode 'error'); "
+              f"device ms per stage, {stage_note}; ms/frame ({FRAMES_WARMUP}"
+              f" warm-up + {FRAMES_TIMED}, median, in turns c d d c) "
+              f"compacted {[round(t, 3) for t in ms['compacted']]}, dense "
+              f"{[round(t, 3) for t in ms['dense']]}; launches per run "
+              f"{launches[f'p22_{name}_compacted_0']}{note}")
+        del r
+    assert k6 is not None, "phase 22: no soft-disk cell reached K6"
+    return k6
+
+
+def k6_compacted(r, consts, call, tid, pos_w):
+    """K6 on the compacted receivers the soft-disk frame handed it
+    (capture_soft_pcf): against soft_pcf_plain, both times, the bound of
+    these receivers and the share the frame discards. Returns (the
+    kernels-line entry, a note for the phase line)."""
+    from crychic_renderer_tpu_torch.ops import pcf, shadows
+    from crychic_renderer_tpu_torch.passes import frame as fr
+
+    qmap, params, radius = call
+    cfg = r.cfg
+    m = params.shape[1]
+    assert m == 2 * cfg.shade_tile_capacity * fr.SHADE_TILE_H \
+        * fr.SHADE_TILE_W, m
+    f_k = pcf.soft_pcf(qmap, params, radius)
+    torch.cuda.synchronize()
+    f_p = pcf.soft_pcf_plain(qmap, params, radius)
+    err = float((f_k - f_p).abs().max())
+    assert bool(f_k.isfinite().all()) and err <= PCF_TOL, \
+        f"K6 on the compacted receivers: max |err| {err} vs plain"
+    ms = cuda_ms(lambda: pcf.soft_pcf(qmap, params, radius), 20)
+    dev_ms = device_ms(lambda: pcf.soft_pcf(qmap, params, radius), 20,
+                       "soft_pcf_kernel")
+    plain_ms = cuda_ms(lambda: pcf.soft_pcf_plain(qmap, params, radius), 3)
+    b, bnote = bound(params.numel() * 4 + qmap.numel() * 2 + m * 4,
+                     m * pcf.OPS_PER_RECEIVER)
+    # the receiver-cascades the frame keeps: both slots of covered pixels
+    # with a shadow, less the second slot of cascade-3 pixels (the
+    # deferred quirk blends below cascade 3 only)
+    assert cfg.deferred
+    _, no_shadow, cascades, _ = shadows.cascade_select(
+        consts.shadow_transforms, pos_w, consts.eye_pos)
+    live = (tid >= 0) & ~no_shadow
+    used = int((live.to(torch.int64) * (1 + (cascades[..., 0] < 3)
+                                        .to(torch.int64))).sum())
+    covered_tiles = int(fr._tiles(tid >= 0, fr.SHADE_TILE_H,
+                                  fr.SHADE_TILE_W, False)[0]
+                        .any(dim=1).sum())
+    empty = 2 * (cfg.shade_tile_capacity - covered_tiles) \
+        * fr.SHADE_TILE_H * fr.SHADE_TILE_W
+    note = (f"; K6 on the compacted receivers: {m} receiver-cascades "
+            f"(2 x CB {cfg.shade_tile_capacity} x 1024; the dense frame "
+            f"{2 * cfg.width * cfg.height}), max |err| {err} vs "
+            f"soft_pcf_plain; kernel {ms:.4f} ms (device {dev_ms:.4f}), "
+            f"plain {plain_ms:.4f} ms, {bnote}; discarded by the frame "
+            f"{1 - used / m:.2%} of them (slots of no occupied tile "
+            f"{empty / m:.2%})")
+    return dict(
+        name="K6 soft-disk PCF: 16 taps, 2.5 texels, 2 cascades, on the "
+             "compacted receivers (shadows.py:319)", route="cuda",
+        source="crychic_renderer_tpu_torch/csrc/pcf.cu",
+        replaces="experiments/pcf_probe.py:46", variant="pcf",
+        runs=FRAME_RUNS, max_abs_err=err, ms=ms, device_ms=dev_ms,
+        plain_ms=plain_ms, library_ms=None, receivers=m, **b), note
 
 
 if __name__ == "__main__":

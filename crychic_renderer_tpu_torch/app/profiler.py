@@ -21,7 +21,10 @@ host clock around `reps` calls ending in ``torch.cuda.synchronize()``. On a
 host-bound frame that charges each stage the time the host takes to issue
 it, which is what the frame pays. ``run_stages`` chains the stages with the
 same functions and arguments as ``render_frame``, so the chain gives its
-image bit for bit.
+image bit for bit. With a Renderer's tile capacities the ``resolve_gbuffer``,
+``ssao`` and ``lighting`` stages run the tile-compacted passes, as the frame
+does; the JAX profiler's ``ssao`` stage does not hand its ``ssao_pass`` the
+coverage, so there it times the dense occlusion.
 
 Usage::
 
@@ -83,7 +86,7 @@ def run_stages(scene: fr.DeviceScene, consts: fr.FrameConstants, cfg,
                                  dtype=torch.float32, device=dev)
     if cfg.ssao_enabled:
         access = stage("ssao", lambda: fr.ssao_pass(
-            scene, consts, cfg, g["normal_v"], depth))
+            scene, consts, cfg, g["normal_v"], depth, valid=tid >= 0))
         ambient_access = fr._upsample_bilinear(access, H, W)
     else:
         ambient_access = torch.ones((H, W), dtype=torch.float32, device=dev)

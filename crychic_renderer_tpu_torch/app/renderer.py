@@ -6,9 +6,11 @@ Builds the device scene once on the card (``device="cuda"``, the default;
 constants (camera matrices, cascade fits, culling masks) on the host, and
 calls ``passes.frame.render_frame``. PyTorch queues the frame's kernels
 asynchronously, so the host runs ahead until something reads a frame —
-the reference's fence-wait pattern without explicit fences. Capacity
-overflows are flagged on the device and OR-ed across frames;
-``check_overflow`` reads them when the caller chooses to wait.
+the reference's fence-wait pattern without explicit fences. The Renderer
+sizes the raster pair capacities and the tile capacities of the compacted
+passes from the start pose (``_autosize_capacity``). Capacity overflows
+are flagged on the device and OR-ed across frames; ``check_overflow``
+reads them when the caller chooses to wait.
 """
 from __future__ import annotations
 
@@ -241,7 +243,22 @@ def build_device_scene(scene: Scene, asset_dir=DEFAULT_ASSET_DIR,
 
 
 class CapacityError(RuntimeError):
-    """A frame would expand more raster pairs than a sized capacity."""
+    """A frame would expand more raster pairs, or need more compacted
+    tiles, than a sized capacity holds."""
+
+
+# The frame's overflow flags (passes.frame.render_frame's stats keys) and
+# what check_overflow says of each.
+_OVERFLOWS = {
+    "main_overflowed": "main raster overflow: pairs past pair_capacity "
+                       "were dropped",
+    "shadow_overflowed": "shadow raster overflow: pairs past "
+                         "shadow_pair_capacity were dropped",
+    "shade_tiles_overflowed": "shade tile overflow: covered tiles past "
+                              "shade_tile_capacity were shaded as sky",
+    "ssao_tiles_overflowed": "ssao tile overflow: tiles past "
+                             "ssao_tile_capacity took no occlusion",
+}
 
 
 class Renderer:
@@ -270,36 +287,57 @@ class Renderer:
         self._auto_capacity = auto_capacity
         if auto_capacity:
             self._autosize_capacity()
-        self._main_overflow = torch.zeros((), dtype=torch.bool,
-                                          device=self.device)
-        self._shadow_overflow = torch.zeros_like(self._main_overflow)
+        self._overflow = {k: torch.zeros((), dtype=torch.bool,
+                                         device=self.device)
+                          for k in _OVERFLOWS}
 
     def capacity_requirements(self, total_time: float = 0.0) -> dict:
         """Exact (tile, triangle) pair counts of both raster launches for
-        the current camera (the atlas counted as it is binned)."""
+        the current camera (the atlas counted as it is binned), and the
+        tiles the compacted passes need (passes.frame.
+        capacity_requirements)."""
         consts = self.frame_constants(total_time)
         req = fr.capacity_requirements(self.device_scene, consts, self.cfg)
         return {k: int(v) for k, v in req.items()}
 
     def _autosize_capacity(self):
-        """Size the static raster capacities from the initial camera's
-        exact pair counts: 1.5x headroom rounded up to 64k pairs, at least
-        16k, as the JAX package does."""
+        """Size the static capacities from the initial camera's counts, as
+        the JAX package does: the raster pairs with 1.5x headroom rounded
+        up to 64k pairs, at least 16k; the compacted passes' tiles with
+        1.25x headroom rounded up to 64 tiles, at least 64 and at most the
+        whole tile grid (the shade tiles always, the SSAO tiles with SSAO
+        on). The tile capacity sets how many tiles the passes evaluate
+        every frame, so its headroom is smaller: a pose that outruns it is
+        reported (check_capacity, check_overflow) or grown
+        (ensure_capacity)."""
         req = self.capacity_requirements(0.0)
+        cfg = self.cfg
 
         def size(needed):
             return max(1 << 14, -(-int(needed * 1.5) // 65536) * 65536)
 
-        self.cfg = dataclasses.replace(
-            self.cfg, pair_capacity=size(req["main_pairs"]),
-            shadow_pair_capacity=size(req["shadow_pairs"]))
+        def tiles(needed, h, w, tile_h, tile_w):
+            grid = -(-h // tile_h) * -(-w // tile_w)
+            return min(grid, max(64, -(-int(needed * 1.25) // 64) * 64))
+
+        kw = dict(pair_capacity=size(req["main_pairs"]),
+                  shadow_pair_capacity=size(req["shadow_pairs"]),
+                  shade_tile_capacity=tiles(
+                      req["shade_tiles"], cfg.height, cfg.width,
+                      fr.SHADE_TILE_H, fr.SHADE_TILE_W))
+        if cfg.ssao_enabled:
+            kw["ssao_tile_capacity"] = tiles(
+                req["ssao_tiles"], cfg.ssao_height, cfg.ssao_width,
+                fr.SSAO_TILE_H, fr.SSAO_TILE_W)
+        self.cfg = dataclasses.replace(cfg, **kw)
 
     def resize(self, width: int, height: int):
         """The OnResize analogue (the reference's d3dApp.cpp:141 +
         CRYCHIC::OnResize, CRYCHIC.cpp:110-128): rebuild every
         resolution-dependent piece of state — the camera lens aspect (its
         culling frustum is derived per frame), the SSAO random-vector
-        field at the new SSAO grid, and the auto-sized raster capacities.
+        field at the new SSAO grid, and the auto-sized raster and tile
+        capacities.
         The JAX package then re-jits its frame (``rebind_frame_fn``); the
         port compiles nothing and reads ``self.cfg`` on every call, so
         there is nothing to rebind."""
@@ -315,25 +353,19 @@ class Renderer:
 
     def check_capacity(self, total_time: float = 0.0) -> dict:
         """Raise CapacityError if the current camera's frame would expand
-        more raster pairs than a sized capacity holds (callable per frame
-        from an app loop; it waits for the device). Returns the exact
-        counts (capacity_requirements)."""
+        more raster pairs, or need more compacted tiles, than a sized
+        capacity holds (callable per frame from an app loop; it waits for
+        the device). Returns the counts (capacity_requirements)."""
         req = self.capacity_requirements(total_time)
-        if req["main_pairs"] > self.cfg.pair_capacity:
-            raise CapacityError(
-                f"main raster overflow: {req['main_pairs']} pairs > "
-                f"pair_capacity {self.cfg.pair_capacity}")
-        if req["shadow_pairs"] > self.cfg.shadow_pair_capacity:
-            raise CapacityError(
-                f"shadow raster overflow: {req['shadow_pairs']} pairs > "
-                f"shadow_pair_capacity {self.cfg.shadow_pair_capacity}")
+        check_counts(self.cfg, req["main_pairs"], req["shadow_pairs"],
+                     req["shade_tiles"], req["ssao_tiles"])
         return req
 
     def ensure_capacity(self, total_time: float = 0.0) -> dict:
         """check_capacity, but GROW instead of raising: when the pose
-        outruns the sized capacities, size them again at this pose (1.5x
-        headroom). The port reads self.cfg on every frame, so the next
-        render uses them; nothing is recompiled. Returns the counts."""
+        outruns the sized capacities, size them again at this pose. The
+        port reads self.cfg on every frame, so the next render uses them;
+        nothing is recompiled. Returns the counts."""
         try:
             return self.check_capacity(total_time)
         except CapacityError:
@@ -343,12 +375,14 @@ class Renderer:
     def viewer_step_fn(self, disp_rows: int, disp_cols: int):
         """One frame for the interactive loop, display-sized: returns
         step(scene, consts) -> (disp (disp_rows, disp_cols, 3) uint8, the
-        exact main_pairs and shadow_pairs of that frame as 0-d tensors),
-        all on the device and queued without waiting for it, so the
-        pipelined viewer fetches a small image and raises on overflow
-        frames later instead of dropping geometry. The counts come from
-        passes.frame.capacity_requirements, which repeats the frame's
-        front end (the JAX package's jit shares it).
+        exact main_pairs and shadow_pairs of that frame and its
+        shade_tiles and ssao_tiles, as 0-d tensors), all on the device and
+        queued without waiting for it, so the pipelined viewer fetches a
+        small image and raises on overflow frames later (check_counts)
+        instead of dropping geometry or shading covered tiles as sky. The
+        counts come from passes.frame.capacity_requirements, which repeats
+        the frame's front end (the JAX package's jit shares it; its step
+        returns the pair counts only).
 
         The display rows and columns are sampled from the frame size at
         this call; after resize(), ask for a new step. The frame reads
@@ -370,25 +404,28 @@ class Renderer:
             req = fr.capacity_requirements(scene, consts, cfg)
             disp = (torch.clamp(img[ys][:, xs, :3], 0.0, 1.0) * 255.0
                     + 0.5).to(torch.uint8)
-            return disp, req["main_pairs"], req["shadow_pairs"]
+            return (disp, req["main_pairs"], req["shadow_pairs"],
+                    req["shade_tiles"], req["ssao_tiles"])
 
         return step
 
     def check_overflow(self):
-        """Raise if any frame since the last call dropped raster pairs
-        (its pose outran a sized capacity). This is the one place that
-        waits for the device; render() itself never does."""
-        main = bool(self._main_overflow)
-        shadow = bool(self._shadow_overflow)
-        self._main_overflow.zero_()
-        self._shadow_overflow.zero_()
-        if main or shadow:
-            which = [n for n, f in (("main", main), ("shadow", shadow)) if f]
+        """Raise if any frame since the last call outran a sized capacity:
+        dropped raster pairs, or had more tiles to shade than a compacted
+        pass's slots. This is the one place that waits for the device;
+        render() itself never does."""
+        flags = torch.stack(list(self._overflow.values())).tolist()
+        for v in self._overflow.values():
+            v.zero_()
+        said = [_OVERFLOWS[k] for k, f in zip(self._overflow, flags) if f]
+        if said:
+            cfg = self.cfg
             raise RuntimeError(
-                f"raster overflow ({' and '.join(which)}): a frame expanded "
-                f"more pairs than pair_capacity {self.cfg.pair_capacity} / "
-                f"shadow_pair_capacity {self.cfg.shadow_pair_capacity}; "
-                f"geometry was dropped")
+                f"{'; '.join(said)} (a frame's pose outran the capacities: "
+                f"pair_capacity {cfg.pair_capacity}, shadow_pair_capacity "
+                f"{cfg.shadow_pair_capacity}, shade_tile_capacity "
+                f"{cfg.shade_tile_capacity}, ssao_tile_capacity "
+                f"{cfg.ssao_tile_capacity})")
 
     def _default_camera(self):
         cam = Camera()
@@ -455,14 +492,38 @@ class Renderer:
         img = fr.render_frame(self.device_scene,
                               self.frame_constants(total_time), self.cfg,
                               stats)
-        self._main_overflow |= stats["main_overflowed"]
-        if "shadow_overflowed" in stats:
-            self._shadow_overflow |= stats["shadow_overflowed"]
+        for k, flag in self._overflow.items():
+            if k in stats:
+                flag |= stats[k]
         return img
 
     def render_np(self, total_time: float = 0.0) -> np.ndarray:
         img = self.render(total_time).cpu().numpy()
         return np.clip(img, 0.0, 1.0)
+
+
+def check_counts(cfg, main_pairs: int, shadow_pairs: int, shade_tiles: int,
+                 ssao_tiles: int):
+    """Raise CapacityError where a frame's counts (capacity_requirements'
+    keys) exceed cfg's capacities; a tile capacity of None (dense) holds
+    any count, as does ssao_tile_capacity with SSAO off."""
+    if main_pairs > cfg.pair_capacity:
+        raise CapacityError(
+            f"main raster overflow: {main_pairs} pairs > pair_capacity "
+            f"{cfg.pair_capacity}")
+    if shadow_pairs > cfg.shadow_pair_capacity:
+        raise CapacityError(
+            f"shadow raster overflow: {shadow_pairs} pairs > "
+            f"shadow_pair_capacity {cfg.shadow_pair_capacity}")
+    if cfg.shade_tile_capacity and shade_tiles > cfg.shade_tile_capacity:
+        raise CapacityError(
+            f"shade tile overflow: {shade_tiles} occupied tiles > "
+            f"shade_tile_capacity {cfg.shade_tile_capacity}")
+    if (cfg.ssao_enabled and cfg.ssao_tile_capacity
+            and ssao_tiles > cfg.ssao_tile_capacity):
+        raise CapacityError(
+            f"ssao tile overflow: {ssao_tiles} occupied tiles > "
+            f"ssao_tile_capacity {cfg.ssao_tile_capacity}")
 
 
 def write_png(path: str, img: np.ndarray):

@@ -130,17 +130,19 @@ def ansi_frame(img: np.ndarray, cols: int = 120) -> str:
 
 class _InFlight:
     """Frames in flight on `device`: push() copies a step's display image
-    and pair counts (non_blocking) into one of DEPTH host slots, pinned on
-    a CUDA device, and records a CUDA event behind the copies; pop() waits
-    for the oldest frame's event, then reads its slot. A slot is written
-    again DEPTH pushes later, after the viewer has popped it."""
+    and capacity counts (non_blocking) into one of DEPTH host slots,
+    pinned on a CUDA device, and records a CUDA event behind the copies;
+    pop() waits for the oldest frame's event, then reads its slot. A slot
+    is written again DEPTH pushes later, after the viewer has popped it."""
+
+    COUNTS = 4  # main_pairs, shadow_pairs, shade_tiles, ssao_tiles
 
     def __init__(self, device: torch.device, shape):
         pin = device.type == "cuda"
         self._cuda = pin
         self._slots = [
             (torch.empty(shape, dtype=torch.uint8, pin_memory=pin),
-             torch.empty(2, dtype=torch.int64, pin_memory=pin))
+             torch.empty(self.COUNTS, dtype=torch.int64, pin_memory=pin))
             for _ in range(DEPTH)]
         self._next = 0
         self._pending = deque()
@@ -148,12 +150,12 @@ class _InFlight:
     def __len__(self):
         return len(self._pending)
 
-    def push(self, disp, main_pairs, shadow_pairs):
+    def push(self, disp, *counts):
         host_disp, host_counts = self._slots[self._next]
         self._next = (self._next + 1) % DEPTH
         host_disp.copy_(disp, non_blocking=True)
-        host_counts.copy_(torch.stack([main_pairs, shadow_pairs]).to(
-            torch.int64), non_blocking=True)
+        host_counts.copy_(torch.stack(counts).to(torch.int64),
+                          non_blocking=True)
         event = None
         if self._cuda:
             event = torch.cuda.Event()
@@ -161,13 +163,13 @@ class _InFlight:
         self._pending.append((host_disp, host_counts, event))
 
     def pop(self):
-        """(display image (rows, cols, 3) uint8, main_pairs, shadow_pairs)
-        of the oldest frame; the image aliases its slot until DEPTH more
+        """(display image (rows, cols, 3) uint8, [the counts pushed]) of
+        the oldest frame; the image aliases its slot until DEPTH more
         pushes."""
         host_disp, host_counts, event = self._pending.popleft()
         if event is not None:
             event.synchronize()
-        return host_disp.numpy(), int(host_counts[0]), int(host_counts[1])
+        return host_disp.numpy(), host_counts.tolist()
 
 
 def main(argv=None):
@@ -201,7 +203,7 @@ def main(argv=None):
     from ..models.scenes_baseline import CONFIGS
     from ..passes import frame as fr
     from ..utils.gametimer import GameTimer
-    from .renderer import Renderer, write_png
+    from .renderer import Renderer, check_counts, write_png
     from .stats import FrameStats
 
     scene, cfg, lights = CONFIGS[args.config]()
@@ -219,24 +221,17 @@ def main(argv=None):
     stats = FrameStats()
     stats.total_instances = scene.opaque.num_instances
 
-    # The read-back is the display-sized uint8 image and the frame's exact
-    # pair counts (viewer_step_fn), so an over-capacity camera walk raises
-    # DEPTH - 1 frames late instead of silently dropping triangles.
+    # The read-back is the display-sized uint8 image and the frame's
+    # capacity counts (viewer_step_fn), so an over-capacity camera walk
+    # raises DEPTH - 1 frames late instead of silently dropping triangles
+    # or shading covered tiles as sky.
     disp_rows, disp_cols = display_dims(r.cfg.height, r.cfg.width, args.cols)
     step = r.viewer_step_fn(disp_rows, disp_cols)
     inflight = _InFlight(r.device, (disp_rows, disp_cols, 3))
 
     def fetch_and_show():
-        disp, mp, sp = inflight.pop()
-        if mp > r.cfg.pair_capacity:
-            raise RuntimeError(
-                f"main raster overflow: frame expanded to {mp} pairs > "
-                f"pair_capacity {r.cfg.pair_capacity} (camera moved past "
-                "the auto-sized headroom; rebuild the Renderer)")
-        if sp > r.cfg.shadow_pair_capacity:
-            raise RuntimeError(
-                f"shadow raster overflow: {sp} pairs > "
-                f"shadow_pair_capacity {r.cfg.shadow_pair_capacity}")
+        disp, counts = inflight.pop()
+        check_counts(r.cfg, *counts)
         if not args.no_draw:
             sys.stdout.write("\x1b[H\x1b[2J" + ansi_frame(disp) + "\n")
 

@@ -12,11 +12,15 @@ mean here:
 - Every rendering setting renders as in the JAX package: deferred or
   forward, PBR or Blinn-Phong (directional, point and spot lights), the
   alpha-tested layer, and the render options.
-- use_pallas, pallas_interpret, bin_cap, shadow_bin_cap,
-  shade_tile_capacity and ssao_tile_capacity have no meaning in the port.
-  They select TPU layouts (the Pallas-vs-XLA raster, tile compaction)
-  that do not change the image; the port always rasterizes through
-  ops.raster and shades densely.
+- use_pallas, pallas_interpret, bin_cap and shadow_bin_cap have no
+  meaning in the port. They select the JAX package's Pallas or XLA
+  raster, which does not change the image; the port always rasterizes
+  through ops.raster.
+- shade_tile_capacity and ssao_tile_capacity mean what they mean in the
+  JAX package: the slots of the tile-compacted resolve and PCF factor,
+  in (8, 128) tiles, and of the compacted SSAO occlusion, in (8, 32)
+  half-res tiles; None is the dense pass. Renderer sizes both; the
+  band-sharded frame stays dense.
 - band_pair_capacity and shadow_band_pair_capacity are the per-rank pair
   capacities of the band-sharded frame (parallel/sharded.py), None for
   the full-frame capacities; autosize_band_capacities sizes them and
@@ -104,10 +108,12 @@ class RenderConfig:
     fast_shadow_factor: bool = False
     # SSAO resolution divisor (2 = the reference's half-res)
     ssao_scale: int = 2
-    # The next two fields select the JAX package's TPU tile compaction of
-    # the resolve and of SSAO; they do not change the image and have no
-    # meaning in the port.
+    # tile-compacted shading: the resolve and the cascade PCF factor run
+    # only on the (8, 128) tiles with a covered pixel, at most this many
+    # (None = dense); the image does not change. Renderer autosizes it.
     shade_tile_capacity: int = None
+    # the same for the SSAO occlusion, in (8, 32) half-res tiles within
+    # the blurs' reach of a covered pixel; Renderer autosizes it.
     ssao_tile_capacity: int = None
     # per-rank pair capacities of the band-sharded frame (None = the
     # full-frame capacities; parallel.sharded.autosize_band_capacities)

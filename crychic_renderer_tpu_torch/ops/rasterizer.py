@@ -272,8 +272,10 @@ def barycentrics_at(xy: torch.Tensor, px: torch.Tensor, py: torch.Tensor):
     xy: (..., 3, 2); px/py broadcastable against xy[..., 0, 0].
     Returns (..., 3) weights summing to 1 (unnormalized by w).
     """
-    a = xy[..., [1, 2, 0], :]
-    b = xy[..., [2, 0, 1], :]
+    # vertices (1, 2, 0) and (2, 0, 1) by rolls: indexing with a list
+    # copies the list to the device, which waits for it
+    a = torch.roll(xy, -1, dims=-2)
+    b = torch.roll(xy, -2, dims=-2)
     E = ((b[..., 0] - a[..., 0]) * (py[..., None] - a[..., 1])
          - (b[..., 1] - a[..., 1]) * (px[..., None] - a[..., 0]))
     area2 = E.sum(dim=-1, keepdim=True)

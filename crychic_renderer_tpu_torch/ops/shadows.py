@@ -100,11 +100,11 @@ def cascade_select(shadow_transforms, pos_w, eye_pos):
     cascades (..., 2) = (c, min(c + 1, 3)) with c the first cascade whose
     radius exceeds the view distance, and their shadow-space positions
     (..., 2, 4))."""
-    radii = torch.tensor(CASCADE_RADII, dtype=torch.float32,
-                         device=pos_w.device)
     dist = torch.sqrt(((eye_pos - pos_w) ** 2).sum(-1))
-    # first cascade whose radius exceeds the distance; 4 = none
-    past = (dist[..., None] >= radii).sum(-1)
+    # first cascade whose radius exceeds the distance; 4 = none (the radii
+    # are scalars: a tensor of them would be a host-to-device copy, which
+    # waits for the device)
+    past = sum((dist >= r).to(torch.int64) for r in CASCADE_RADII)
     c = torch.clamp(past, 0, 3)
     no_shadow = past >= 4
 
@@ -155,12 +155,13 @@ def cascade_shadow_factor(shadow_maps, shadow_transforms, pos_w, eye_pos,
         f = pcf.soft_pcf(pcf.quantize_map(shadow_maps), params,
                          float(soft_radius_texels)).reshape(cascades.shape)
         f_c, f_n = f[..., 0], f[..., 1]
-    radii = torch.tensor(CASCADE_RADII, dtype=torch.float32,
-                         device=pos_w.device)
     if deferred_blend_quirk:
         blend = c < 3
     else:
-        blend = (c < 3) & (torch.abs(dist - radii[c]) < 10.0)
+        radius = torch.full_like(dist, CASCADE_RADII[-1])
+        for i in range(len(CASCADE_RADII) - 2, -1, -1):
+            radius = torch.where(c == i, CASCADE_RADII[i], radius)
+        blend = (c < 3) & (torch.abs(dist - radius) < 10.0)
     factor = torch.where(blend, 0.5 * (f_c + f_n), f_c)
     one = torch.ones_like(factor)
     if dead is not None:

@@ -162,7 +162,8 @@ def _tap_depth_bilinear_white(rows, H, W, u, v):
 def ssao_occlusion(normal_v, depth_ndc, proj, inv_proj, offsets,
                    random_field, occlusion_radius=0.5, fade_start=0.2,
                    fade_end=1.0, surface_eps=0.05, tap_depth=None,
-                   row_offset: int = 0, full_height: int = None):
+                   row_offset: int = 0, full_height: int = None,
+                   pixel_uv=None):
     """Half-res SSAO occlusion pass (Ssao.hlsl PS), random-field path.
 
     normal_v: (h, w, 3) view-space normals (half-res); depth_ndc: (h, w)
@@ -176,20 +177,29 @@ def ssao_occlusion(normal_v, depth_ndc, proj, inv_proj, offsets,
     row_offset + h) of a full_height-row map, so the view rays use global
     rows; random_field is the band's rows and tap_depth the whole screen's
     depth (the taps land anywhere on it).
+
+    pixel_uv: optional (U, V), the texture-space uv of each evaluated
+    pixel, for inputs whose array grid is not the pixel grid (the
+    tile-compacted caller, passes.frame._ssao_occlusion_compacted, hands
+    in (CB, LANES) tiles); normal_v, depth_ndc and random_field then share
+    U's leading shape.
     """
     if tap_depth is None:
         tap_depth = depth_ndc
     A22, B32 = proj[2, 2], proj[3, 2]
     dev = depth_ndc.device
 
-    h, w = depth_ndc.shape
-    if full_height is None:
-        full_height = h
-    # view-space ray through each pixel (quad corners -> inv proj)
-    uu = (torch.arange(w, dtype=torch.float32, device=dev) + 0.5) / w
-    vv = (torch.arange(h, dtype=torch.float32, device=dev) + row_offset
-          + 0.5) / full_height
-    U, V = torch.meshgrid(uu, vv, indexing="xy")  # both (h, w)
+    if pixel_uv is not None:
+        U, V = pixel_uv
+    else:
+        h, w = depth_ndc.shape
+        if full_height is None:
+            full_height = h
+        # view-space ray through each pixel (quad corners -> inv proj)
+        uu = (torch.arange(w, dtype=torch.float32, device=dev) + 0.5) / w
+        vv = (torch.arange(h, dtype=torch.float32, device=dev) + row_offset
+              + 0.5) / full_height
+        U, V = torch.meshgrid(uu, vv, indexing="xy")  # both (h, w)
     ndc = torch.stack([2 * U - 1, 1 - 2 * V, torch.zeros_like(U),
                        torch.ones_like(U)], dim=-1)
     ph = rowmat(ndc, inv_proj)

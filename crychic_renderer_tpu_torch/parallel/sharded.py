@@ -352,6 +352,11 @@ def _band_render(scene: fr.DeviceScene, consts: fr.FrameConstants,
     values the caller crops. stats (optional dict) receives this rank's
     raster overflow flags as 0-d bool tensors."""
     stats = {} if stats is None else stats
+    # the bands stay dense, as in the JAX package: a band's occupancy is
+    # not what the capacities were sized for, and the split already
+    # divides the work n ways (_band_ssao calls the dense occlusion)
+    cfg = dataclasses.replace(cfg, shade_tile_capacity=None,
+                              ssao_tile_capacity=None)
     d = comm.index()
     n = comm.n_dev
     H, W = cfg.height, cfg.width

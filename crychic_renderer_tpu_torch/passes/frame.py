@@ -26,12 +26,16 @@ visibility buffer and punched into the shadow maps) and the render
 options (fast preset, soft PCF disk, trilinear and other anisotropy
 settings, single-mip pool, cubemap sky, debug views). Both raster
 launches go through ``ops.raster`` and the soft PCF through ``ops.pcf``
-(CUDA kernels on the card); the resolve, SSAO, the alpha peel and the
-rest of the lighting are dense tensor code (the JAX package's tile
-compaction and dead-pixel gather spreads only move gather indices and
-are left out). The resolve, alpha merge, lighting and overlay passes also
-render a row band of the screen at global rows (``row_offset``), for the
-band-sharded frame of ``parallel/sharded.py``.
+(CUDA kernels on the card); the rest is tensor code. With
+``cfg.shade_tile_capacity`` and ``cfg.ssao_tile_capacity`` set (the
+Renderer sizes both) the resolve, the SSAO occlusion and the cascade PCF
+factor are tile-compacted as in the JAX package: their per-pixel work
+runs only for the screen tiles that need it, and the other tiles take the
+values their pixels provably have (``_compact``). The JAX package's
+dead-pixel gather spreads only move gather indices and are left out. The
+resolve, alpha merge, lighting and overlay passes also render a row band
+of the screen at global rows (``row_offset``), for the band-sharded frame
+of ``parallel/sharded.py``, which stays dense.
 """
 from __future__ import annotations
 
@@ -485,8 +489,8 @@ def _resolve_core(scene: DeviceScene, consts: FrameConstants,
     # view-space normal (0,0,1) (CRYCHIC.cpp:2525), black G-buffer
     # (CRYCHIC.cpp:2554)
     v1 = valid[..., None]
-    sky_n_v = torch.zeros_like(normal_v)
-    sky_n_v[..., 2] = 1.0
+    sky_n_v = torch.cat([torch.zeros_like(normal_v[..., :2]),
+                         torch.ones_like(normal_v[..., 2:])], dim=-1)
 
     def keep(x):
         return torch.where(v1, x, torch.zeros_like(x))
@@ -503,32 +507,173 @@ def _resolve_core(scene: DeviceScene, consts: FrameConstants,
     )
 
 
+# ---------------------------------------------------------------------------
+# Tile compaction (the JAX package's _resolve_compacted,
+# _ssao_occlusion_compacted and _pcf_factor_compacted)
+# ---------------------------------------------------------------------------
+
+# Compacted shade tiles: the raster kernel's (8, 128) tile.
+SHADE_TILE_H = 8
+SHADE_TILE_W = 128
+# Compacted SSAO tiles, in half-res pixels. SSAO needs the exact
+# occlusion at every half-res pixel within 16 px (L-inf) of a covered one:
+# 3 blur passes x radius 5 per axis, + 1 for the full-res bilinear
+# upsample. The JAX package measured (8, 32) tiles at 58% occupancy on
+# config 5 against 65% for (8, 128) tiles, whose dilation over-includes.
+SSAO_TILE_H = 8
+SSAO_TILE_W = 32
+_SSAO_DILATE_TILES = (2, 1)  # tile radii (16 / 8, ceil(16 / 32)) >= 16 px
+
+# G-buffer clear values per plane (the reference's RTV clears, see
+# _resolve_core): the compacted resolve fills the skipped tiles with them.
+_G_CLEAR = dict(pos_w=(0.0, 0.0, 0.0), normal_w=(0.0, 0.0, 0.0),
+                normal_v=(0.0, 0.0, 1.0), albedo=(0.0,) * 4,
+                roughness=(0.0,), metalness=(0.0,),
+                shininess_alpha=(0.0,))
+
+
+def _tiles(a: torch.Tensor, tile_h: int, tile_w: int, pad_value):
+    """(H, W) or (H, W, C) map -> ((NT, tile_h * tile_w, C) row-major
+    tiles of the map padded to whole tiles with pad_value, nty, ntx)."""
+    a = a[..., None] if a.dim() == 2 else a
+    H, W, C = a.shape
+    nty, ntx = -(-H // tile_h), -(-W // tile_w)
+    a = F.pad(a, (0, 0, 0, ntx * tile_w - W, 0, nty * tile_h - H),
+              value=pad_value)
+    t = a.reshape(nty, tile_h, ntx, tile_w, C).permute(0, 2, 1, 3, 4)
+    return t.reshape(nty * ntx, tile_h * tile_w, C), nty, ntx
+
+
+def _untile(t: torch.Tensor, nty: int, ntx: int, tile_h: int, tile_w: int,
+            H: int, W: int) -> torch.Tensor:
+    """_tiles' inverse: (NT, tile_h * tile_w, C) -> (H, W, C)."""
+    C = t.shape[-1]
+    t = t.reshape(nty, ntx, tile_h, tile_w, C).permute(0, 2, 1, 3, 4)
+    return t.reshape(nty * tile_h, ntx * tile_w, C)[:H, :W]
+
+
+def _device_vector(values, like: torch.Tensor) -> torch.Tensor:
+    """Python numbers as a vector of like's dtype on like's device, made
+    by fills: a tensor of host data (torch.tensor, or writing a number
+    into a CUDA tensor) is a copy that waits for the device."""
+    i = torch.arange(len(values), device=like.device)
+    out = torch.zeros(len(values), dtype=like.dtype, device=like.device)
+    for k, v in enumerate(values):
+        if v:
+            out = torch.where(i == k, v, out)
+    return out
+
+
+def _compact(tv: torch.Tensor, capacity: int):
+    """The slot tables of a compacted pass, built on the device with no
+    host read (a fixed-size buffer, a cumsum and one scatter).
+
+    tv: (NT,) bool, the tiles the pass must evaluate; capacity: CB, the
+    slots (capped at NT). Returns (kept, inv, over):
+    - kept (CB,) int64: slot -> tile, in tile order; unused slots hold NT,
+      the row the caller appends to its tile table as the sentinel;
+    - inv (NT,) int64: tile -> slot; CB, the row the caller appends to
+      the slots' results as the fill, for the tiles not evaluated, those
+      past the capacity included (the JAX package's drop);
+    - over: 0-d bool, more tiles than slots (Renderer.check_overflow)."""
+    NT = tv.shape[0]
+    CB = min(int(capacity), NT)
+    dev = tv.device
+    pos = torch.cumsum(tv.to(torch.int64), 0) - 1
+    # slot CB of the buffer takes every dropped write and is cut off
+    slot = torch.clamp(torch.where(tv, pos, CB), max=CB)
+    kept = torch.full((CB + 1,), NT, dtype=torch.int64, device=dev)
+    kept.scatter_(0, slot, torch.arange(NT, dtype=torch.int64, device=dev))
+    inv = torch.where(tv & (pos < CB), pos, CB)
+    return kept[:CB], inv, pos[-1] >= CB
+
+
+def _slot_pixels(kept: torch.Tensor, nty: int, ntx: int, tile_h: int,
+                 tile_w: int):
+    """(x, y) int64 pixel coordinates of every slot's lanes, (CB, tile_h *
+    tile_w) each. The sentinel tile NT takes row nty - 1's coordinates
+    (the JAX package clamps them the same way), so its pixels stay on
+    the padded grid."""
+    lane = torch.arange(tile_h * tile_w, device=kept.device)[None, :]
+    x = (kept[:, None] % ntx) * tile_w + lane % tile_w
+    y = (torch.clamp(kept[:, None] // ntx, max=nty - 1) * tile_h
+         + lane // tile_w)
+    return x, y
+
+
+def _resolve_compacted(scene: DeviceScene, consts: FrameConstants,
+                       cfg: RenderConfig, rec, tid, row_offset: int = 0):
+    """Tile-compacted resolve: _resolve_core runs only on the (8, 128)
+    tiles that hold a covered pixel, cfg.shade_tile_capacity slots of
+    them; the other tiles take the clear values (_G_CLEAR), which the
+    dense resolve gives every uncovered pixel. The same math on the same
+    values, so the G-buffer equals the dense one. Expanded back with one
+    gather of the packed 16 channels and one transpose.
+    Returns (g, over) (see _compact)."""
+    H, W = tid.shape
+    TH, TW = SHADE_TILE_H, SHADE_TILE_W
+    tiles, nty, ntx = _tiles(tid, TH, TW, -1)
+    tiles = tiles[..., 0]  # (NT, LANES)
+    kept, inv, over = _compact((tiles >= 0).any(dim=1),
+                               cfg.shade_tile_capacity)
+    tid_c = torch.cat([tiles, torch.full_like(tiles[:1], -1)])[kept]
+    x, y = _slot_pixels(kept, nty, ntx, TH, TW)
+    px = x.to(torch.float32) + 0.5
+    py = y.to(torch.float32) + row_offset + 0.5
+    g = _resolve_core(scene, consts, cfg, rec, tid_c, px, py)
+
+    packed = torch.cat([g[n] for n in _G_CLEAR], dim=-1)  # (CB, LANES, 16)
+    fill = _device_vector([v for n in _G_CLEAR for v in _G_CLEAR[n]],
+                          packed)
+    packed = torch.cat([packed, fill.expand(1, TH * TW, -1)])
+    out = _untile(packed[inv], nty, ntx, TH, TW, H, W)
+    full, o = {}, 0
+    for n in _G_CLEAR:
+        k = g[n].shape[-1]
+        full[n] = out[..., o:o + k]
+        o += k
+    full["valid"] = tid >= 0
+    return full, over
+
+
 def resolve_gbuffer(scene: DeviceScene, consts: FrameConstants,
                     cfg: RenderConfig, tris: rz.ScreenTris,
                     depth: torch.Tensor, tid: torch.Tensor,
                     tri_attr: torch.Tensor, row_offset: int = 0,
-                    out_rows: int = None):
+                    out_rows: int = None, stats: dict = None):
     """Gather the winning triangle's vertex data per pixel and build the
     G-buffer (GeometryPass.hlsl PS + GBuffer.hlsl encode, fused with the
-    DrawNormals.hlsl view-space-normal output), dense over the screen.
+    DrawNormals.hlsl view-space-normal output).
 
     Returns dict with pos_w (H,W,3), normal_w bumped (H,W,3), normal_v
     view (H,W,3), albedo (H,W,4), roughness, metalness (H,W,1), valid
-    (H,W).
+    (H,W). Uncovered pixels carry the render targets' clear values.
 
-    Band rendering (parallel.sharded): depth/tid are rows starting at
-    global pixel row ``row_offset`` (barycentrics are evaluated there, so
-    band pixels equal the full frame's), and ``out_rows`` trims the halo
-    row the band carries below itself off every output. The uv
-    derivatives are per-primitive, so the halo row changes no pixel."""
+    cfg.shade_tile_capacity selects the tile-compacted resolve
+    (_resolve_compacted, the same G-buffer); stats (optional dict) then
+    receives "shade_tiles_overflowed", a 0-d bool tensor.
+
+    Band rendering (parallel.sharded, always dense): depth/tid are rows
+    starting at global pixel row ``row_offset`` (barycentrics are
+    evaluated there, so band pixels equal the full frame's), and
+    ``out_rows`` trims the halo row the band carries below itself off
+    every output. The uv derivatives are per-primitive, so the halo row
+    changes no pixel."""
     H, W = depth.shape
     dev = depth.device
     rec = _build_resolve_records(tris, tri_attr)
-    px = (torch.arange(W, dtype=torch.float32, device=dev) + 0.5)[None, :]
-    py = (torch.arange(H, dtype=torch.float32, device=dev) + row_offset
-          + 0.5)[:, None]
-    g = _resolve_core(scene, consts, cfg, rec, tid, px.expand(H, W),
-                      py.expand(H, W))
+    if cfg.shade_tile_capacity:
+        g, over = _resolve_compacted(scene, consts, cfg, rec, tid,
+                                     row_offset)
+        if stats is not None:
+            stats["shade_tiles_overflowed"] = over
+    else:
+        px = (torch.arange(W, dtype=torch.float32, device=dev)
+              + 0.5)[None, :]
+        py = (torch.arange(H, dtype=torch.float32, device=dev) + row_offset
+              + 0.5)[:, None]
+        g = _resolve_core(scene, consts, cfg, rec, tid, px.expand(H, W),
+                          py.expand(H, W))
     if out_rows is not None and out_rows != H:
         g = {k: v[:out_rows] for k, v in g.items()}
     return g
@@ -567,15 +712,92 @@ def ssao_blur(scene: DeviceScene, consts: FrameConstants, cfg: RenderConfig,
     return access
 
 
+def _dilate(occ: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
+    """(nty, ntx) bool -> the tiles within (dy, dx) tiles of a True one."""
+    grown = F.max_pool2d(occ.to(torch.float32)[None, None],
+                         (2 * dy + 1, 2 * dx + 1), stride=1,
+                         padding=(dy, dx))
+    return grown[0, 0] > 0
+
+
+def _ssao_tile_occupancy(valid_half: torch.Tensor, nty: int,
+                         ntx: int) -> torch.Tensor:
+    """(h, w) half-res validity -> (NT,) bool: the (8, 32) tiles within
+    _SSAO_DILATE_TILES of a tile with a valid pixel."""
+    h, w = valid_half.shape
+    vp = F.pad(valid_half.to(torch.float32),
+               (0, ntx * SSAO_TILE_W - w, 0, nty * SSAO_TILE_H - h))
+    tv = vp.reshape(nty, SSAO_TILE_H, ntx, SSAO_TILE_W).amax(dim=(1, 3)) > 0
+    return _dilate(tv, *_SSAO_DILATE_TILES).reshape(-1)
+
+
+def _ssao_occlusion_compacted(scene: DeviceScene, consts: FrameConstants,
+                              cfg: RenderConfig, n_half, d_half, depth,
+                              valid):
+    """Tile-compacted SSAO occlusion: the 14 taps run only on the (8, 32)
+    half-res tiles within the blurs' and the upsample's reach of a covered
+    pixel (_ssao_tile_occupancy), cfg.ssao_tile_capacity slots of them;
+    the other tiles take 1.0.
+
+    The fill is the true value: a skipped pixel's depth is the clear 1.0
+    and its 14 taps read far-plane depth only (the depth clears to 1.0,
+    the border reads opaque white, and a tap lands at most
+    occlusionRadius * proj / z, about 7 full-res texels, from its pixel at
+    the far plane, well inside the 16-px dilation), so dist_z is 0 <
+    surface_eps and every tap occludes nothing. The per-pixel uv comes
+    from the slot table; on the CPU the result equals the dense
+    occlusion (the JAX package bounds it at 1e-5, as XLA folds the dense
+    uv as a constant). Returns ((h, w) access, over) (see _compact)."""
+    TH, TW = SSAO_TILE_H, SSAO_TILE_W
+    h, w = d_half.shape
+    k = cfg.ssao_scale
+    nty, ntx = -(-h // TH), -(-w // TW)
+    # half-res validity: any covered full-res pixel in the k x k block
+    vh = valid[:h * k, :w * k].reshape(h, k, w, k).any(dim=3).any(dim=1)
+    kept, inv, over = _compact(_ssao_tile_occupancy(vh, nty, ntx),
+                               cfg.ssao_tile_capacity)
+    # ONE packed (depth, normal, random field) tile table + the fill row:
+    # depth 1, normal (0, 0, 1), field 0
+    stack = torch.cat([_tiles(d_half, TH, TW, 1.0)[0],
+                       _tiles(n_half, TH, TW, 0.0)[0],
+                       _tiles(scene.ssao_random_field, TH, TW, 0.0)[0]],
+                      dim=-1)  # (NT, LANES, 7)
+    fill = _device_vector([1.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0], stack)
+    sel = torch.cat([stack, fill.expand(1, TH * TW, -1)])[kept]
+    x, y = _slot_pixels(kept, nty, ntx, TH, TW)
+    U = (x.to(torch.float32) + 0.5) / w
+    V = (y.to(torch.float32) + 0.5) / h
+    acc = ssao_ops.ssao_occlusion(
+        sel[..., 1:4], sel[..., 0], consts.proj, consts.inv_proj,
+        scene.ssao_offsets, random_field=sel[..., 4:7], tap_depth=depth,
+        pixel_uv=(U, V))  # (CB, LANES)
+    accp = torch.cat([acc, torch.ones_like(acc[:1])])
+    return _untile(accp[inv][..., None], nty, ntx, TH, TW, h, w)[..., 0], \
+        over
+
+
 def ssao_pass(scene: DeviceScene, consts: FrameConstants, cfg: RenderConfig,
-              normal_v: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
+              normal_v: torch.Tensor, depth: torch.Tensor,
+              valid: torch.Tensor = None,
+              stats: dict = None) -> torch.Tensor:
     """Half-res occlusion + N two-pass bilateral blurs -> (h, w) access.
     The 14 taps sample the full-res depth (Ssao.hlsl binds the full depth
-    buffer with the linear border-white gsamDepthMap)."""
+    buffer with the linear border-white gsamDepthMap).
+
+    valid: optional (H, W) full-res coverage (tid >= 0). With it and
+    cfg.ssao_tile_capacity, the occlusion is tile-compacted
+    (_ssao_occlusion_compacted) and stats (optional dict) receives
+    "ssao_tiles_overflowed", a 0-d bool tensor; the blurs stay dense."""
     n_half, d_half = ssao_inputs_half(cfg, normal_v, depth)
-    access = ssao_ops.ssao_occlusion(
-        n_half, d_half, consts.proj, consts.inv_proj, scene.ssao_offsets,
-        random_field=scene.ssao_random_field, tap_depth=depth)
+    if cfg.ssao_tile_capacity and valid is not None:
+        access, over = _ssao_occlusion_compacted(scene, consts, cfg, n_half,
+                                                 d_half, depth, valid)
+        if stats is not None:
+            stats["ssao_tiles_overflowed"] = over
+    else:
+        access = ssao_ops.ssao_occlusion(
+            n_half, d_half, consts.proj, consts.inv_proj, scene.ssao_offsets,
+            random_field=scene.ssao_random_field, tap_depth=depth)
     return ssao_blur(scene, consts, cfg, access, n_half, d_half)
 
 
@@ -590,6 +812,29 @@ def _upsample_bilinear(img: torch.Tensor, H: int, W: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Lighting + sky
 # ---------------------------------------------------------------------------
+
+def _pcf_factor_compacted(cfg: RenderConfig, pos_w, valid, sf_fn):
+    """Tile-compacted cascade PCF factor: sf_fn (the cascade select, the
+    PCF and the blend) runs only on the (8, 128) tiles that hold a covered
+    pixel. The factor is pointwise, so these are the resolve's shade tiles
+    and cfg.shade_tile_capacity sizes both. The map equals the dense one:
+    covered pixels evaluate the same math on the same values, and
+    uncovered ones are 1.0 through the dense path's dead mask and the
+    skipped tiles' fill here. With the soft disk, K6 (ops.pcf) runs once
+    over both cascades of the CB * 1024 receivers."""
+    H, W = valid.shape
+    TH, TW = SHADE_TILE_H, SHADE_TILE_W
+    # ONE packed (position, coverage) tile table + the sentinel row
+    stack, nty, ntx = _tiles(
+        torch.cat([pos_w, valid[..., None].to(pos_w.dtype)], dim=-1),
+        TH, TW, 0.0)  # (NT, LANES, 4)
+    kept, inv, _ = _compact(stack[..., 3].amax(dim=1) > 0.5,
+                            cfg.shade_tile_capacity)
+    sel = torch.cat([stack, torch.zeros_like(stack[:1])])[kept]
+    f = sf_fn(sel[..., :3], sel[..., 3] < 0.5)  # (CB, LANES)
+    fp = torch.cat([f, torch.ones_like(f[:1])])
+    return _untile(fp[inv][..., None], nty, ntx, TH, TW, H, W)[..., 0]
+
 
 def lighting_pass(scene: DeviceScene, consts: FrameConstants,
                   cfg: RenderConfig, g: dict, shadow_maps, ambient_access,
@@ -607,7 +852,12 @@ def lighting_pass(scene: DeviceScene, consts: FrameConstants,
     Band rendering (parallel.sharded): the rows start at global row
     ``row_offset`` of a ``full_height``-row screen (the sky ray's NDC y),
     and ``shadow_factor`` ((H, W)), when given, replaces the PCF
-    evaluation (the sharded fast preset computes it across bands)."""
+    evaluation (the sharded fast preset computes it across bands).
+
+    cfg.shade_tile_capacity selects the tile-compacted PCF factor
+    (_pcf_factor_compacted, the same map) on the full-resolution branch
+    of a whole screen; the fast preset's half-res factor and bands stay
+    dense."""
     H, W = depth.shape
     dev = depth.device
     if full_height is None:
@@ -625,20 +875,26 @@ def lighting_pass(scene: DeviceScene, consts: FrameConstants,
                * albedo)
 
     if cfg.shadows_enabled:
+        def sf_fn(pw, dead):
+            return shadows.cascade_shadow_factor(
+                shadow_maps, consts.shadow_transforms, pw, consts.eye_pos,
+                cfg.shadow_map_size, deferred_blend_quirk=cfg.deferred,
+                soft_radius_texels=cfg.pcf_radius_texels, dead=dead)
+
         if shadow_factor is not None:
             sf = shadow_factor
-        else:
+        elif cfg.fast_shadow_factor:
             # performance mode: the (smooth) PCF factor on a half-res
             # grid, upsampled; the quality cost is at shadow silhouettes
-            k = 2 if cfg.fast_shadow_factor else 1
-            sf = shadows.cascade_shadow_factor(
-                shadow_maps, consts.shadow_transforms, pos_w[::k, ::k],
-                consts.eye_pos, cfg.shadow_map_size,
-                deferred_blend_quirk=cfg.deferred,
-                soft_radius_texels=cfg.pcf_radius_texels,
-                dead=~valid[::k, ::k])
-            if cfg.fast_shadow_factor:
-                sf = _upsample_bilinear(sf, H, W)
+            sf = _upsample_bilinear(sf_fn(pos_w[::2, ::2], ~valid[::2, ::2]),
+                                    H, W)
+        elif (cfg.shade_tile_capacity and row_offset == 0
+              and full_height == H):
+            # one card: the PCF only on the covered tiles (a band's
+            # occupancy is not what the capacity was sized for)
+            sf = _pcf_factor_compacted(cfg, pos_w, valid, sf_fn)
+        else:
+            sf = sf_fn(pos_w, ~valid)
         sf = sf[..., None]
     else:
         sf = torch.ones_like(roughness)
@@ -915,21 +1171,63 @@ def alpha_enabled(scene: DeviceScene, cfg: RenderConfig) -> bool:
 # Capacity counts
 # ---------------------------------------------------------------------------
 
+def _bbox_occupancy(tris: rz.ScreenTris, width: int, height: int,
+                    tile_h: int, tile_w: int) -> torch.Tensor:
+    """(nty, ntx) bool: the tiles some valid triangle's bounding box
+    touches, a superset of the tiles with a covered pixel. Each box adds
+    +-1 at its four corners (inclusion-exclusion); a 2D cumsum gives the
+    count per tile."""
+    tx0, ty0, bw, bh, ntx, nty = rz._tile_bbox(tris, width, height, tile_h,
+                                               tile_w)
+    tx0, ty0, bw, bh = tx0.long(), ty0.long(), bw.long(), bh.long()
+    one = (bw > 0).to(torch.int32)
+    img = torch.zeros((nty + 1, ntx + 1), dtype=torch.int32,
+                      device=one.device)
+    img.index_put_((torch.cat([ty0, ty0, ty0 + bh, ty0 + bh]),
+                    torch.cat([tx0, tx0 + bw, tx0, tx0 + bw])),
+                   torch.cat([one, -one, -one, one]), accumulate=True)
+    return img.cumsum(0).cumsum(1)[:nty, :ntx] > 0
+
+
 def capacity_requirements(scene: DeviceScene, consts: FrameConstants,
                           cfg: RenderConfig) -> dict:
     """Exact (tile, triangle) pair counts the frame's two raster launches
     expand to — what pair_capacity / shadow_pair_capacity must reach, else
-    pairs are dropped (and the launch reports overflowed).
+    pairs are dropped (and the launch reports overflowed) — and bounds on
+    the tiles the compacted passes evaluate, which shade_tile_capacity /
+    ssao_tile_capacity must reach, else covered tiles are shaded as sky.
 
     The shadow count bins the 4S-wide ATLAS triangles exactly as
     render_shadow_atlas does. The JAX package sums per-cascade counts with
     each cascade clipped to its own S x S map (frame.py:1394-1404), which
     misses the pairs of triangles whose bbox runs into a neighbouring
-    column and undercounts the atlas at 1080p. Returns 0-d int tensors."""
+    column and undercounts the atlas at 1080p.
+
+    shade_tiles counts the (8, 128) tiles the main view's and the alpha
+    layer's triangle boxes touch (the alpha layer sets tid >= 0 where no
+    opaque box reaches: a fence over the sky); ssao_tiles the (8k, 32k)
+    full-res tiles, the SSAO tiles, that the same boxes touch, grown by
+    _SSAO_DILATE_TILES, as the JAX package counts them. Returns 0-d int
+    tensors."""
     tris, _ = main_view_tris(scene, consts, cfg)
     _, _, bw, bh, _, _ = rz._tile_bbox(tris, cfg.width, cfg.height,
                                        raster.TILE_H, raster.TILE_W)
     main_pairs = (bw * bh).sum()
+    views = [tris]
+    if alpha_enabled(scene, cfg):
+        views.append(alpha_view_tris(scene, consts, cfg)[0])
+
+    def occupancy(tile_h, tile_w):
+        occ = [_bbox_occupancy(t, cfg.width, cfg.height, tile_h, tile_w)
+               for t in views]
+        return occ[0] if len(occ) == 1 else occ[0] | occ[1]
+
+    shade_tiles = occupancy(SHADE_TILE_H, SHADE_TILE_W).sum()
+    ssao_tiles = torch.zeros_like(shade_tiles)
+    if cfg.ssao_enabled:
+        k = cfg.ssao_scale
+        ssao_tiles = _dilate(occupancy(SSAO_TILE_H * k, SSAO_TILE_W * k),
+                             *_SSAO_DILATE_TILES).sum()
     shadow_pairs = torch.zeros((), dtype=main_pairs.dtype,
                                device=main_pairs.device)
     if cfg.shadows_enabled:
@@ -940,7 +1238,8 @@ def capacity_requirements(scene: DeviceScene, consts: FrameConstants,
         _, _, bw, bh, _, _ = rz._tile_bbox(atris, k * S, S, raster.TILE_H,
                                            raster.TILE_W)
         shadow_pairs = (bw * bh).sum()
-    return dict(main_pairs=main_pairs, shadow_pairs=shadow_pairs)
+    return dict(main_pairs=main_pairs, shadow_pairs=shadow_pairs,
+                shade_tiles=shade_tiles, ssao_tiles=ssao_tiles)
 
 
 # ---------------------------------------------------------------------------
@@ -951,9 +1250,11 @@ def render_frame(scene: DeviceScene, consts: FrameConstants,
                  cfg: RenderConfig, stats: dict = None) -> torch.Tensor:
     """One full frame -> (H, W, 4) float32 linear color (see module doc).
 
-    stats (optional dict) receives the raster launches' overflow flags as
-    0-d bool tensors ("main_overflowed", "shadow_overflowed"), read by
-    nobody here, so the frame never waits on the device."""
+    stats (optional dict) receives the raster launches' and the
+    compacted passes' overflow flags as 0-d bool tensors
+    ("main_overflowed", "shadow_overflowed", "shade_tiles_overflowed",
+    "ssao_tiles_overflowed"), read by nobody here, so the frame never
+    waits on the device."""
     H, W = cfg.height, cfg.width
     dev = consts.view_proj.device
     stats = {} if stats is None else stats
@@ -969,7 +1270,8 @@ def render_frame(scene: DeviceScene, consts: FrameConstants,
         depth, tid, tris, tri_attr = alpha_merge_main(
             scene, consts, cfg, depth, tid, tris, tri_attr)
 
-    g = resolve_gbuffer(scene, consts, cfg, tris, depth, tid, tri_attr)
+    g = resolve_gbuffer(scene, consts, cfg, tris, depth, tid, tri_attr,
+                        stats=stats)
 
     if cfg.shadows_enabled:
         shadow_maps = render_shadow_atlas(scene, consts.shadow_visibility,
@@ -983,7 +1285,8 @@ def render_frame(scene: DeviceScene, consts: FrameConstants,
                                  dtype=torch.float32, device=dev)
 
     if cfg.ssao_enabled:
-        access_half = ssao_pass(scene, consts, cfg, g["normal_v"], depth)
+        access_half = ssao_pass(scene, consts, cfg, g["normal_v"], depth,
+                                valid=tid >= 0, stats=stats)
         ambient_access = _upsample_bilinear(access_half, H, W)
     else:
         ambient_access = torch.ones((H, W), dtype=torch.float32, device=dev)

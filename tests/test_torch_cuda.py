@@ -20,6 +20,9 @@
   the fence scene's alpha layer, the soft disk on 520^2 maps, and config
   5 built from the SMALL synthetic asset set with its loaded cube, at two
   BoltAnim frames.
+- The tile-compacted frame on the card (config 4 at 512x192 pitched up,
+  64 of 96 tiles per pass): equal to the dense frame on the card within
+  1e-5, and to the CPU path within the 0.5% bound.
 
 Imports torch and the port only (the card's machine has no jax). The
 cases marked ``cuda`` skip without a CUDA device; run them on the card
@@ -553,3 +556,39 @@ def test_config5_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
         diff = np.abs(imgs[0] - imgs[1]).max(axis=-1)
         assert (diff > 0.02).mean() <= 0.005, (t, (diff > 0.02).mean())
     rs[0].check_overflow()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radius", [None, 2.5], ids=["zero", "soft"])
+def test_compacted_frame_on_card(cuda, radius):
+    """tests/test_torch_compaction.py's pitched frame on the card: the
+    capacities below the tile grids, the compacted frame within 1e-5 of
+    the dense one (both on the card) and within the frame bound of the
+    CPU path's compacted frame, no overflow."""
+    from crychic_renderer_tpu_torch.app import renderer as tren
+    from crychic_renderer_tpu_torch.models import scenes_baseline as sb
+    from crychic_renderer_tpu_torch.passes import frame as fr
+
+    scene, cfg, lights = sb.config4_shadow_pipeline()
+    cfg = dataclasses.replace(cfg, width=512, height=192,
+                              shadow_map_size=256, pcf_radius_texels=radius)
+    imgs = []
+    for d in (cuda, "cpu"):
+        r = tren.Renderer(scene, cfg, lights=lights, device=d)
+        r.camera.look_at((0.0, 4.0, -20.0), (0.0, 7.0, 0.0),
+                         (0.0, 1.0, 0.0))
+        r._autosize_capacity()
+        assert r.cfg.shade_tile_capacity < 96
+        assert r.cfg.ssao_tile_capacity < 96
+        imgs.append(r.render(0.0))
+        r.check_overflow()
+        if d == cuda:
+            dense = fr.render_frame(r.device_scene, r.frame_constants(0.0),
+                                    dataclasses.replace(
+                                        r.cfg, shade_tile_capacity=None,
+                                        ssao_tile_capacity=None))
+            assert float((imgs[0] - dense).abs().max()) <= 1e-5
+    got, want = (np.clip(i.cpu().numpy(), 0.0, 1.0) for i in imgs)
+    assert np.isfinite(got).all()
+    diff = np.abs(got - want).max(axis=-1)
+    assert (diff > 0.02).mean() <= 0.005, (diff > 0.02).mean()

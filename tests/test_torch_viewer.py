@@ -31,12 +31,15 @@ def renderer():
 
 def test_viewer_step_fn_display_and_capacity(renderer):
     """The display image is the full render downsampled (within 1), and
-    the pair counts are capacity_requirements' exact ones."""
+    the pair and tile counts are capacity_requirements' exact ones."""
     step = renderer.viewer_step_fn(16, 32)
-    disp, mp, sp = step(renderer.device_scene, renderer.frame_constants(0.0))
+    disp, *counts = step(renderer.device_scene,
+                         renderer.frame_constants(0.0))
     assert disp.shape == (16, 32, 3) and disp.dtype == torch.uint8
     req = renderer.capacity_requirements(0.0)
-    assert (int(mp), int(sp)) == (req["main_pairs"], req["shadow_pairs"])
+    assert [int(c) for c in counts] == [
+        req[k] for k in ("main_pairs", "shadow_pairs", "shade_tiles",
+                         "ssao_tiles")]
     full = renderer.render_np(0.0)
     ys = np.linspace(0, 89, 16).astype(int)
     xs = np.linspace(0, 159, 32).astype(int)
