@@ -138,7 +138,25 @@ soft PCF kernel (csrc/pcf.cu). Phases, each printed as it ends:
    1e-5), with both times, their bound (the kernels line's K6 entry) and
    the share of them the frame discards.
 
-Phases 6, 8, 10, 14-16 and 18-22 count no field-major (K4) launch: the
+23. frames queued without a host sync, and the bench entry points: for
+   configs 1-5 as written, config 4 with the soft disk and with the soft
+   disk + fast preset, config 5 with the fast preset (configs 2, 3 and 5
+   from the phase-20 files) and the fence at 1920x1080, one warm-up frame,
+   then 3 frames queued through Renderer.render under
+   torch.cuda.set_sync_debug_mode("error") (a host sync raises), with the
+   launches counted (one K1 per frame, K2 with shadows, K6 with the soft
+   disk), the host ms to queue a frame and the ms until the last is done,
+   no overflow, finite pixels; on the soft-disk Renderer, 20 more frames
+   queued back to back and read back once, over which the soft PCF
+   kernel's texture-object cache (csrc/pcf.cu) must fill 0 times (a fill
+   synchronizes the device where the debug mode cannot see it); then
+   ``python -m crychic_renderer_tpu_torch.bench`` and ``python -m
+   crychic_renderer_tpu_torch.experiments.bench_all`` as subprocesses from
+   the checkout, each exiting 0: the bench's JSON line parsed and checked
+   (5 rounds of 20 queued frames, one K1 and one K2 launch per frame, no
+   K6) and printed, and bench_all's card line and 7 config lines printed.
+
+Phases 6, 8, 10, 14-16 and 18-23 count no field-major (K4) launch: the
 variant is kept off every frame path.
 
 Then one JSON line of per-kernel results (with each kernel's bound: the
@@ -171,12 +189,20 @@ VIEWER_SCRIPT = "wwjl"
 # phase 22's cells, each timed compacted and dense in turns
 P22_CELLS = ("config4", "config4_soft", "config5", "config2")
 P22_TURNS = ("compacted", "dense", "dense", "compacted")
+# phase 23's cells, each 3 frames queued under the sync debug mode; the
+# soft-disk cell then queues 20 frames for K6's texture-cache count
+P23_CELLS = ("config1", "config2", "config3", "config4", "config4_soft",
+             "config4_soft_fast", "config5", "config5_fast", "fence")
+P23_FRAMES = 3
+K6_QUEUE = 20
 FRAME_RUNS = ["config4", "soft", "soft_fast", "sharded", "profiler",
               "parity", "viewer", "config1", "forward", "rig", "fence",
               "fence_profiler", "soft_520", "config5", "config5_profiler",
               "config2", "config3"] + [
                   f"p22_{cell}_{mode}_{i}" for cell in P22_CELLS
-                  for i, mode in enumerate(P22_TURNS)]
+                  for i, mode in enumerate(P22_TURNS)] + [
+                  f"p23_{cell}" for cell in P23_CELLS] + [
+                  "p23_soft_queue", "bench"]
 ZERO = dict(ids=0, depth=0, band_ids=0, band_depth=0, field_ids=0,
             field_depth=0, pcf=0)
 PIX_BOUND = 0.005
@@ -519,6 +545,12 @@ def main():
     t4 = time.perf_counter()
     phase(f"[22] phase 22 took {t4 - t3:.1f} s; the script "
           f"{t4 - t_script:.1f} s, kernel builds included")
+
+    # 23: frames queued without a host sync; the bench entry points
+    queued_runs(dev, assets, frame_ms, launches)
+    t5 = time.perf_counter()
+    phase(f"[23] phase 23 took {t5 - t4:.1f} s; the script "
+          f"{t5 - t_script:.1f} s, kernel builds included")
 
     kernels.sort(key=lambda k: k["name"])
     for k in kernels:
@@ -1489,6 +1521,129 @@ def k6_compacted(r, consts, call, tid, pos_w):
         replaces="experiments/pcf_probe.py:46", variant="pcf",
         runs=FRAME_RUNS, max_abs_err=err, ms=ms, device_ms=dev_ms,
         plain_ms=plain_ms, library_ms=None, receivers=m, **b), note
+
+
+def queued_runs(dev, assets, frame_ms, launches):
+    """Phase 23 (see the module doc)."""
+    from crychic_renderer_tpu_torch import bench
+    from crychic_renderer_tpu_torch.app.renderer import Renderer
+    from crychic_renderer_tpu_torch.models import scenes_baseline as sb
+    from crychic_renderer_tpu_torch.ops import pcf
+
+    def soft(cfg):
+        return dataclasses.replace(cfg, pcf_radius_texels=SOFT)
+
+    files = dict(asset_dir=assets["asset_dir"])
+    scene4, cfg4, lights4 = sb.CONFIGS[4]()
+    scene5, cfg5, lights5 = sb.CONFIGS[5]()
+    fence, cfg_f, lights_f = sb.fence_scene(alpha_test=True)
+    shadows, k6 = dict(ids=1, depth=1), dict(ids=1, depth=1, pcf=1)
+    cells = [  # in P23_CELLS' order
+        ("config1", *sb.CONFIGS[1](), {}, dict(ids=1)),
+        ("config2", *sb.CONFIGS[2](), files, dict(ids=1)),
+        ("config3", *sb.CONFIGS[3](), files, dict(ids=1)),
+        ("config4", scene4, cfg4, lights4, {}, shadows),
+        ("config4_soft", scene4, soft(cfg4), lights4, {}, k6),
+        ("config4_soft_fast", scene4, soft(cfg4).fast_preset(), lights4, {},
+         k6),
+        ("config5", scene5, cfg5, lights5, assets, shadows),
+        ("config5_fast", scene5, cfg5.fast_preset(), lights5, assets,
+         shadows),
+        ("fence", fence,
+         dataclasses.replace(cfg_f, width=1920, height=1080), lights_f,
+         files, shadows),
+    ]
+    assert tuple(c[0] for c in cells) == P23_CELLS
+    for name, scene, cfg, lights, kw, per_frame in cells:
+        r = Renderer(scene, cfg, lights=lights, device=dev, **kw)
+        r.render(0.0)  # warm-up: makes the per-device constants
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for i in range(P23_FRAMES):
+                img = r.render((i + 1) / 60.0)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        issue_ms = 1000.0 * (time.perf_counter() - t0) / P23_FRAMES
+        torch.cuda.synchronize()
+        done_ms = 1000.0 * (time.perf_counter() - t0) / P23_FRAMES
+        counts = launch_counts()
+        want = dict(ZERO, **{k: v * P23_FRAMES for k, v in per_frame.items()})
+        assert counts == want, f"{name}: launches {counts}, want {want}"
+        launches[f"p23_{name}"] = counts
+        r.check_overflow()
+        assert bool(img.isfinite().all()), f"{name}: non-finite pixels"
+        frame_ms[f"p23_{name}"] = dict(issue=issue_ms, done=done_ms)
+        note = ""
+        if name == "config4_soft":
+            fills = pcf.cache_fills()
+            reset_counts()
+            t0 = time.perf_counter()
+            for i in range(K6_QUEUE):
+                img = r.render(i / 60.0)
+            float(img[0, 0, 0])
+            queue_ms = 1000.0 * (time.perf_counter() - t0) / K6_QUEUE
+            fills = pcf.cache_fills() - fills
+            counts = launch_counts()
+            want = dict(ZERO, ids=K6_QUEUE, depth=K6_QUEUE, pcf=K6_QUEUE)
+            assert counts == want, f"queued soft frames: launches {counts}"
+            assert fills == 0, f"K6's texture cache filled {fills} times"
+            r.check_overflow()
+            launches["p23_soft_queue"] = counts
+            frame_ms["p23_soft_queue"] = queue_ms
+            note = (f"; then {K6_QUEUE} frames queued and read back once: "
+                    f"{queue_ms:.3f} ms/frame, K6's texture cache filled "
+                    f"{fills} times (total since load "
+                    f"{pcf.cache_fills()}), launches {counts}")
+        phase(f"[23] {name} {r.cfg.width}x{r.cfg.height}: {P23_FRAMES} "
+              f"frames queued under sync debug mode 'error', no sync; "
+              f"host {issue_ms:.3f} ms/frame to queue, {done_ms:.3f} "
+              f"ms/frame until done; launches {launches[f'p23_{name}']}"
+              f"{note}")
+        del r
+
+    # the bench entry points, each a process of its own at the checkout
+    torch.cuda.empty_cache()
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    for module, limit in (("crychic_renderer_tpu_torch.bench", 400),
+                          ("crychic_renderer_tpu_torch.experiments.bench_all",
+                           600)):
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m", module], cwd=root,
+                           capture_output=True, text=True, timeout=limit)
+        if p.returncode != 0:
+            raise RuntimeError(f"{module} exited {p.returncode}:\n"
+                               f"{p.stderr[-4000:]}")
+        out[module.split(".")[-1]] = (p.stdout.strip().splitlines(),
+                                      time.perf_counter() - t0)
+    lines, bench_s = out["bench"]
+    got = json.loads(lines[-1])
+    frames = 1 + bench.ROUNDS * bench.N_FRAMES
+    assert {"metric", "value", "unit", "vs_baseline", "rounds_ms", "card",
+            "assets"} <= set(got), got
+    assert len(got["rounds_ms"]) == bench.ROUNDS and got["value"] > 0, got
+    assert got["frames"] == frames and got["kernel_launches"] == dict(
+        ids=frames, depth=frames, pcf=0), got
+    launches["bench"] = dict(ZERO, **got["kernel_launches"])
+    frame_ms["bench"] = got
+    phase(f"[23] python -m crychic_renderer_tpu_torch.bench exited 0 in "
+          f"{bench_s:.1f} s; its line:")
+    print(lines[-1], flush=True)
+    lines, all_s = out["bench_all"]
+    rows = [json.loads(x) for x in lines[1:]]
+    assert lines[0].startswith("card: ") and len(rows) == 7, lines
+    for row in rows:
+        n = row["frames"] + 1
+        assert row["kernel_launches"] == dict(
+            ids=n, depth=n if row["config"] in (4, 5) else 0, pcf=0), row
+    frame_ms["bench_all"] = rows
+    phase(f"[23] python -m crychic_renderer_tpu_torch.experiments.bench_all "
+          f"exited 0 in {all_s:.1f} s; its lines:")
+    for x in lines:
+        print(x, flush=True)
 
 
 if __name__ == "__main__":

@@ -477,16 +477,20 @@ class Renderer:
     # -- frame -------------------------------------------------------------
     def _animate_materials(self, total_time: float):
         """Cycle animated texture slots by rewriting material->pair
-        indices (host-side update)."""
+        indices (host-side update, uploaded without waiting for the frames
+        in flight)."""
         if not self.anim_specs:
             return
         pair = self._base_mat_pair.copy()
         for mat, (base, count, fps) in self.anim_specs.items():
             pair[mat] = base + int(total_time * fps) % count
-        self.device_scene.mat_pair = fr._tensor(pair, self.device)
+        self.device_scene.mat_pair = fr.upload(pair, self.device)
 
     def render(self, total_time: float = 0.0) -> torch.Tensor:
-        """Queue one frame -> (H, W, 4) float32 tensor on the device."""
+        """Queue one frame -> (H, W, 4) float32 tensor on the device. The
+        host never waits for the card here: the per-frame data goes up in
+        pinned asynchronous copies and the overflow flags are OR-ed on the
+        device, so frames queue back to back until something reads one."""
         self._animate_materials(total_time)
         stats = {}
         img = fr.render_frame(self.device_scene,

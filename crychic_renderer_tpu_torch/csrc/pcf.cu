@@ -272,6 +272,8 @@ constexpr int MAX_DEVICES = 64;
 std::mutex tex_mutex;
 TexEntry tex_cache[TEX_CACHE];
 int tex_count = 0;
+// how often the cache was full and reset (each a device synchronize)
+int tex_fills = 0;
 // the device's texturePitchAlignment and textureAlignment in bytes, read
 // at its first launch (0: not read yet)
 int pitch_align[MAX_DEVICES] = {};
@@ -312,6 +314,7 @@ cudaError_t map_texture(const void* map, int num_cascades, int size,
     }
   }
   if (tex_count == TEX_CACHE) {
+    ++tex_fills;
     err = cudaDeviceSynchronize();
     if (err != cudaSuccess) return err;
     for (int k = 0; k < tex_count; ++k)
@@ -363,6 +366,14 @@ extern "C" int crychic_soft_pcf(const void* map, const void* params, int m,
       static_cast<const float*>(params), m, num_cascades, size, radius,
       static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The number of times the texture cache was full since the library was
+// loaded: each reset synchronized the device, which a frame loop that
+// queues frames must never do.
+extern "C" int crychic_soft_pcf_cache_fills() {
+  std::lock_guard<std::mutex> lock(tex_mutex);
+  return tex_fills;
 }
 
 extern "C" const char* crychic_soft_pcf_error(int code) {

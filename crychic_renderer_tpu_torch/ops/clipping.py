@@ -16,13 +16,14 @@ world-space attributes) linearly in clip space.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
+
+from .consts import device_constant
 
 # per inside-bitmask (bit i = vertex i inside): rotation r (new0 = old_r)
 # and case id (0 drop, 1 one-inside, 2 two-inside, 3 keep)
-_ROT = np.array([0, 0, 1, 0, 2, 1, 1, 0], dtype=np.int64)
-_CASE = np.array([0, 1, 1, 2, 1, 2, 2, 3], dtype=np.int64)
+_ROT = (0, 0, 1, 0, 2, 1, 1, 0)
+_CASE = (0, 1, 1, 2, 1, 2, 2, 3)
 
 
 def clip_near(tri_attr: torch.Tensor, valid_in: torch.Tensor):
@@ -33,12 +34,12 @@ def clip_near(tri_attr: torch.Tensor, valid_in: torch.Tensor):
     z = tri_attr[..., 2]
     inside = (z >= 0.0).long()
     bits = inside[:, 0] + 2 * inside[:, 1] + 4 * inside[:, 2]
-    rot = torch.as_tensor(_ROT, device=dev)[bits]
-    case = torch.as_tensor(_CASE, device=dev)[bits]
+    rot = device_constant(_ROT, torch.int64, dev)[bits]
+    case = device_constant(_CASE, torch.int64, dev)[bits]
 
-    # rotate: new_i = old_(i + rot) % 3
-    r1 = tri_attr[:, [1, 2, 0], :]
-    r2 = tri_attr[:, [2, 0, 1], :]
+    # rotate: new_i = old_(i + rot) % 3 (rolls: a list index is host data)
+    r1 = torch.roll(tri_attr, -1, dims=1)
+    r2 = torch.roll(tri_attr, -2, dims=1)
     rt = torch.where((rot == 1)[:, None, None], r1,
                      torch.where((rot == 2)[:, None, None], r2, tri_attr))
     A, B, C = rt[:, 0], rt[:, 1], rt[:, 2]

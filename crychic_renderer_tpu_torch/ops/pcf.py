@@ -157,6 +157,7 @@ LIBRARY = KernelLibrary("pcf.cu", "crychic_pcf", {
     "crychic_soft_pcf": ([_vp, _vp, _ci, _ci, _ci, ctypes.c_float, _vp,
                           _vp], _ci),
     "crychic_soft_pcf_error": ([_ci], ctypes.c_char_p),
+    "crychic_soft_pcf_cache_fills": ([], _ci),
 })
 
 
@@ -203,6 +204,14 @@ def soft_pcf(qmap: torch.Tensor, params: torch.Tensor,
                            + lib.crychic_soft_pcf_error(rc).decode())
     LAUNCHES += 1
     return out
+
+
+def cache_fills() -> int:
+    """How often the kernel's texture-object cache (64 maps) was full
+    since its library was loaded in this process. Each fill synchronizes
+    the device, out of sight of torch.cuda.set_sync_debug_mode, so a
+    queued frame loop must keep this at 0. Builds the library if needed."""
+    return LIBRARY.load().crychic_soft_pcf_cache_fills()
 
 
 def reset_launches():

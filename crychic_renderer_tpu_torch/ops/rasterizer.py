@@ -248,8 +248,9 @@ def _edge_coeffs(xy: torch.Tensor):
     vertex i. E_i(p) = A_i*px + B_i*py + C_i, interior (front face) > 0.
     Returns A, B, C: (T, 3), area2: (T,) and the top-left flags (T, 3).
     """
-    a = xy[:, [1, 2, 0], :]
-    b = xy[:, [2, 0, 1], :]
+    # vertices (1, 2, 0) and (2, 0, 1) by rolls, as in barycentrics_at
+    a = torch.roll(xy, -1, dims=1)
+    b = torch.roll(xy, -2, dims=1)
     # edge(a,b,p) = (bx-ax)(py-ay) - (by-ay)(px-ax)
     A = -(b[..., 1] - a[..., 1])
     B = b[..., 0] - a[..., 0]

@@ -27,6 +27,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from .consts import device_constant
+
 # Two-class pool geometry: "big" textures (material maps) are stored at
 # POOL_SIZE^2 with full mip chains; "small" textures (the 64x64 animation
 # frames) at POOL_SIZE_SMALL^2. Class membership is by index (big
@@ -466,9 +468,9 @@ def procedural_sky_color(direction: torch.Tensor) -> torch.Tensor:
     h = d[..., 1:2]
     t = torch.clamp(h, 0.0, 1.0) ** 0.6
     dev = direction.device
-    zenith = torch.tensor(SKY_ZENITH, dtype=torch.float32, device=dev)
-    horizon = torch.tensor(SKY_HORIZON, dtype=torch.float32, device=dev)
-    ground = torch.tensor(SKY_GROUND, dtype=torch.float32, device=dev)
+    zenith = device_constant(SKY_ZENITH, torch.float32, dev)
+    horizon = device_constant(SKY_HORIZON, torch.float32, dev)
+    ground = device_constant(SKY_GROUND, torch.float32, dev)
     sky = horizon * (1.0 - t) + zenith * t
     g = torch.clamp(-h, 0.0, 1.0) ** 0.5
     return sky * (1.0 - g) + ground * g

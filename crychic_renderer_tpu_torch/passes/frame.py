@@ -49,6 +49,7 @@ from ..config import RenderConfig
 from ..ops import clipping, raster, sampling, shading, shadows
 from ..ops import rasterizer as rz
 from ..ops import ssao as ssao_ops
+from ..ops.consts import device_constant
 
 # ---------------------------------------------------------------------------
 # Device-side containers
@@ -65,6 +66,19 @@ def _tensor(x, device):
     if not a.flags.writeable:  # e.g. views of another framework's buffers
         a = a.copy()
     return torch.from_numpy(a).to(device)
+
+
+def upload(a: np.ndarray, device) -> torch.Tensor:
+    """A per-frame host array on `device` without waiting for the stream:
+    to a CUDA device through a fresh pinned buffer and an asynchronous
+    copy. The buffer comes from torch's caching host allocator, which
+    hands it out again only after the copy has run, so a frame still
+    queued never reads the next frame's data."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    device = torch.device(device)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 def _fields_to(obj, device):
@@ -193,12 +207,7 @@ class FrameConstants:
         names = [f.name for f in dataclasses.fields(FrameConstants)
                  if d.get(f.name) is not None]
         arrays = [np.asarray(d[n], np.float32) for n in names]
-        flat = torch.from_numpy(np.concatenate([a.ravel() for a in arrays]))
-        device = torch.device(device)
-        if device.type == "cuda":
-            flat = flat.pin_memory().to(device, non_blocking=True)
-        else:
-            flat = flat.to(device)
+        flat = upload(np.concatenate([a.ravel() for a in arrays]), device)
         out, o = {}, 0
         for n, a in zip(names, arrays):
             out[n] = flat[o:o + a.size].reshape(a.shape)
@@ -339,12 +348,16 @@ def shadow_atlas_tris(scene: DeviceScene, shadow_visibility,
     k = vps.shape[0]
     if tri_world is None:
         tri_world = shadow_tri_world(scene.shadow, shadow_visibility)
+    # each cascade's column offset (c * S, 0), made on the device: a
+    # tensor of host data would wait for the stream
+    dev = tri_world.device
+    shifts = torch.stack(
+        [torch.arange(k, dtype=torch.float32, device=dev) * S,
+         torch.zeros(k, dtype=torch.float32, device=dev)], dim=-1)
     parts = []
     for c in range(k):
         t = rz.setup_tri_verts(shading.rowmat(tri_world, vps[c]), None, S, S)
-        shift = torch.tensor([c * S, 0.0], dtype=torch.float32,
-                             device=t.xy.device)
-        parts.append(t._replace(xy=t.xy + shift))
+        parts.append(t._replace(xy=t.xy + shifts[c]))
     tris = rz.ScreenTris(*(torch.cat(f) for f in zip(*parts)))
     tris = _shadow_bias(tris)
     T1 = tris.xy.shape[0] // k
@@ -552,18 +565,6 @@ def _untile(t: torch.Tensor, nty: int, ntx: int, tile_h: int, tile_w: int,
     return t.reshape(nty * tile_h, ntx * tile_w, C)[:H, :W]
 
 
-def _device_vector(values, like: torch.Tensor) -> torch.Tensor:
-    """Python numbers as a vector of like's dtype on like's device, made
-    by fills: a tensor of host data (torch.tensor, or writing a number
-    into a CUDA tensor) is a copy that waits for the device."""
-    i = torch.arange(len(values), device=like.device)
-    out = torch.zeros(len(values), dtype=like.dtype, device=like.device)
-    for k, v in enumerate(values):
-        if v:
-            out = torch.where(i == k, v, out)
-    return out
-
-
 def _compact(tv: torch.Tensor, capacity: int):
     """The slot tables of a compacted pass, built on the device with no
     host read (a fixed-size buffer, a cumsum and one scatter).
@@ -623,8 +624,8 @@ def _resolve_compacted(scene: DeviceScene, consts: FrameConstants,
     g = _resolve_core(scene, consts, cfg, rec, tid_c, px, py)
 
     packed = torch.cat([g[n] for n in _G_CLEAR], dim=-1)  # (CB, LANES, 16)
-    fill = _device_vector([v for n in _G_CLEAR for v in _G_CLEAR[n]],
-                          packed)
+    fill = device_constant(tuple(v for n in _G_CLEAR for v in _G_CLEAR[n]),
+                           packed.dtype, packed.device)
     packed = torch.cat([packed, fill.expand(1, TH * TW, -1)])
     out = _untile(packed[inv], nty, ntx, TH, TW, H, W)
     full, o = {}, 0
@@ -762,7 +763,8 @@ def _ssao_occlusion_compacted(scene: DeviceScene, consts: FrameConstants,
                        _tiles(n_half, TH, TW, 0.0)[0],
                        _tiles(scene.ssao_random_field, TH, TW, 0.0)[0]],
                       dim=-1)  # (NT, LANES, 7)
-    fill = _device_vector([1.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0], stack)
+    fill = device_constant((1.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0),
+                           stack.dtype, stack.device)
     sel = torch.cat([stack, fill.expand(1, TH * TW, -1)])[kept]
     x, y = _slot_pixels(kept, nty, ntx, TH, TW)
     U = (x.to(torch.float32) + 0.5) / w
@@ -1335,12 +1337,11 @@ def apply_debug_overlay(consts: FrameConstants, cfg: RenderConfig,
     elif cfg.debug_view == "cascades":
         from ..models.cascades import CASCADE_RADII
 
-        radii = torch.tensor(CASCADE_RADII, dtype=torch.float32, device=dev)
+        radii = device_constant(tuple(CASCADE_RADII), torch.float32, dev)
         dist = torch.sqrt(((consts.eye_pos - pos_w) ** 2).sum(-1))
         past = (dist[..., None] >= radii).sum(-1)
-        colors = torch.tensor([[1, 0, 0], [0, 1, 0], [0, 0, 1], [1, 1, 1],
-                               [0.3, 0.3, 0.3]], dtype=torch.float32,
-                              device=dev)
+        colors = device_constant(((1, 0, 0), (0, 1, 0), (0, 0, 1), (1, 1, 1),
+                                  (0.3, 0.3, 0.3)), torch.float32, dev)
         img = torch.cat([colors[torch.clamp(past, 0, 4)], img[..., 3:4]],
                         dim=-1)
     return img

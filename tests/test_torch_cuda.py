@@ -23,6 +23,9 @@
 - The tile-compacted frame on the card (config 4 at 512x192 pitched up,
   64 of 96 tiles per pass): equal to the dense frame on the card within
   1e-5, and to the CPU path within the 0.5% bound.
+- Renderer.render queues a frame without a host sync: a config-4 frame
+  at 480x270 under torch.cuda.set_sync_debug_mode("error") equals
+  (torch.equal) the same frame rendered with the mode off.
 
 Imports torch and the port only (the card's machine has no jax). The
 cases marked ``cuda`` skip without a CUDA device; run them on the card
@@ -592,3 +595,26 @@ def test_compacted_frame_on_card(cuda, radius):
     assert np.isfinite(got).all()
     diff = np.abs(got - want).max(axis=-1)
     assert (diff > 0.02).mean() <= 0.005, (diff > 0.02).mean()
+
+
+@pytest.mark.cuda
+def test_render_queues_without_a_host_sync(cuda):
+    """A config-4 frame at 480x270, rendered under
+    torch.cuda.set_sync_debug_mode("error") after a warm-up frame, raises
+    nothing and equals (torch.equal) the same frame rendered with the
+    debug mode off."""
+    from crychic_renderer_tpu_torch.app.renderer import Renderer
+    from crychic_renderer_tpu_torch.models import scenes_baseline as sb
+
+    scene, cfg, lights = sb.config4_shadow_pipeline()
+    cfg = dataclasses.replace(cfg, width=480, height=270)
+    r = Renderer(scene, cfg, lights=lights, device=cuda)
+    want = r.render(0.1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = r.render(0.1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    r.check_overflow()
+    assert torch.equal(got, want)

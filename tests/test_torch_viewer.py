@@ -136,15 +136,17 @@ def test_viewer_scripted_loop(tmp_path, capsys):
 
 
 def test_app_and_probe_modules_import_without_jax():
-    """With jax blocked, the app layer and the probes import, and nothing
-    of the JAX package or its experiments/ comes with them."""
+    """With jax blocked, the app layer, the probes and the bench entry
+    points import, and nothing of the JAX package or its experiments/
+    comes with them."""
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
         "for m in ('app.profiler', 'app.compare', 'app.viewer', "
         "'app.stats', 'utils.gametimer', 'experiments.fma_kernel_probe', "
         "'experiments.bin_decomp_probe', 'experiments.sharded_ab_probe', "
-        "'experiments.alpha_probe'):\n"
+        "'experiments.alpha_probe', 'bench', 'experiments.bench_all', "
+        "'experiments.bench_ab_probe'):\n"
         "    importlib.import_module('crychic_renderer_tpu_torch.' + m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('crychic_renderer_tpu', 'experiments'))\n"
