@@ -156,7 +156,35 @@ soft PCF kernel (csrc/pcf.cu). Phases, each printed as it ends:
    (5 rounds of 20 queued frames, one K1 and one K2 launch per frame, no
    K6) and printed, and bench_all's card line and 7 config lines printed.
 
-Phases 6, 8, 10, 14-16 and 18-23 count no field-major (K4) launch: the
+24. the compiled frame (Renderer.render replays a CUDA graph captured at
+   its first call, app/graphs.py) against the eager frame, for config 4
+   with the zero-radius PCF and with the soft disk (K6 inside the graph),
+   config 5 from the phase-20 files (BoltAnim), the fence (the alpha
+   layer) and config 1 (forward), at their phase sizes (1920x1080, config
+   1 800x600). For each: the first render's host ms (eager frame, capture
+   and replay), the capture's ms and the bytes of the graph's memory
+   pool; the replayed frame at t = 0.1 (config 5: another BoltAnim slot
+   than at t = 0, which must show in the image) against render_frame on
+   the same constants: torch.equal, or, where two eager frames differ
+   too, max |diff| <= 1e-5 and no pixel > 0.02; then 20 frames queued and
+   read back once, in turns graph, eager, eager, graph: the host ms to
+   issue a frame and the ms/frame, with the launches counted in each turn
+   (per replay, from the replay tally: one K1, one K2 with shadows, one K6
+   with the soft disk); K6's texture-cache fills over the cell (0). On
+   config 4: whether torch.profiler records the replay's kernels (its
+   kernel records and summed device ms per frame, graph against eager)
+   and the device ms per replay from CUDA events around 20 replays queued
+   behind a device sleep. On config 5: the device memory the Renderer's
+   close() gives back. Last, experiments/texture_capture_probe.py in a
+   process of its own: whether CUDA makes a texture object inside a
+   capture in the global mode (the compiled frame makes its objects before
+   the capture either way).
+
+Renderer.render replays a CUDA graph: a Renderer's first render, and the
+first after its cfg is replaced, runs one eager frame before it captures
+the graph, so a run's launch counts hold one more launch of each of its
+kernels per capture (app/graphs.CAPTURES), which every check counts.
+Phases 6, 8, 10, 14-16 and 18-24 count no field-major (K4) launch: the
 variant is kept off every frame path.
 
 Then one JSON line of per-kernel results (with each kernel's bound: the
@@ -195,6 +223,10 @@ P23_CELLS = ("config1", "config2", "config3", "config4", "config4_soft",
              "config4_soft_fast", "config5", "config5_fast", "fence")
 P23_FRAMES = 3
 K6_QUEUE = 20
+# phase 24's cells, the compiled frame against the eager one in turns
+P24_CELLS = ("config4", "config4_soft", "config5", "fence", "config1")
+P24_TURNS = ("graph", "eager", "eager", "graph")
+P24_QUEUE = 20
 FRAME_RUNS = ["config4", "soft", "soft_fast", "sharded", "profiler",
               "parity", "viewer", "config1", "forward", "rig", "fence",
               "fence_profiler", "soft_520", "config5", "config5_profiler",
@@ -202,7 +234,9 @@ FRAME_RUNS = ["config4", "soft", "soft_fast", "sharded", "profiler",
                   f"p22_{cell}_{mode}_{i}" for cell in P22_CELLS
                   for i, mode in enumerate(P22_TURNS)] + [
                   f"p23_{cell}" for cell in P23_CELLS] + [
-                  "p23_soft_queue", "bench"]
+                  "p23_soft_queue", "bench"] + [
+                  f"p24_{cell}_{turn}_{i}" for cell in P24_CELLS
+                  for i, turn in enumerate(P24_TURNS)]
 ZERO = dict(ids=0, depth=0, band_ids=0, band_depth=0, field_ids=0,
             field_depth=0, pcf=0)
 PIX_BOUND = 0.005
@@ -552,6 +586,12 @@ def main():
     phase(f"[23] phase 23 took {t5 - t4:.1f} s; the script "
           f"{t5 - t_script:.1f} s, kernel builds included")
 
+    # 24: the compiled frame (a CUDA graph) against the eager frame
+    compiled_runs(dev, assets, frame_ms, launches)
+    t6 = time.perf_counter()
+    phase(f"[24] phase 24 took {t6 - t5:.1f} s; the script "
+          f"{t6 - t_script:.1f} s, kernel builds included")
+
     kernels.sort(key=lambda k: k["name"])
     for k in kernels:
         variant = k.pop("variant")
@@ -715,15 +755,27 @@ def reset_counts():
     pcf.reset_launches()
 
 
-def counted(fn, want, what):
+def captures():
+    from crychic_renderer_tpu_torch.app import graphs
+
+    return graphs.CAPTURES
+
+
+def counted(fn, want, what, per_capture=None):
     """fn() with every launch count set to 0 just before and read just
     after (after a synchronize); the counts must equal ZERO updated with
-    `want`. Returns (fn's result, counts)."""
+    `want`, plus `per_capture` for each graph fn captured (each after one
+    eager frame). Returns (fn's result, counts)."""
     reset_counts()
+    c0 = captures()
     out = fn()
     torch.cuda.synchronize()
     counts = launch_counts()
-    assert counts == dict(ZERO, **want), f"{what}: launches {counts}"
+    n = captures() - c0
+    want = dict(ZERO, **want)
+    for k, v in (per_capture or {}).items():
+        want[k] += v * n
+    assert counts == want, f"{what}: launches {counts}, want {want}"
     return out, counts
 
 
@@ -849,7 +901,7 @@ def app_runs(dev, launches):
 
     report, launches["parity"] = counted(
         lambda: compare.parity([4], True, dev), dict(ids=1, depth=1),
-        "compare.parity")
+        "compare.parity", per_capture=dict(ids=1, depth=1))
     assert report["ok"], f"parity: {report}"
     phase(f"[15] compare.parity([4], small=True) on the card vs the CPU "
           f"path: {report[4]}; launches {launches['parity']}")
@@ -857,7 +909,7 @@ def app_runs(dev, launches):
     frames, launches["viewer"] = counted(
         lambda: viewer.main(["--config", "4", "--script", VIEWER_SCRIPT,
                              "--no-draw", "--device", "cuda"]),
-        dict(ids=n, depth=n), "viewer")
+        dict(ids=n, depth=n), "viewer", per_capture=dict(ids=1, depth=1))
     assert frames == n, frames
     phase(f"[15] viewer: {frames} scripted frames ('{VIEWER_SCRIPT}') on the "
           f"card, fast preset 1280x720, {viewer.DEPTH} in flight, no "
@@ -940,12 +992,14 @@ def frame_raster_vs_plain(r, t):
 def run_frames(r, per_frame):
     """FRAMES_WARMUP + FRAMES_TIMED frames through r.render with every
     launch count set to 0 just before and read just after. Checks the
-    counts (per_frame launches of each kernel per frame), overflow and
-    the last frame; returns (median ms/frame, counts)."""
+    counts (per_frame launches of each kernel per frame, and per eager
+    frame before a capture), overflow and the last frame; returns (median
+    ms/frame, counts)."""
     from crychic_renderer_tpu_torch.ops import pcf, raster
 
     raster.reset_launches()
     pcf.reset_launches()
+    c0 = captures()
     n = FRAMES_WARMUP + FRAMES_TIMED
     times = []
     img = None
@@ -957,8 +1011,10 @@ def run_frames(r, per_frame):
         times.append(1000.0 * (time.perf_counter() - t0))
     counts = launch_counts()
     r.check_overflow()
-    want = {k: v * n for k, v in per_frame.items()}
-    assert counts == want, f"launches {counts} for {n} frames, want {want}"
+    frames = n + captures() - c0
+    want = {k: v * frames for k, v in per_frame.items()}
+    assert counts == want, (f"launches {counts} for {n} frames and "
+                            f"{frames - n} captures, want {want}")
     img = img.cpu().numpy()
     assert img.shape == (r.cfg.height, r.cfg.width, 4)
     assert np.isfinite(img).all(), "non-finite pixels"
@@ -1625,8 +1681,9 @@ def queued_runs(dev, assets, frame_ms, launches):
     assert {"metric", "value", "unit", "vs_baseline", "rounds_ms", "card",
             "assets"} <= set(got), got
     assert len(got["rounds_ms"]) == bench.ROUNDS and got["value"] > 0, got
+    # + 1: the eager frame before the capture
     assert got["frames"] == frames and got["kernel_launches"] == dict(
-        ids=frames, depth=frames, pcf=0), got
+        ids=frames + 1, depth=frames + 1, pcf=0), got
     launches["bench"] = dict(ZERO, **got["kernel_launches"])
     frame_ms["bench"] = got
     phase(f"[23] python -m crychic_renderer_tpu_torch.bench exited 0 in "
@@ -1636,7 +1693,7 @@ def queued_runs(dev, assets, frame_ms, launches):
     rows = [json.loads(x) for x in lines[1:]]
     assert lines[0].startswith("card: ") and len(rows) == 7, lines
     for row in rows:
-        n = row["frames"] + 1
+        n = row["frames"] + 2  # the warm-up frame and the eager frame
         assert row["kernel_launches"] == dict(
             ids=n, depth=n if row["config"] in (4, 5) else 0, pcf=0), row
     frame_ms["bench_all"] = rows
@@ -1645,6 +1702,216 @@ def queued_runs(dev, assets, frame_ms, launches):
     for x in lines:
         print(x, flush=True)
 
+
+
+# device sleep that queues 20 replays behind it (~1 s on an H100)
+P24_SLEEP_CYCLES = 2_000_000_000
+
+
+def eager_render(r, t):
+    """The frame that r.render replays, run eagerly as render() ran it
+    before it had a graph: the same constants through render_frame."""
+    from crychic_renderer_tpu_torch.passes import frame as fr
+
+    r._animate_materials(t)
+    return fr.render_frame(r.device_scene, r.frame_constants(t), r.cfg)
+
+
+def queue_frames(render, n):
+    """n frames queued back to back, one value of the last read back:
+    (host ms per frame to issue them, ms per frame until the read)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = None
+    for i in range(n):
+        img = render(i / 60.0)
+    t1 = time.perf_counter()
+    float(img[0, 0, 0])
+    t2 = time.perf_counter()
+    return 1000.0 * (t1 - t0) / n, 1000.0 * (t2 - t0) / n
+
+
+def profiled(render, frames=3):
+    """torch.profiler (CUDA activity) over `frames` frames: (device
+    records per frame, their summed ms per frame)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(frames):
+            render(i / 60.0)
+        torch.cuda.synchronize()
+    recs = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (len(recs) / frames,
+            sum(e.time_range.elapsed_us() for e in recs) / 1000.0 / frames)
+
+
+def replay_device_ms(r, n=P24_QUEUE):
+    """Device ms per replay: CUDA events around n frames queued behind a
+    device sleep that outlasts the host's issue, so the span holds no host
+    time. Returns (ms per replay, the sleep's ms, host ms to issue)."""
+    torch.cuda.synchronize()
+    e0, e1, e2 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    e0.record()
+    torch.cuda._sleep(P24_SLEEP_CYCLES)
+    e1.record()
+    t0 = time.perf_counter()
+    for i in range(n):
+        r.render(i / 60.0)
+    host_ms = 1000.0 * (time.perf_counter() - t0)
+    e2.record()
+    torch.cuda.synchronize()
+    sleep_ms = e0.elapsed_time(e1)
+    assert host_ms < sleep_ms, (
+        f"issuing {n} replays took {host_ms:.1f} ms, longer than the "
+        f"{sleep_ms:.1f} ms sleep: the span would hold host time")
+    return e1.elapsed_time(e2) / n, sleep_ms, host_ms
+
+
+def compiled_runs(dev, assets, frame_ms, launches):
+    """Phase 24 (see the module doc)."""
+    from crychic_renderer_tpu_torch.app.renderer import Renderer
+    from crychic_renderer_tpu_torch.models import scenes_baseline as sb
+    from crychic_renderer_tpu_torch.ops import pcf
+    from crychic_renderer_tpu_torch.passes import frame as fr
+
+    scene4, cfg4, lights4 = sb.CONFIGS[4]()
+    fence, cfg_f, lights_f = sb.fence_scene(alpha_test=True)
+    shadows = dict(ids=1, depth=1)
+    cells = [  # in P24_CELLS' order
+        ("config4", scene4, cfg4, lights4, {}, shadows),
+        ("config4_soft", scene4,
+         dataclasses.replace(cfg4, pcf_radius_texels=SOFT), lights4, {},
+         dict(shadows, pcf=1)),
+        ("config5", *sb.CONFIGS[5](), assets, shadows),
+        ("fence", fence,
+         dataclasses.replace(cfg_f, width=1920, height=1080), lights_f,
+         dict(asset_dir=assets["asset_dir"]), shadows),
+        ("config1", *sb.CONFIGS[1](), {}, dict(ids=1)),
+    ]
+    assert tuple(c[0] for c in cells) == P24_CELLS
+    for name, scene, cfg, lights, kw, per_frame in cells:
+        r = Renderer(scene, cfg, lights=lights, device=dev, **kw)
+        fills = pcf.cache_fills()
+        torch.cuda.synchronize()
+        c0 = captures()
+        t0 = time.perf_counter()
+        img0 = r.render(0.0)  # eager frame, capture, replay
+        torch.cuda.synchronize()
+        first_ms = 1000.0 * (time.perf_counter() - t0)
+        cf = r.compiled_frame
+        assert captures() == c0 + 1 and cf is not None, name
+
+        # the replayed frame against the eager frame on the same constants
+        t = 0.1
+        img = r.render(t)
+        consts = r.frame_constants(t)
+        eager = [fr.render_frame(r.device_scene, consts, r.cfg)
+                 for _ in range(2)]
+        diff = (img - eager[0]).abs().amax(dim=-1)
+        max_d = float(diff.max())
+        above = int((diff > 0.02).sum())
+        ee = float((eager[0] - eager[1]).abs().max())
+        same = torch.equal(img, eager[0])
+        assert bool(img.isfinite().all()), f"{name}: non-finite pixels"
+        assert same or (ee > 0 and max_d <= PCF_TOL and above == 0), (
+            f"{name}: replay vs eager max |diff| {max_d}, {above} pixels "
+            f"> 0.02; eager vs eager {ee}")
+        note = ""
+        if name == "config5":
+            bolt = 6  # the "bolt" material, the BoltAnim slot's
+            base = int(r._base_mat_pair[bolt])
+            slot = int(r.device_scene.mat_pair[bolt])
+            moved = int(((img - img0).abs().amax(dim=-1) > 0.02).sum())
+            assert slot != base and moved > 0, (slot, base, moved)
+            note += (f"; BoltAnim pair {base} at t=0 -> {slot} at t={t}, "
+                     f"{moved} pixels moved > 0.02 in the replayed frame")
+
+        # 20 queued frames in turns: graph, eager, eager, graph
+        turns = {"graph": [], "eager": []}
+        for i, turn in enumerate(P24_TURNS):
+            render = (r.render if turn == "graph"
+                      else lambda tt: eager_render(r, tt))
+            reset_counts()
+            c1 = captures()
+            issue_ms, done_ms = queue_frames(render, P24_QUEUE)
+            counts = launch_counts()
+            assert captures() == c1, f"{name}: a {turn} turn captured"
+            want = dict(ZERO, **{k: v * P24_QUEUE
+                                 for k, v in per_frame.items()})
+            assert counts == want, (f"{name} {turn}: launches {counts}, "
+                                    f"want {want}")
+            launches[f"p24_{name}_{turn}_{i}"] = counts
+            turns[turn].append((issue_ms, done_ms))
+        r.check_overflow()
+        fills = pcf.cache_fills() - fills
+        assert fills == 0, f"{name}: K6's texture cache filled {fills} times"
+        per_replay = {k: v / P24_QUEUE for k, v in
+                      launches[f"p24_{name}_graph_0"].items() if v}
+
+        if name == "config4":
+            rec_g, dev_g = profiled(r.render)
+            rec_e, dev_e = profiled(lambda tt: eager_render(r, tt))
+            ev_ms, sleep_ms, host_ms = replay_device_ms(r)
+            frame_ms["p24_profiler"] = dict(
+                graph_records=rec_g, graph_device_ms=dev_g,
+                eager_records=rec_e, eager_device_ms=dev_e,
+                replay_event_ms=ev_ms)
+            note += (f"; torch.profiler per frame: replay {rec_g:.0f} "
+                     f"device records, {dev_g:.3f} ms; eager {rec_e:.0f} "
+                     f"records, {dev_e:.3f} ms; CUDA events around "
+                     f"{P24_QUEUE} replays queued behind a {sleep_ms:.0f} "
+                     f"ms device sleep (issued in {host_ms:.1f} ms): "
+                     f"{ev_ms:.3f} ms per replay")
+        if name == "config5":
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            held = torch.cuda.memory_reserved(dev)
+            r.close()
+            torch.cuda.empty_cache()
+            freed = held - torch.cuda.memory_reserved(dev)
+            assert freed >= cf.pool_bytes, (freed, cf.pool_bytes)
+            note += (f"; close() gave back {freed} bytes of reserved device "
+                     f"memory (the pool {cf.pool_bytes})")
+        frame_ms[f"p24_{name}"] = dict(
+            first_render_ms=first_ms, capture_ms=cf.capture_ms,
+            pool_bytes=cf.pool_bytes, replay_vs_eager_max=max_d,
+            eager_vs_eager_max=ee, equal=same,
+            turns={k: [dict(issue_ms=a, ms_per_frame=b) for a, b in v]
+                   for k, v in turns.items()},
+            launches_per_replay=per_replay)
+        phase(f"[24] {name} {r.cfg.width}x{r.cfg.height}: first render "
+              f"(eager frame, capture, replay) {first_ms:.1f} ms, capture "
+              f"{cf.capture_ms:.1f} ms, graph pool {cf.pool_bytes} bytes; "
+              f"replay vs eager at t={t}: "
+              f"{'torch.equal' if same else 'not equal'}, max |diff| "
+              f"{max_d:.3g}, {above} pixels > 0.02 (eager vs eager "
+              f"{ee:.3g}); {P24_QUEUE} queued frames, turns g e e g, host "
+              f"ms to issue a frame "
+              f"{[round(turns[k][j][0], 3) for k, j in P24_ORDER]}, "
+              f"ms/frame {[round(turns[k][j][1], 3) for k, j in P24_ORDER]}"
+              f"; launches per replay (replay tally) {per_replay}, "
+              f"captured {cf.launches}; K6 texture-cache fills {fills}"
+              f"{note}")
+        del r, cf
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    p = subprocess.run(
+        [sys.executable, "-m",
+         "crychic_renderer_tpu_torch.experiments.texture_capture_probe"],
+        cwd=root, capture_output=True, text=True, timeout=300)
+    if p.returncode != 0:
+        raise RuntimeError(f"texture_capture_probe exited {p.returncode}:\n"
+                           f"{p.stderr[-4000:]}")
+    line = p.stdout.strip().splitlines()[-1]
+    frame_ms["p24_texture_capture"] = json.loads(line)
+    phase(f"[24] cudaCreateTextureObject inside a capture in the global "
+          f"mode (experiments/texture_capture_probe.py): {line}")
+
+
+# (turn, index within that turn's list) in P24_TURNS' order
+P24_ORDER = [(t, P24_TURNS[:i].count(t)) for i, t in enumerate(P24_TURNS)]
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -3,14 +3,23 @@
 
 Builds the device scene once on the card (``device="cuda"``, the default;
 ``device="cpu"`` runs the kernels' plain PyTorch versions), computes per-frame
-constants (camera matrices, cascade fits, culling masks) on the host, and
-calls ``passes.frame.render_frame``. PyTorch queues the frame's kernels
-asynchronously, so the host runs ahead until something reads a frame —
-the reference's fence-wait pattern without explicit fences. The Renderer
-sizes the raster pair capacities and the tile capacities of the compacted
-passes from the start pose (``_autosize_capacity``). Capacity overflows
-are flagged on the device and OR-ed across frames; ``check_overflow``
-reads them when the caller chooses to wait.
+constants (camera matrices, cascade fits, culling masks) on the host,
+packs them into one float32 vector (``_pack_frame_constants``, the JAX
+package's layout) and runs ``frame_packed``: ``passes.frame.render_frame``
+on the unpacked constants for the bound cfg. As the JAX Renderer jits
+``frame_packed``, the port captures it on the card into a CUDA graph
+(``app/graphs.CompiledFrame``) at the first ``render()`` and replays it
+for every later frame; on the CPU it runs eagerly. ``rebind_frame_fn``
+binds the frame to the current cfg (``resize`` and ``ensure_capacity``
+call it; ``render`` calls it when ``self.cfg`` was replaced), and a
+render whose device-scene leaves are not the bound ones captures anew.
+The card queues the frames, so the host runs ahead until something reads
+a frame — the reference's fence-wait pattern without explicit fences.
+The Renderer sizes the raster pair capacities and the tile capacities of
+the compacted passes from the start pose (``_autosize_capacity``).
+Capacity overflows are flagged on the device and OR-ed across frames
+inside the frame; ``check_overflow`` reads them when the caller chooses
+to wait.
 """
 from __future__ import annotations
 
@@ -30,6 +39,7 @@ from ..models.scene import Scene
 from ..models.scenes_baseline import REFERENCE_DIR
 from ..ops import sampling, ssao as ssao_ops
 from ..passes import frame as fr
+from . import graphs
 
 DEFAULT_ASSET_DIR = os.path.join(REFERENCE_DIR, "Textures")
 
@@ -283,13 +293,17 @@ class Renderer:
             ssao_dims=(cfg.ssao_height, cfg.ssao_width),
             sky_cubemap_path=sky_cubemap_path,
             dual_mip_rows=cfg.dual_mip_rows, device=self.device)
-        self._base_mat_pair = self.device_scene.mat_pair.cpu().numpy()
+        # a copy: on the CPU the tensor's numpy view shares its memory,
+        # and _animate_materials writes into the tensor
+        self._base_mat_pair = self.device_scene.mat_pair.cpu().numpy().copy()
         self._auto_capacity = auto_capacity
         if auto_capacity:
             self._autosize_capacity()
         self._overflow = {k: torch.zeros((), dtype=torch.bool,
                                          device=self.device)
                           for k in _OVERFLOWS}
+        self._frame_fn = None
+        self.rebind_frame_fn()
 
     def capacity_requirements(self, total_time: float = 0.0) -> dict:
         """Exact (tile, triangle) pair counts of both raster launches for
@@ -337,10 +351,9 @@ class Renderer:
         resolution-dependent piece of state — the camera lens aspect (its
         culling frustum is derived per frame), the SSAO random-vector
         field at the new SSAO grid, and the auto-sized raster and tile
-        capacities.
-        The JAX package then re-jits its frame (``rebind_frame_fn``); the
-        port compiles nothing and reads ``self.cfg`` on every call, so
-        there is nothing to rebind."""
+        capacities — and rebind the frame (``rebind_frame_fn``): on the
+        card the next render() captures the new shapes into a new CUDA
+        graph, as the JAX package re-jits its frame."""
         self.cfg = dataclasses.replace(self.cfg, width=width, height=height)
         cam = self.camera
         cam.set_lens(cam.fov_y, width / height, cam.near_z, cam.far_z)
@@ -350,6 +363,53 @@ class Renderer:
                 self.cfg.ssao_height, self.cfg.ssao_width), self.device)
         if self._auto_capacity:
             self._autosize_capacity()
+        self.rebind_frame_fn()
+
+    def rebind_frame_fn(self):
+        """Bind the frame to the CURRENT self.cfg: frame_packed(scene,
+        packed) unpacks the constants and renders with this cfg, OR-ing
+        the frame's overflow flags into the Renderer's. On the card it
+        runs as a CUDA graph captured at the next render()
+        (graphs.CompiledFrame; the graph of the cfg bound before is freed
+        now), on the CPU eagerly. The JAX Renderer must be rebound after
+        an outside change of self.cfg; this one's render() rebinds
+        itself when self.cfg differs from the bound cfg, and its graph
+        captures anew when a device-scene leaf is not the bound tensor."""
+        cfg = self.cfg
+        n_op = self.scene.opaque.num_instances
+        n_sh = self.scene.shadow.num_instances
+        n_al = (self.scene.alpha.num_instances
+                if self.scene.alpha is not None else 0)
+        unpack = self._unpack_frame_constants
+        flags = self._overflow
+
+        def frame_packed(scene, packed):
+            consts = unpack(packed, n_op, n_sh, n_al)
+            stats = {}
+            img = fr.render_frame(scene, consts, cfg, stats)
+            for k, flag in flags.items():
+                if k in stats:
+                    flag |= stats[k]
+            return img
+
+        self.close()
+        self._frame_fn = (graphs.CompiledFrame(frame_packed, self.device)
+                          if self.device.type == "cuda" else frame_packed)
+        self._bound_cfg = cfg
+
+    @property
+    def compiled_frame(self):
+        """The frame's graphs.CompiledFrame on the card (its capture_ms,
+        pool_bytes and launches per replay), None on the CPU."""
+        fn = self._frame_fn
+        return fn if isinstance(fn, graphs.CompiledFrame) else None
+
+    def close(self):
+        """Free the frame's CUDA graph, its memory pool and its texture
+        objects (also done when the Renderer is collected); the next
+        render() captures anew."""
+        if self.compiled_frame is not None:
+            self.compiled_frame.release()
 
     def check_capacity(self, total_time: float = 0.0) -> dict:
         """Raise CapacityError if the current camera's frame would expand
@@ -363,13 +423,14 @@ class Renderer:
 
     def ensure_capacity(self, total_time: float = 0.0) -> dict:
         """check_capacity, but GROW instead of raising: when the pose
-        outruns the sized capacities, size them again at this pose. The
-        port reads self.cfg on every frame, so the next render uses them;
-        nothing is recompiled. Returns the counts."""
+        outruns the sized capacities, size them again at this pose and
+        rebind the frame (on the card, one capture at the next render).
+        Returns the counts."""
         try:
             return self.check_capacity(total_time)
         except CapacityError:
             self._autosize_capacity()
+            self.rebind_frame_fn()
             return self.check_capacity(total_time)
 
     def viewer_step_fn(self, disp_rows: int, disp_cols: int):
@@ -384,15 +445,32 @@ class Renderer:
         the frame's front end (the JAX package's jit shares it; its step
         returns the pair counts only).
 
-        The display rows and columns are sampled from the frame size at
-        this call; after resize(), ask for a new step. The frame reads
-        self.cfg when it runs, so grown capacities take effect at once
-        (the JAX package's ``rebind_frame_fn`` has no counterpart)."""
+        On the card the step is its own CUDA graph (graphs.CompiledFrame,
+        the counterpart of the JAX package's ``jax.jit(step)``): the
+        first call captures it, later calls copy consts into it and
+        replay, and each returns fresh tensors. The display rows and
+        columns are sampled from the frame size at this call; after
+        resize(), ask for a new step. A step whose Renderer's cfg was
+        replaced since (grown capacities) binds the new cfg and captures
+        anew."""
         H, W = self.cfg.height, self.cfg.width
         ys = fr._tensor(np.linspace(0, H - 1, disp_rows).astype(np.int64),
                         self.device)
         xs = fr._tensor(np.linspace(0, W - 1, disp_cols).astype(np.int64),
                         self.device)
+        bound = {}
+
+        def frame(cfg, names):
+            def run(scene, *leaves):
+                consts = fr.FrameConstants(**dict(zip(names, leaves)))
+                img = fr.render_frame(scene, consts, cfg)
+                req = fr.capacity_requirements(scene, consts, cfg)
+                disp = (torch.clamp(img[ys][:, xs, :3], 0.0, 1.0) * 255.0
+                        + 0.5).to(torch.uint8)
+                return (disp, req["main_pairs"], req["shadow_pairs"],
+                        req["shade_tiles"], req["ssao_tiles"])
+
+            return run
 
         def step(scene, consts):
             cfg = self.cfg
@@ -400,12 +478,17 @@ class Renderer:
                 raise ValueError(
                     f"the renderer was resized to {cfg.width}x{cfg.height} "
                     f"after this step was made for {W}x{H}")
-            img = fr.render_frame(scene, consts, cfg)
-            req = fr.capacity_requirements(scene, consts, cfg)
-            disp = (torch.clamp(img[ys][:, xs, :3], 0.0, 1.0) * 255.0
-                    + 0.5).to(torch.uint8)
-            return (disp, req["main_pairs"], req["shadow_pairs"],
-                    req["shade_tiles"], req["ssao_tiles"])
+            names = tuple(f.name for f in dataclasses.fields(consts)
+                          if isinstance(getattr(consts, f.name),
+                                        torch.Tensor))
+            if bound.get("key") != (cfg, names):
+                if isinstance(bound.get("fn"), graphs.CompiledFrame):
+                    bound["fn"].release()
+                fn = frame(cfg, names)
+                bound.update(key=(cfg, names), fn=(
+                    graphs.CompiledFrame(fn, self.device)
+                    if self.device.type == "cuda" else fn))
+            return bound["fn"](scene, *(getattr(consts, n) for n in names))
 
         return step
 
@@ -477,29 +560,74 @@ class Renderer:
     # -- frame -------------------------------------------------------------
     def _animate_materials(self, total_time: float):
         """Cycle animated texture slots by rewriting material->pair
-        indices (host-side update, uploaded without waiting for the frames
-        in flight)."""
+        indices: a host-side update, uploaded without waiting for the
+        frames in flight and copied INTO the scene's mat_pair tensor on
+        the stream, which the captured frame reads (assigning a new
+        tensor would leave the graph reading the old one)."""
         if not self.anim_specs:
             return
         pair = self._base_mat_pair.copy()
         for mat, (base, count, fps) in self.anim_specs.items():
             pair[mat] = base + int(total_time * fps) % count
-        self.device_scene.mat_pair = fr.upload(pair, self.device)
+        self.device_scene.mat_pair.copy_(fr.upload(pair, self.device))
+
+    # -- packed per-frame constants (the JAX Renderer's layout) -------------
+    # One flat float32 vector per frame, in the JAX package's field order,
+    # so both packages pack bit-equal vectors: one pinned upload, and on
+    # the card one copy into the compiled frame's static input.
+
+    def _pack_frame_constants(self, c: dict) -> np.ndarray:
+        """frame_constants_np's leaves as one float32 vector: view, proj,
+        view_proj, inv_proj, eye_pos, cascade_view_projs,
+        shadow_transforms, total_time, the opaque and shadow visibility,
+        then the alpha visibility where the scene has an alpha layer."""
+        parts = [np.asarray(c[k], np.float32).ravel() for k in (
+            "view", "proj", "view_proj", "inv_proj", "eye_pos",
+            "cascade_view_projs", "shadow_transforms")]
+        parts.append(np.float32([c["total_time"]]).ravel())
+        parts += [np.asarray(c[k], np.float32).ravel()
+                  for k in ("opaque_visibility", "shadow_visibility")]
+        if c.get("alpha_visibility") is not None:
+            parts.append(np.asarray(c["alpha_visibility"], np.float32).ravel())
+        return np.concatenate(parts)
+
+    @staticmethod
+    def _unpack_frame_constants(packed: torch.Tensor, n_op: int, n_sh: int,
+                                n_al: int) -> fr.FrameConstants:
+        """Inverse of _pack_frame_constants: views of `packed` at static
+        offsets (no kernel, no copy)."""
+        o = [0]
+
+        def take(n, shape=None):
+            v = packed[o[0]:o[0] + n]
+            o[0] += n
+            return v.reshape(shape) if shape else v
+
+        return fr.FrameConstants(
+            view=take(16, (4, 4)), proj=take(16, (4, 4)),
+            view_proj=take(16, (4, 4)), inv_proj=take(16, (4, 4)),
+            eye_pos=take(3), cascade_view_projs=take(64, (4, 4, 4)),
+            shadow_transforms=take(64, (4, 4, 4)),
+            total_time=take(1)[0],
+            opaque_visibility=take(n_op),
+            shadow_visibility=take(n_sh),
+            alpha_visibility=take(n_al) if n_al else None)
 
     def render(self, total_time: float = 0.0) -> torch.Tensor:
-        """Queue one frame -> (H, W, 4) float32 tensor on the device. The
-        host never waits for the card here: the per-frame data goes up in
-        pinned asynchronous copies and the overflow flags are OR-ed on the
-        device, so frames queue back to back until something reads one."""
+        """Queue one frame -> a new (H, W, 4) float32 tensor on the
+        device. The host never waits for the card here: the packed
+        constants go up in one pinned asynchronous copy (and BoltAnim's
+        pair indices in another), then frame_packed runs — on the card
+        as one replay of its CUDA graph (captured at the first call,
+        after one eager frame), and the image is a clone of the graph's
+        output, so frames queue back to back until something reads one.
+        A cfg replaced since the last bind is bound first."""
+        if self.cfg != self._bound_cfg:
+            self.rebind_frame_fn()
         self._animate_materials(total_time)
-        stats = {}
-        img = fr.render_frame(self.device_scene,
-                              self.frame_constants(total_time), self.cfg,
-                              stats)
-        for k, flag in self._overflow.items():
-            if k in stats:
-                flag |= stats[k]
-        return img
+        packed = fr.upload(self._pack_frame_constants(
+            self.frame_constants_np(total_time)), self.device)
+        return self._frame_fn(self.device_scene, packed)
 
     def render_np(self, total_time: float = 0.0) -> np.ndarray:
         img = self.render(total_time).cpu().numpy()

@@ -105,7 +105,7 @@ def main(argv=None):
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    img = r.render(0.0)  # first frame builds the kernel
+    img = r.render(0.0)  # builds the kernels, captures the frame's graph
     sync()
     times = []
     for i in range(args.frames):

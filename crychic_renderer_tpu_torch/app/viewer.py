@@ -133,7 +133,10 @@ class _InFlight:
     and capacity counts (non_blocking) into one of DEPTH host slots,
     pinned on a CUDA device, and records a CUDA event behind the copies;
     pop() waits for the oldest frame's event, then reads its slot. A slot
-    is written again DEPTH pushes later, after the viewer has popped it."""
+    is written again DEPTH pushes later, after the viewer has popped it.
+    The step returns new tensors each frame (on the card, clones of its
+    CUDA graph's outputs), so a copy still queued reads its own frame,
+    never the next replay's."""
 
     COUNTS = 4  # main_pairs, shadow_pairs, shade_tiles, ssao_tiles
 

@@ -15,7 +15,11 @@ Prints, as its last line, ONE JSON object:
 Each round queues N_FRAMES frames back to back through
 ``Renderer.render`` and reads one value of the last frame back, so a round
 times the overlap of host issue and device work (render throughput), not
-a per-frame round trip; ``value`` is the median of ROUNDS rounds.
+a per-frame round trip; ``value`` is the median of ROUNDS rounds. On the
+card each frame is one replay of the Renderer's CUDA graph; the warm-up
+frame, outside the clock, runs the eager frame that precedes the capture,
+captures the graph and replays it, so each hand kernel launches once more
+than there are frames.
 ``check_overflow()`` runs after the rounds, outside the clock: a frame
 that dropped geometry fails the run instead of making a fast number.
 
@@ -107,9 +111,10 @@ def frame_rounds(r, n: int, rounds: int):
     """One warm-up frame read back, then `rounds` rounds of n frames
     queued back to back with one read back at the end. Checks the
     overflow flags after the rounds. Returns (ms/frame of each round, host
-    clock; the hand kernels' launches over all 1 + n * rounds frames, each
-    count set to 0 just before the warm-up frame: K1 "ids", K2 "depth",
-    K6 "pcf"; 0 on the CPU, which runs their plain versions)."""
+    clock; the hand kernels' launches over all 1 + n * rounds frames and,
+    on the card, the eager frame before the capture, each count set to 0
+    just before the warm-up frame: K1 "ids", K2 "depth", K6 "pcf"; 0 on
+    the CPU, which runs their plain versions)."""
     from .ops import pcf, raster
 
     raster.reset_launches()

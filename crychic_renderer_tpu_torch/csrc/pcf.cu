@@ -54,14 +54,16 @@
 // receiver whose window reaches the map's last block, where
 // min(q + 1, S/8 - 1) repeats that block, and any receiver with a
 // non-finite or huge coordinate (its window clamps there) takes the
-// exact scalar path of the plain version in a branch. The C entry makes
-// the texture object at the first launch on a map pointer and shape and
-// caches it; a failure to make one is returned as an error, never worked
-// around. A map whose rows (2*S bytes) or address do not meet the card's
-// texture pitch alignment or texture alignment (read once per device:
-// 32 and 512 bytes on an H100, so S = 520 has no texture) gets no texture
-// object: the launch sends every receiver down the scalar path, which
-// gives the same bits.
+// exact scalar path of the plain version in a branch. The eager C entry
+// makes the texture object at the first launch on a map pointer and shape
+// and caches it; the compiled frame (app/graphs.py) makes one per map
+// buffer it owns before its CUDA graph is captured and launches with it,
+// so a graph never reads a cached object. A failure to make one is
+// returned as an error, never worked around. A map whose rows (2*S
+// bytes) or address do not meet the card's texture pitch alignment or
+// texture alignment (read once per device: 32 and 512 bytes on an H100,
+// so S = 520 has no texture) gets no texture object: the launch sends
+// every receiver down the scalar path, which gives the same bits.
 //
 // What bounds it. Per (receiver, cascade): 24 bytes of parameters in, 4
 // bytes out, and the 28 f32 operations per tap that the function needs
@@ -256,54 +258,89 @@ soft_pcf_kernel(cudaTextureObject_t tex, int has_tex,
   out[i] = acc * (1.0f / N_SAMPLE);
 }
 
-// Texture objects over the maps launched on so far, by device, pointer
-// and shape. A texture object views the memory, not a copy, so a new map
-// in the same allocation reads through the same object. When the cache is
-// full the device is synchronised (no launch may still read an object)
-// and every entry is destroyed: a rare event, since the caching allocator
-// hands a frame loop the same few pointers.
+// The device's texturePitchAlignment and textureAlignment in bytes, read
+// at its first launch (0: not read yet).
+constexpr int MAX_DEVICES = 64;
+std::mutex tex_mutex;
+int pitch_align[MAX_DEVICES] = {};
+int base_align[MAX_DEVICES] = {};
+
+// *ok = 1 when the map's rows (2*S bytes) and address meet the current
+// device's texture alignment, so a texture object can view it. The caller
+// holds tex_mutex.
+cudaError_t texturable(const void* map, int size, int* device, int* ok) {
+  *ok = 0;
+  cudaError_t err = cudaGetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (*device < 0 || *device >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (pitch_align[*device] == 0) {
+    int pitch = 0, base = 0;
+    err = cudaDeviceGetAttribute(&pitch, cudaDevAttrTexturePitchAlignment,
+                                 *device);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&base, cudaDevAttrTextureAlignment,
+                                 *device);
+    if (err != cudaSuccess) return err;
+    if (pitch <= 0 || base <= 0) return cudaErrorInvalidValue;
+    pitch_align[*device] = pitch;
+    base_align[*device] = base;
+  }
+  *ok = (static_cast<size_t>(size) * 2) % pitch_align[*device] == 0 &&
+        reinterpret_cast<uintptr_t>(map) % base_align[*device] == 0;
+  return cudaSuccess;
+}
+
+// A texture object viewing the (C, S, S) map as a (C*S, S) 16-bit
+// pitch-linear 2D texture (see "Footprint fetches" above).
+cudaError_t create_texture(const void* map, int num_cascades, int size,
+                           cudaTextureObject_t* tex) {
+  cudaResourceDesc res = {};
+  res.resType = cudaResourceTypePitch2D;
+  res.res.pitch2D.devPtr = const_cast<void*>(map);
+  res.res.pitch2D.desc = cudaCreateChannelDesc<unsigned short>();
+  res.res.pitch2D.width = size;
+  res.res.pitch2D.height = static_cast<size_t>(num_cascades) * size;
+  res.res.pitch2D.pitchInBytes = static_cast<size_t>(size) * 2;
+  cudaTextureDesc desc = {};
+  desc.addressMode[0] = cudaAddressModeClamp;
+  desc.addressMode[1] = cudaAddressModeClamp;
+  desc.filterMode = cudaFilterModePoint;
+  desc.readMode = cudaReadModeElementType;
+  desc.normalizedCoords = 0;
+  return cudaCreateTextureObject(tex, &res, &desc, nullptr);
+}
+
+// The eager path's cache: texture objects over the maps launched on so
+// far, by device, pointer and shape. A texture object views the memory,
+// not a copy, so a new map in the same allocation reads through the same
+// object. When the cache is full the device is synchronised (no launch
+// may still read an object) and every entry is destroyed: a rare event,
+// since the caching allocator hands a frame loop the same few pointers.
+// A CUDA graph must not read a cached object (a reset would destroy it
+// under the graph, and the reset's synchronize cannot be captured): the
+// compiled frame makes its own objects with crychic_soft_pcf_texture and
+// destroys them with its graph.
 struct TexEntry {
   int device, num_cascades, size;
   const void* map;
   cudaTextureObject_t tex;
 };
 constexpr int TEX_CACHE = 64;
-constexpr int MAX_DEVICES = 64;
-std::mutex tex_mutex;
 TexEntry tex_cache[TEX_CACHE];
 int tex_count = 0;
 // how often the cache was full and reset (each a device synchronize)
 int tex_fills = 0;
-// the device's texturePitchAlignment and textureAlignment in bytes, read
-// at its first launch (0: not read yet)
-int pitch_align[MAX_DEVICES] = {};
-int base_align[MAX_DEVICES] = {};
 
-// The map's texture object in *tex and *has_tex = 1, or *has_tex = 0 when
-// its row pitch or address does not meet the device's texture alignment.
+// The map's cached texture object in *tex and *has_tex = 1, or *has_tex
+// = 0 when its row pitch or address does not meet the device's texture
+// alignment.
 cudaError_t map_texture(const void* map, int num_cascades, int size,
                         cudaTextureObject_t* tex, int* has_tex) {
   *has_tex = 0;
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  if (device < 0 || device >= MAX_DEVICES) return cudaErrorInvalidDevice;
   std::lock_guard<std::mutex> lock(tex_mutex);
-  if (pitch_align[device] == 0) {
-    int pitch = 0, base = 0;
-    err = cudaDeviceGetAttribute(&pitch, cudaDevAttrTexturePitchAlignment,
-                                 device);
-    if (err != cudaSuccess) return err;
-    err = cudaDeviceGetAttribute(&base, cudaDevAttrTextureAlignment,
-                                 device);
-    if (err != cudaSuccess) return err;
-    if (pitch <= 0 || base <= 0) return cudaErrorInvalidValue;
-    pitch_align[device] = pitch;
-    base_align[device] = base;
-  }
-  if ((static_cast<size_t>(size) * 2) % pitch_align[device] != 0 ||
-      reinterpret_cast<uintptr_t>(map) % base_align[device] != 0)
-    return cudaSuccess;  // no texture: the scalar path for every receiver
+  int device = 0, ok = 0;
+  cudaError_t err = texturable(map, size, &device, &ok);
+  if (err != cudaSuccess || !ok) return err;  // no texture: scalar path
   for (int k = 0; k < tex_count; ++k) {
     const TexEntry& e = tex_cache[k];
     if (e.device == device && e.map == map &&
@@ -321,42 +358,16 @@ cudaError_t map_texture(const void* map, int num_cascades, int size,
       cudaDestroyTextureObject(tex_cache[k].tex);
     tex_count = 0;
   }
-  cudaResourceDesc res = {};
-  res.resType = cudaResourceTypePitch2D;
-  res.res.pitch2D.devPtr = const_cast<void*>(map);
-  res.res.pitch2D.desc = cudaCreateChannelDesc<unsigned short>();
-  res.res.pitch2D.width = size;
-  res.res.pitch2D.height = static_cast<size_t>(num_cascades) * size;
-  res.res.pitch2D.pitchInBytes = static_cast<size_t>(size) * 2;
-  cudaTextureDesc desc = {};
-  desc.addressMode[0] = cudaAddressModeClamp;
-  desc.addressMode[1] = cudaAddressModeClamp;
-  desc.filterMode = cudaFilterModePoint;
-  desc.readMode = cudaReadModeElementType;
-  desc.normalizedCoords = 0;
-  err = cudaCreateTextureObject(tex, &res, &desc, nullptr);
+  err = create_texture(map, num_cascades, size, tex);
   if (err != cudaSuccess) return err;
   tex_cache[tex_count++] = {device, num_cascades, size, map, *tex};
   *has_tex = 1;
   return cudaSuccess;
 }
 
-}  // namespace
-
-// Plain C entry point bound with ctypes (ops/pcf.py). map: (C, S, S)
-// 16-bit depths; params: (6, m) f32; out: (m,) f32. Returns
-// cudaGetLastError() after the launch (0 = launched), or the error of
-// reading the texture alignments or making the map's texture object
-// without launching. A map the card cannot texture launches with no
-// texture object (every receiver on the scalar path).
-extern "C" int crychic_soft_pcf(const void* map, const void* params, int m,
-                                int num_cascades, int size, float radius,
-                                void* out, void* stream) {
-  cudaTextureObject_t tex = 0;
-  int has_tex = 0;
-  const cudaError_t err =
-      map_texture(map, num_cascades, size, &tex, &has_tex);
-  if (err != cudaSuccess) return static_cast<int>(err);
+cudaError_t launch(cudaTextureObject_t tex, int has_tex, const void* map,
+                   const void* params, int m, int num_cascades, int size,
+                   float radius, void* out, void* stream) {
   // a pair of warps (the two slots) per 32 pixels
   const int pixels = (m + 1) / 2;
   const int warps = 2 * ((pixels + 31) / 32);
@@ -365,7 +376,69 @@ extern "C" int crychic_soft_pcf(const void* map, const void* params, int m,
       tex, has_tex, static_cast<const unsigned short*>(map),
       static_cast<const float*>(params), m, num_cascades, size, radius,
       static_cast<float*>(out));
-  return static_cast<int>(cudaGetLastError());
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C entry points bound with ctypes (ops/pcf.py). map: (C, S, S)
+// 16-bit depths; params: (6, m) f32; out: (m,) f32.
+//
+// crychic_soft_pcf, the eager path: the map's texture object from the
+// cache. Returns cudaGetLastError() after the launch (0 = launched), or
+// the error of reading the texture alignments or making the map's texture
+// object without launching. A map the card cannot texture launches with
+// no texture object (every receiver on the scalar path).
+extern "C" int crychic_soft_pcf(const void* map, const void* params, int m,
+                                int num_cascades, int size, float radius,
+                                void* out, void* stream) {
+  cudaTextureObject_t tex = 0;
+  int has_tex = 0;
+  const cudaError_t err =
+      map_texture(map, num_cascades, size, &tex, &has_tex);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch(tex, has_tex, map, params, m, num_cascades,
+                                 size, radius, out, stream));
+}
+
+// A texture object over the map that the caller owns (*tex, *has_tex =
+// 1), or *has_tex = 0 when the card cannot texture the map; it is not
+// cached, and lives until crychic_soft_pcf_texture_destroy. The compiled
+// frame makes one per map buffer it owns, before its CUDA graph is
+// captured, and destroys it with the graph. Returns the error of reading
+// the alignments or of cudaCreateTextureObject (0 = made or not
+// texturable).
+extern "C" int crychic_soft_pcf_texture(const void* map, int num_cascades,
+                                        int size, unsigned long long* tex,
+                                        int* has_tex) {
+  *tex = 0;
+  *has_tex = 0;
+  std::lock_guard<std::mutex> lock(tex_mutex);
+  int device = 0, ok = 0;
+  cudaError_t err = texturable(map, size, &device, &ok);
+  if (err != cudaSuccess || !ok) return static_cast<int>(err);
+  cudaTextureObject_t t = 0;
+  err = create_texture(map, num_cascades, size, &t);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *tex = t;
+  *has_tex = 1;
+  return 0;
+}
+
+extern "C" int crychic_soft_pcf_texture_destroy(unsigned long long tex) {
+  return static_cast<int>(cudaDestroyTextureObject(tex));
+}
+
+// The launch with a texture object of crychic_soft_pcf_texture (has_tex
+// as it returned), on a map the caller owns: no cache, no allocation, no
+// synchronize, so a CUDA graph can capture it.
+extern "C" int crychic_soft_pcf_owned(unsigned long long tex, int has_tex,
+                                      const void* map, const void* params,
+                                      int m, int num_cascades, int size,
+                                      float radius, void* out,
+                                      void* stream) {
+  return static_cast<int>(launch(tex, has_tex, map, params, m, num_cascades,
+                                 size, radius, out, stream));
 }
 
 // The number of times the texture cache was full since the library was

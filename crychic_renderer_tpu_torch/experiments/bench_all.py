@@ -7,10 +7,11 @@ repository's ``experiments/bench_all.py``.
         --device cpu --small
 
 Prints the card line (nvidia-smi name, power limit), then one JSON line
-per config: one warm-up frame read back, then N_FRAMES frames queued back
-to back and one read back (bench.frame_rounds, one round), the overflow
-flags checked after the clock, with the hand kernels' launches over the
-1 + N_FRAMES frames. Configs 2, 3 and 5 load their files as the
+per config: one warm-up frame read back (on the card it captures the
+Renderer's CUDA graph after one eager frame), then N_FRAMES frames queued
+back to back, each a replay, and one read back (bench.frame_rounds, one
+round), the overflow flags checked after the clock, with the hand
+kernels' launches over the 1 + N_FRAMES frames and the eager frame. Configs 2, 3 and 5 load their files as the
 bench does (bench.assets: the reference's, else the synthetic set;
 config 5 with the set's sky cube, as chip_smoke.py phases 20-21). Any
 failure raises and exits non-zero. ``--small`` renders 160x90 with 128^2

@@ -95,6 +95,11 @@ def queued_event_ms(fn, reps: int, sleep_cycles: int = 4_000_000) -> float:
     return total / reps
 
 
+# the C entries of the eager wrapper: an older checkout's pcf.cu lacks
+# the compiled frame's texture entries
+PCF_ENTRIES = ("crychic_soft_pcf", "crychic_soft_pcf_error")
+
+
 def libraries(root: str):
     """(raster, pcf) KernelLibrary of the checkout at `root`."""
     csrc = os.path.join(os.path.abspath(root), "crychic_renderer_tpu_torch",
@@ -103,7 +108,9 @@ def libraries(root: str):
                                 raster.LIBRARY.name,
                                 raster.LIBRARY.signatures),
             build.KernelLibrary(os.path.join(csrc, "pcf.cu"),
-                                pcf.LIBRARY.name, pcf.LIBRARY.signatures))
+                                pcf.LIBRARY.name,
+                                {k: pcf.LIBRARY.signatures[k]
+                                 for k in PCF_ENTRIES}))
 
 
 @contextlib.contextmanager

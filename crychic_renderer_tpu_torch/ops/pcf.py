@@ -18,9 +18,16 @@ directly; the quantization does change pixels and is kept.
   cos and sin of the rotation hash included.
 - ``soft_pcf`` is the kernel's wrapper: CPU tensors take
   ``soft_pcf_plain``; CUDA tensors launch ``csrc/pcf.cu`` or raise.
+- ``OwnedMaps`` / ``owned_maps``: the quantized maps of a compiled frame
+  (app/graphs.py) and their texture objects, made before its CUDA graph
+  is captured and destroyed with it. Inside the block ``quantize_map``
+  writes into the frame's own buffers and ``soft_pcf`` launches with
+  their objects; outside it the kernel's texture cache serves the eager
+  path.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import numpy as np
@@ -57,8 +64,11 @@ OPS_PER_RECEIVER = N_SAMPLE * 28 + 12
 PARAMS = 6  # cx, cy, dq, cos, sin, cascade
 
 # Launches of the CUDA kernel since import (or since a caller reset it).
-# Incremented by soft_pcf where it launches, and nowhere else.
+# Incremented by soft_pcf where it launches, and by add_launches for each
+# replay of a CUDA graph that holds its launches (app/graphs.py).
 LAUNCHES = 0
+# The OwnedMaps of the compiled frame being run or captured (owned_maps).
+_OWNED = None
 
 
 def nrand(uv: torch.Tensor) -> torch.Tensor:
@@ -70,10 +80,14 @@ def nrand(uv: torch.Tensor) -> torch.Tensor:
 
 def quantize_map(shadow_maps: torch.Tensor) -> torch.Tensor:
     """(C, S, S) f32 depth -> (C, S, S) int16 bits of the 16-bit UNORM
-    depth round(clip(d, 0, 1) * 65535)."""
+    depth round(clip(d, 0, 1) * 65535). Inside owned_maps the bits are
+    written into the compiled frame's own buffer (OwnedMaps.take)."""
     q = torch.round(torch.clamp(shadow_maps, 0.0, 1.0) * 65535.0).to(
         torch.int32)
-    return torch.where(q > 32767, q - 65536, q).to(torch.int16).contiguous()
+    q = torch.where(q > 32767, q - 65536, q)
+    if _OWNED is not None:
+        return _OWNED.take(q)
+    return q.to(torch.int16).contiguous()
 
 
 def receiver_params(shadow_pos: torch.Tensor, cascade: torch.Tensor,
@@ -153,12 +167,108 @@ def soft_pcf_plain(qmap: torch.Tensor, params: torch.Tensor,
 
 
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
+_u64 = ctypes.c_ulonglong
 LIBRARY = KernelLibrary("pcf.cu", "crychic_pcf", {
     "crychic_soft_pcf": ([_vp, _vp, _ci, _ci, _ci, ctypes.c_float, _vp,
                           _vp], _ci),
     "crychic_soft_pcf_error": ([_ci], ctypes.c_char_p),
     "crychic_soft_pcf_cache_fills": ([], _ci),
+    "crychic_soft_pcf_texture": ([_vp, _ci, _ci, ctypes.POINTER(_u64),
+                                  ctypes.POINTER(_ci)], _ci),
+    "crychic_soft_pcf_texture_destroy": ([_u64], _ci),
+    "crychic_soft_pcf_owned": ([_u64, _ci, _vp, _vp, _ci, _ci, _ci,
+                                ctypes.c_float, _vp, _vp], _ci),
 })
+
+
+def _check(lib, rc: int, what: str):
+    """Raise with CUDA's message where the C entry returned an error."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: "
+                           + lib.crychic_soft_pcf_error(rc).decode())
+
+
+def make_texture(qmap: torch.Tensor):
+    """A texture object over the CUDA map qmap that the caller owns and
+    destroys (destroy_texture): (handle, has_tex); has_tex 0 (handle 0)
+    where the card cannot texture the map. Raises where CUDA refuses."""
+    lib = LIBRARY.load()
+    tex, has_tex = _u64(0), _ci(0)
+    with torch.cuda.device(qmap.device):
+        rc = lib.crychic_soft_pcf_texture(qmap.data_ptr(), qmap.shape[0],
+                                          qmap.shape[1], ctypes.byref(tex),
+                                          ctypes.byref(has_tex))
+    _check(lib, rc, "soft PCF texture object")
+    return tex.value, has_tex.value
+
+
+def destroy_texture(tex: int):
+    lib = LIBRARY.load()
+    _check(lib, lib.crychic_soft_pcf_texture_destroy(tex),
+           "soft PCF texture object")
+
+
+class OwnedMaps:
+    """The quantized maps of one compiled frame and their texture
+    objects. The k-th quantize_map of a frame run inside owned_maps(self)
+    writes into buffer k, made (with its texture object, on the card) the
+    first time, which must be the eager frame that precedes the capture:
+    a CUDA graph captured afterwards reads the same buffers through the
+    same objects on every replay. The eager path's texture cache never
+    holds them, so its reset cannot destroy an object a graph reads, and
+    no object is made during a capture. release() destroys them; the
+    caller first ends every graph that reads them."""
+
+    def __init__(self):
+        self._maps = []  # [(buffer, texture handle, has_tex)]
+        self._next = 0
+
+    def take(self, q: torch.Tensor) -> torch.Tensor:
+        """The int16 bits of the int32 q in the frame's next buffer."""
+        k = self._next
+        self._next += 1
+        if k == len(self._maps):
+            if q.is_cuda and torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    "a compiled frame met a shadow map during its capture "
+                    "that its eager frame did not make")
+            buf = torch.empty(q.shape, dtype=torch.int16, device=q.device)
+            tex, has_tex = make_texture(buf) if q.is_cuda else (0, 0)
+            self._maps.append((buf, tex, has_tex))
+        buf = self._maps[k][0]
+        if buf.shape != q.shape or buf.device != q.device:
+            raise RuntimeError(f"the frame's shadow map {k} changed shape: "
+                               f"{tuple(q.shape)} vs {tuple(buf.shape)}")
+        return buf.copy_(q)
+
+    def texture(self, qmap: torch.Tensor):
+        """(handle, has_tex) of an owned buffer, or None."""
+        for buf, tex, has_tex in self._maps:
+            if buf.data_ptr() == qmap.data_ptr() and buf.shape == qmap.shape:
+                return tex, has_tex
+        return None
+
+    def held(self) -> bool:
+        return bool(self._maps)
+
+    def release(self):
+        for _, tex, has_tex in self._maps:
+            if has_tex:
+                destroy_texture(tex)
+        self._maps = []
+
+
+@contextlib.contextmanager
+def owned_maps(maps: OwnedMaps):
+    """Inside the block, the frame's quantize_map and soft_pcf use the
+    maps and texture objects of `maps` (one frame per block)."""
+    global _OWNED
+    saved, _OWNED = _OWNED, maps
+    maps._next = 0
+    try:
+        yield maps
+    finally:
+        _OWNED = saved
 
 
 def soft_pcf(qmap: torch.Tensor, params: torch.Tensor,
@@ -170,7 +280,10 @@ def soft_pcf(qmap: torch.Tensor, params: torch.Tensor,
     through a texture object where the map's address and its 2*S-byte
     rows meet the card's texture alignment (S a multiple of 16 on the
     H100); a map that does not (S = 520, say) launches without one, and
-    every receiver takes the kernel's scalar path, with the same result."""
+    every receiver takes the kernel's scalar path, with the same result.
+    Inside owned_maps the map must be one of the compiled frame's buffers,
+    read through its own texture object; outside it, a CUDA graph capture
+    raises (an object of the cache cannot outlive the cache's reset)."""
     if not 0.0 <= radius_texels <= MAX_RADIUS_TEXELS:
         raise ValueError(f"radius {radius_texels} texels: the window bounds "
                          f"hold up to {MAX_RADIUS_TEXELS}")
@@ -192,16 +305,23 @@ def soft_pcf(qmap: torch.Tensor, params: torch.Tensor,
     out = torch.empty((m,), dtype=torch.float32, device=params.device)
     if m == 0:
         return out
+    owned = None if _OWNED is None else _OWNED.texture(qmap)
+    if owned is None and (_OWNED is not None
+                          or torch.cuda.is_current_stream_capturing()):
+        raise RuntimeError("soft_pcf in a compiled frame reads only the "
+                           "maps the frame owns (quantize_map inside "
+                           "owned_maps); the texture cache cannot be "
+                           "captured")
     lib = LIBRARY.load()
+    args = (qmap.data_ptr(), params.data_ptr(), m, qmap.shape[0],
+            qmap.shape[1], float(radius_texels), out.data_ptr())
     with torch.cuda.device(params.device):
         stream = torch.cuda.current_stream(params.device).cuda_stream
-        rc = lib.crychic_soft_pcf(qmap.data_ptr(), params.data_ptr(), m,
-                                  qmap.shape[0], qmap.shape[1],
-                                  float(radius_texels), out.data_ptr(),
-                                  stream)
-    if rc != 0:
-        raise RuntimeError("soft PCF kernel launch failed: "
-                           + lib.crychic_soft_pcf_error(rc).decode())
+        if owned is None:
+            rc = lib.crychic_soft_pcf(*args, stream)
+        else:
+            rc = lib.crychic_soft_pcf_owned(*owned, *args, stream)
+    _check(lib, rc, "soft PCF kernel launch failed")
     LAUNCHES += 1
     return out
 
@@ -217,3 +337,10 @@ def cache_fills() -> int:
 def reset_launches():
     global LAUNCHES
     LAUNCHES = 0
+
+
+def add_launches(n: int):
+    """Count n launches made without the wrapper: a CUDA graph's replay
+    of the launches it captured."""
+    global LAUNCHES
+    LAUNCHES += n

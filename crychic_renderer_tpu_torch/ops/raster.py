@@ -61,7 +61,8 @@ WARPS = TILE_W // WARP_W
 # "band_ids" and "band_depth" (K3, the band-sharded frame), and the
 # field-major launches "field_ids" and "field_depth" (K4, the layout
 # probe; no frame launches them). Incremented by raster_tiles and
-# raster_tiles_field where they launch, and nowhere else.
+# raster_tiles_field where they launch, and by add_launches for each
+# replay of a CUDA graph that holds their launches (app/graphs.py).
 LAUNCHES = 0
 LAUNCHES_BY_VARIANT = {"ids": 0, "depth": 0, "band_ids": 0,
                        "band_depth": 0, "field_ids": 0, "field_depth": 0}
@@ -483,3 +484,12 @@ def reset_launches():
     LAUNCHES = 0
     for k in LAUNCHES_BY_VARIANT:
         LAUNCHES_BY_VARIANT[k] = 0
+
+
+def add_launches(by_variant: dict):
+    """Count launches made without the wrapper, per variant: a CUDA
+    graph's replay of the launches it captured."""
+    global LAUNCHES
+    for k, n in by_variant.items():
+        LAUNCHES_BY_VARIANT[k] += n
+        LAUNCHES += n

@@ -26,6 +26,15 @@
 - Renderer.render queues a frame without a host sync: a config-4 frame
   at 480x270 under torch.cuda.set_sync_debug_mode("error") equals
   (torch.equal) the same frame rendered with the mode off.
+- The compiled frame (a CUDA graph that Renderer.render replays), config
+  4 at 480x270: the replay equals render_frame on the same constants
+  (torch.equal, or within 1e-5 and no pixel above 0.02 where two eager
+  frames differ too), with the zero radius and the soft disk; a frame
+  held across the next render() is unchanged; the launch counts of the
+  first render (eager frame and replay) and of each replay; close() gives
+  back the graph's pool; a host read patched into render_frame makes the
+  capture raise, twice (a process of its own); K6's texture object in the
+  graph outlives a reset of the eager path's texture cache.
 
 Imports torch and the port only (the card's machine has no jax). The
 cases marked ``cuda`` skip without a CUDA device; run them on the card
@@ -478,7 +487,8 @@ def test_cuda_inputs_never_reach_the_plain_versions(cuda, monkeypatch):
     img = Renderer(scene, cfg, lights=lights).render(0.0)
     torch.cuda.synchronize()
     assert img.is_cuda and bool(torch.isfinite(img).all())
-    assert pcf.LAUNCHES == before + 1
+    # the first render: the eager frame before the capture, then a replay
+    assert pcf.LAUNCHES == before + 2
 
 
 @pytest.mark.cuda
@@ -618,3 +628,152 @@ def test_render_queues_without_a_host_sync(cuda):
         torch.cuda.set_sync_debug_mode(0)
     r.check_overflow()
     assert torch.equal(got, want)
+
+
+def _compiled(cuda, radius=None, width=480, height=270):
+    """A config-4 Renderer on the card at width x height (with the soft
+    disk for radius 2.5) whose first frame, at t = 0, captured its
+    graph."""
+    from crychic_renderer_tpu_torch.app.renderer import Renderer
+    from crychic_renderer_tpu_torch.models import scenes_baseline as sb
+
+    scene, cfg, lights = sb.config4_shadow_pipeline()
+    cfg = dataclasses.replace(cfg, width=width, height=height,
+                              pcf_radius_texels=radius)
+    r = Renderer(scene, cfg, lights=lights, device=cuda)
+    r.render(0.0)
+    assert r.compiled_frame.graph is not None
+    return r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radius", [None, 2.5], ids=["zero", "soft"])
+def test_replay_equals_eager_frame(cuda, radius):
+    """The replayed frame (K1, K2 and, with the soft disk, K6 inside the
+    graph) equals render_frame on the same constants: torch.equal, or,
+    where two eager frames differ too, within 1e-5 with no pixel above
+    0.02."""
+    from crychic_renderer_tpu_torch.passes import frame as fr
+
+    r = _compiled(cuda, radius)
+    img = r.render(0.1)
+    consts = r.frame_constants(0.1)
+    eager = [fr.render_frame(r.device_scene, consts, r.cfg)
+             for _ in range(2)]
+    r.check_overflow()
+    if not torch.equal(img, eager[0]):
+        assert not torch.equal(eager[0], eager[1])
+        diff = (img - eager[0]).abs().amax(dim=-1)
+        assert float(diff.max()) <= 1e-5 and not bool((diff > 0.02).any())
+
+
+@pytest.mark.cuda
+def test_held_frame_survives_the_next_render(cuda):
+    """render() returns a new tensor: a frame held across the next
+    render() (another pose, so another image) is unchanged."""
+    r = _compiled(cuda)
+    held = r.render(0.0)
+    want = held.clone()
+    r.camera.look_at((0.0, 4.0, -20.0), (0.0, 7.0, 0.0), (0.0, 1.0, 0.0))
+    other = r.render(0.0)
+    torch.cuda.synchronize()
+    assert torch.equal(held, want) and not torch.equal(held, other)
+
+
+@pytest.mark.cuda
+def test_replay_launch_tally(cuda):
+    """The first render launches each kernel twice (the eager frame
+    before the capture and the replay); every later render once, counted
+    through the replay tally; close() frees the graph's pool."""
+    from crychic_renderer_tpu_torch.app.renderer import Renderer
+    from crychic_renderer_tpu_torch.models import scenes_baseline as sb
+
+    scene, cfg, lights = sb.config4_shadow_pipeline()
+    cfg = dataclasses.replace(cfg, width=480, height=270,
+                              pcf_radius_texels=2.5)
+    r = Renderer(scene, cfg, lights=lights, device=cuda)
+    raster.reset_launches()
+    pcf.reset_launches()
+    r.render(0.0)
+    torch.cuda.synchronize()
+    assert (raster.LAUNCHES_BY_VARIANT["ids"],
+            raster.LAUNCHES_BY_VARIANT["depth"], pcf.LAUNCHES) == (2, 2, 2)
+    assert r.compiled_frame.launches == ({"ids": 1, "depth": 1}, 1)
+    raster.reset_launches()
+    pcf.reset_launches()
+    for i in range(3):
+        r.render(i / 60.0)
+    torch.cuda.synchronize()
+    assert raster.LAUNCHES == 6 and pcf.LAUNCHES == 3
+    assert raster.LAUNCHES_BY_VARIANT["ids"] == 3
+    r.check_overflow()
+    pool = r.compiled_frame.pool_bytes
+    assert pool > 0
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved()
+    r.close()
+    torch.cuda.empty_cache()
+    assert held - torch.cuda.memory_reserved() >= pool
+
+
+@pytest.mark.cuda
+def test_host_read_inside_the_frame_makes_capture_raise(cuda):
+    """A host read patched into render_frame (the eager frame allows it)
+    makes the capture raise, and the next render raises again: nothing
+    falls back to the eager frame. In a process of its own, since a
+    failed capture leaves its stream state behind."""
+    import os
+    import subprocess
+    import sys
+
+    script = """
+import dataclasses, torch
+from crychic_renderer_tpu_torch.app.renderer import Renderer
+from crychic_renderer_tpu_torch.models import scenes_baseline as sb
+from crychic_renderer_tpu_torch.passes import frame as fr
+real = fr.render_frame
+def reading(scene, consts, cfg, stats=None):
+    float(consts.view_proj[0, 0])  # a host read: waits for the stream
+    return real(scene, consts, cfg, stats)
+fr.render_frame = reading
+scene, cfg, lights = sb.config4_shadow_pipeline()
+r = Renderer(scene, dataclasses.replace(cfg, width=240, height=135),
+             lights=lights, device="cuda")
+for attempt in range(2):
+    try:
+        r.render(0.0)
+    except RuntimeError as e:
+        print("raised:", str(e).splitlines()[0])
+    else:
+        raise SystemExit("the capture did not raise")
+"""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    p = subprocess.run([sys.executable, "-c", script], cwd=repo,
+                       capture_output=True, text=True, timeout=600)
+    assert p.returncode == 0, p.stdout + p.stderr[-3000:]
+    assert p.stdout.count("raised:") == 2, p.stdout
+
+
+@pytest.mark.cuda
+def test_k6_texture_outlives_a_cache_reset(cuda):
+    """The compiled frame's K6 reads its own texture object: filling the
+    eager path's 64-map cache (which destroys every cached object) leaves
+    the replayed soft-disk frame as it was."""
+    r = _compiled(cuda, 2.5)
+    want = r.render(0.1)
+    torch.cuda.synchronize()
+    fills = pcf.cache_fills()
+    rng = np.random.default_rng(5)
+    params = torch.from_numpy(np.stack([
+        rng.uniform(0, 64, 64), rng.uniform(0, 64, 64),
+        rng.uniform(0, 65535, 64), np.ones(64), np.zeros(64),
+        np.zeros(64)]).astype(np.float32)).to(cuda)
+    maps = [torch.zeros((1, 64, 64), dtype=torch.int16, device=cuda)
+            for _ in range(70)]
+    for m in maps:
+        pcf.soft_pcf(m, params, 2.5)
+    torch.cuda.synchronize()
+    assert pcf.cache_fills() > fills
+    got = r.render(0.1)
+    assert torch.equal(got, want)
+    r.check_overflow()

@@ -146,7 +146,8 @@ def test_app_and_probe_modules_import_without_jax():
         "'app.stats', 'utils.gametimer', 'experiments.fma_kernel_probe', "
         "'experiments.bin_decomp_probe', 'experiments.sharded_ab_probe', "
         "'experiments.alpha_probe', 'bench', 'experiments.bench_all', "
-        "'experiments.bench_ab_probe'):\n"
+        "'experiments.bench_ab_probe', 'app.graphs', "
+        "'experiments.texture_capture_probe'):\n"
         "    importlib.import_module('crychic_renderer_tpu_torch.' + m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('crychic_renderer_tpu', 'experiments'))\n"
