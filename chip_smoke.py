@@ -45,11 +45,14 @@ soft PCF kernel (csrc/pcf.cu). Phases, each printed as it ends:
    launch;
 10. the band-sharded frame (parallel/sharded.py) of config 4 at 1080p on
    4 ranks of one gloo group that time-share the ONE card (kernels built
-   above, loaded by the ranks): check_band_capacity, 3 warm-up + 10
-   frames, exactly one K3 main-view and one K3 atlas launch per rank and
-   frame and no K1/K2, no overflow, the gathered image against
-   render_frame on the card (<= 1e-3 of pixels > 0.02), the median
-   ms/frame (not a scaling number: the ranks share one card);
+   above, loaded by the ranks), as launch.render_sharded renders it by
+   default: the compiled band frame (parallel/graphs.py, phase 25).
+   check_band_capacity, 3 warm-up + 10 frames, exactly one K3 main-view
+   and one K3 atlas launch per rank and frame (through the replay tally;
+   one more of each for the eager frame before the capture) and no
+   K1/K2, no overflow, the gathered image against render_frame on the
+   card (<= 1e-3 of pixels > 0.02), the median ms/frame (not a scaling
+   number: the ranks share one card);
 11. each owner's band alone at n=4 in sim_index mode (the all_gathers are
    copies of the local shard), median ms: the JAX package's per-device
    band time method, printed without a claim. It does not time a band of
@@ -69,8 +72,10 @@ soft PCF kernel (csrc/pcf.cu). Phases, each printed as it ends:
    decompose run (the kernel alone and the full rasterize, 1 + reps
    each);
 14. app/profiler.profile_frame of the 1080p Renderer: every stage, their
-   sum and TOTAL_fused (host clock per stage ending in a synchronize),
-   with the launches of the profiling run counted;
+   sum and TOTAL_fused, each stage captured as its own CUDA graph and
+   timed over its replays, TOTAL_fused over Renderer.render's replays
+   (host clock ending in a synchronize), with the launches of the
+   profiling run counted;
 15. app/compare.parity([4], small=True) on the card (the card's 480x270
    frame against the CPU path's: < 0.5% of pixels > 0.02), and a scripted
    headless app/viewer run on the card (config 4, fast preset, 1280x720,
@@ -180,11 +185,29 @@ soft PCF kernel (csrc/pcf.cu). Phases, each printed as it ends:
    capture in the global mode (the compiled frame makes its objects before
    the capture either way).
 
+25. the compiled band frame (parallel/graphs.CompiledBandFrame) against
+   the eager band frame: config 4 at 1920x1080 on 4 gloo ranks sharing
+   the card, with the zero-radius PCF and with the soft disk, in turns
+   compiled, eager, eager, compiled (2 warm-up + 5 frames each) in one
+   job: every rank's replay torch.equal to its eager band frame, the
+   gathered image against render_frame on the card (phase 10's bound),
+   per rank the graphs (the gathers + 1), the graphs' pool bytes, the
+   capture ms, the launches per replay (one K3 of each kind, one K6 with
+   the soft disk) and the host ms to issue a frame, the launches counted
+   (one more of each per capture), the median ms/frame of rank 0 per
+   turn, 0 texture-cache fills, and torch.profiler over 3 replays of rank
+   0 (K3's and K6's device ms inside the replay); the u16-packed atlas
+   gather against the f32 one on the same frame (torch.equal, the bytes
+   received per rank and frame); render_frames_replicated on 2 x 2
+   ranks, compiled equal to eager; 1 NCCL rank, the whole band frame and
+   its all_gather_into_tensor collectives one graph, equal to eager; and
+   phase 14's per-stage replay ms beside phase 22's device ms.
+
 Renderer.render replays a CUDA graph: a Renderer's first render, and the
 first after its cfg is replaced, runs one eager frame before it captures
 the graph, so a run's launch counts hold one more launch of each of its
 kernels per capture (app/graphs.CAPTURES), which every check counts.
-Phases 6, 8, 10, 14-16 and 18-24 count no field-major (K4) launch: the
+Phases 6, 8, 10, 14-16 and 18-25 count no field-major (K4) launch: the
 variant is kept off every frame path.
 
 Then one JSON line of per-kernel results (with each kernel's bound: the
@@ -227,6 +250,12 @@ K6_QUEUE = 20
 P24_CELLS = ("config4", "config4_soft", "config5", "fence", "config1")
 P24_TURNS = ("graph", "eager", "eager", "graph")
 P24_QUEUE = 20
+# phase 25: the band frame compiled against eager in turns, per cell, on
+# 4 gloo ranks (rank 0's first compiled turn also profiled)
+P25_TURNS = ("compiled", "eager", "eager", "compiled")
+P25_WARMUP = 2
+P25_TIMED = 5
+P25_PROFILE = 3
 FRAME_RUNS = ["config4", "soft", "soft_fast", "sharded", "profiler",
               "parity", "viewer", "config1", "forward", "rig", "fence",
               "fence_profiler", "soft_520", "config5", "config5_profiler",
@@ -236,7 +265,8 @@ FRAME_RUNS = ["config4", "soft", "soft_fast", "sharded", "profiler",
                   f"p23_{cell}" for cell in P23_CELLS] + [
                   "p23_soft_queue", "bench"] + [
                   f"p24_{cell}_{turn}_{i}" for cell in P24_CELLS
-                  for i, turn in enumerate(P24_TURNS)]
+                  for i, turn in enumerate(P24_TURNS)] + [
+                  "p25_gloo", "p25_nccl"]
 ZERO = dict(ids=0, depth=0, band_ids=0, band_depth=0, field_ids=0,
             field_depth=0, pcf=0)
 PIX_BOUND = 0.005
@@ -592,6 +622,13 @@ def main():
     phase(f"[24] phase 24 took {t6 - t5:.1f} s; the script "
           f"{t6 - t_script:.1f} s, kernel builds included")
 
+    # 25: the compiled band frame against the eager one
+    band_graph_runs(r, consts0, band_cfg[4], dev, frame_ms, launches,
+                    frame_ms["p22_config4_stages"]["compacted"], smi)
+    t7 = time.perf_counter()
+    phase(f"[25] phase 25 took {t7 - t6:.1f} s; the script "
+          f"{t7 - t_script:.1f} s, kernel builds included")
+
     kernels.sort(key=lambda k: k["name"])
     for k in kernels:
         variant = k.pop("variant")
@@ -697,12 +734,15 @@ def reject_note(records, with_xrange):
 
 def sharded_frame(r, consts, band_cfg, dev):
     """The band-sharded frame of config 4 at 1080p on 4 gloo ranks that
-    share the card: band capacities checked, FRAMES_WARMUP +
-    FRAMES_TIMED frames per rank with every launch count set to 0 just
-    before and read just after (exactly one K3 launch of each kind per
-    frame, no K1/K2), no overflow, and the gathered image against
-    render_frame on the same card (<= 1e-3 of pixels > 0.02). Returns
-    (median ms/frame of rank 0, launch counts summed over the ranks)."""
+    share the card, as launch.render_sharded renders it by default (the
+    compiled band frame, parallel/graphs.py): band capacities checked,
+    FRAMES_WARMUP + FRAMES_TIMED frames per rank with every launch count
+    set to 0 just before and read just after (one K3 main-view and one K3
+    atlas launch per frame, counted through the replay tally, and one
+    more of each for the eager frame before the capture; no K1/K2), no
+    overflow, and the gathered image against render_frame on the same
+    card (<= 1e-3 of pixels > 0.02). Returns (median ms/frame of rank 0,
+    launch counts summed over the ranks)."""
     from crychic_renderer_tpu_torch.parallel import launch, sharded
     from crychic_renderer_tpu_torch.passes import frame as fr
 
@@ -713,7 +753,7 @@ def sharded_frame(r, consts, band_cfg, dev):
         [r.device_scene], [consts], [(band_cfg, 0, (0,))], n, "gloo", dev,
         warmup=FRAMES_WARMUP, timed=FRAMES_TIMED, timeout=600)
     job_s = time.perf_counter() - t0
-    frames = FRAMES_WARMUP + FRAMES_TIMED
+    frames = FRAMES_WARMUP + FRAMES_TIMED + 1  # + the eager frame
     want = dict(ZERO, band_ids=frames, band_depth=frames)
     img = ranks[0][0]["img"]
     for rank, (out,) in enumerate(ranks):
@@ -726,8 +766,10 @@ def sharded_frame(r, consts, band_cfg, dev):
     frac = float((diff > 0.02).mean())
     assert frac <= SHARD_FRAC, f"sharded frame: {frac:.4%} of pixels > 0.02"
     ms = statistics.median(ranks[0][0]["ms"])
+    graph = ranks[0][0]["graph"]
     phase(f"[10] sharded frame, config 4 {r.cfg.width}x{r.cfg.height}, "
-          f"{n} gloo ranks time-sharing ONE card (not band scaling): band "
+          f"{n} gloo ranks time-sharing ONE card (not band scaling), the "
+          f"compiled band frame ({graph['graphs']} graphs per rank): band "
           f"capacities main {band_cfg.band_pair_capacity} >= worst rank "
           f"{req['main_band_pairs']}, shadow "
           f"{band_cfg.shadow_band_pair_capacity} >= "
@@ -1495,6 +1537,7 @@ def compaction_runs(dev, assets, frame_ms, launches):
             ms[mode].append(t)
         r.cfg = cfg
         frame_ms[f"p22_{name}"] = ms
+        frame_ms[f"p22_{name}_stages"] = stages
 
         note = ""
         if k6_calls:
@@ -1912,6 +1955,204 @@ def compiled_runs(dev, assets, frame_ms, launches):
 
 # (turn, index within that turn's list) in P24_TURNS' order
 P24_ORDER = [(t, P24_TURNS[:i].count(t)) for i, t in enumerate(P24_TURNS)]
+
+
+def _rank_note(out):
+    """One rank's compiled run: graphs, pool bytes, capture ms, launches
+    per replay, median host ms to issue a frame."""
+    g = out["graph"]
+    return (f"{g['graphs']} graphs, pool {g['pool_bytes']} B, capture "
+            f"{g['capture_ms']:.1f} ms, per replay {g['launches']}, issue "
+            f"{statistics.median(out['issue_ms']):.3f} ms")
+
+
+def band_graph_runs(r, consts, band_cfg, dev, frame_ms, launches, p22,
+                    card):
+    """Phase 25 (see the module doc): the compiled band frame against the
+    eager one on 4 gloo ranks sharing the card and on 1 NCCL rank, the
+    u16-packed atlas gather against the f32 one, render_frames_replicated
+    on 2 x 2 ranks, and profile_frame's stage graphs beside phase 22.
+    `card`: nvidia-smi's name and power limit, printed first."""
+    import copy
+
+    from crychic_renderer_tpu_torch.parallel import launch, sharded
+    from crychic_renderer_tpu_torch.passes import frame as fr
+
+    scene = r.device_scene
+    cells = {"zero": band_cfg,
+             "soft": dataclasses.replace(band_cfg, pcf_radius_texels=SOFT)}
+    cfg2 = sharded.autosize_band_capacities(scene, consts, r.cfg, 2)
+    cam = copy.deepcopy(r.camera)
+    r.camera.walk(2.0)
+    r.camera.rotate_y(0.1)
+    moved = r.frame_constants(0.5)
+    r.camera = cam
+    runs, index = [], {}
+    for cell, cfg in cells.items():
+        for i, turn in enumerate(P25_TURNS):
+            opts = dict(compiled=turn == "compiled")
+            if i == 0:
+                opts["profile"] = P25_PROFILE
+            index[(cell, i)] = len(runs)
+            runs.append((cfg, 0, (0,), opts))
+    index["f32"] = len(runs)
+    runs.append((band_cfg, 0, (0,), dict(packed_atlas=False)))
+    for turn in ("compiled", "eager"):
+        index[("replicated", turn)] = len(runs)
+        runs.append((cfg2, 0, (0, 1), dict(compiled=turn == "compiled")))
+    t0 = time.perf_counter()
+    ranks = launch.render_sharded(
+        [scene], [consts, moved], runs, 4, "gloo", dev, warmup=P25_WARMUP,
+        timed=P25_TIMED, timeout=900)
+    job_s = time.perf_counter() - t0
+    total = dict(ZERO)
+    for rank, outs in enumerate(ranks):
+        for k, out in enumerate(outs):
+            cfg, opts = runs[k][0], runs[k][3]
+            compiled = opts.get("compiled", True)
+            n = out["frames"] + (1 if compiled else 0)
+            want = dict(ZERO, band_ids=n, band_depth=n,
+                        pcf=n if cfg.pcf_radius_texels else 0)
+            assert out["launches"] == want, (rank, k, out["launches"], want)
+            assert not out["overflowed"], (rank, k)
+            assert out["cache_fills"] == 0, (rank, k, out["cache_fills"])
+            for key in total:
+                total[key] += out["launches"][key]
+            if compiled:
+                assert out["graph"]["launches"] == (
+                    {"band_ids": 1, "band_depth": 1}, want["pcf"] // n), \
+                    (rank, k, out["graph"]["launches"])
+    launches["p25_gloo"] = total
+
+    lines, cell_ms = [f"[25] card: {card}"], {}
+    for cell, cfg in cells.items():
+        outs = [[ranks[q][index[(cell, i)]] for i in range(4)]
+                for q in range(4)]
+        for q, o in enumerate(outs):
+            for i in (0, 3):
+                for j in (1, 2):
+                    assert np.array_equal(o[i]["img"], o[j]["img"]), (
+                        f"{cell}, rank {q}: the replay (turn {i}) is not "
+                        f"equal to the eager band frame (turn {j})")
+            gathers = o[1]["gathers"]
+            assert o[0]["graph"]["graphs"] == gathers + 1, (
+                cell, q, o[0]["graph"]["graphs"], gathers)
+        ref = fr.render_frame(scene, consts, dataclasses.replace(
+            r.cfg, pcf_radius_texels=cfg.pcf_radius_texels)).cpu().numpy()
+        img = outs[0][0]["img"]
+        diff = np.abs(img - ref).max(axis=-1)
+        frac = float((diff > 0.02).mean())
+        assert frac <= SHARD_FRAC, f"{cell}: {frac:.4%} of pixels > 0.02"
+        med = [statistics.median(outs[0][i]["ms"]) for i in range(4)]
+        issue = [statistics.median(outs[0][i]["issue_ms"])
+                 for i in range(4)]
+        prof = outs[0][0]["profile"]
+        cell_ms[cell] = dict(
+            ms_per_frame=med, issue_ms=issue, gathers=outs[0][1]["gathers"],
+            gathered_bytes=outs[0][0]["gathered_bytes"],
+            ranks=[o[0]["graph"] for o in outs], profile=prof,
+            vs_render_frame=dict(max=float(diff.max()), frac=frac))
+        kern = "; ".join(f"{name} {c:.0f} x {ms:.4f} ms" for name, (
+            c, ms) in prof["kernels"].items())
+        top = "; ".join(f"{name} {c:.0f} x {ms:.3f} ms" for name, (
+            c, ms) in prof["top"].items())
+        lines.append(
+            f"[25] {cell}: turns c e e c, rank 0 median ms/frame "
+            f"{[round(t, 3) for t in med]}, host ms to issue "
+            f"{[round(t, 3) for t in issue]}; every rank's replay "
+            f"torch.equal to its eager band frame; vs render_frame max "
+            f"|diff| {diff.max():.3g}, {frac:.4%} > 0.02; "
+            f"{outs[0][1]['gathers']:.0f} gathers per frame, "
+            f"{outs[0][0]['gathered_bytes']:.0f} bytes received per rank "
+            f"and frame; per rank: "
+            + " | ".join(_rank_note(o[0]) for o in outs)
+            + f"; rank 0's replay in torch.profiler ({prof['frames']} "
+            f"frames): {prof['records']:.0f} device records, "
+            f"{prof['device_ms']:.3f} ms per frame, of it {kern}; the "
+            f"names that took the most: {top}")
+
+    # the packed atlas gather against the f32 one, same frame
+    f32 = [ranks[q][index["f32"]] for q in range(4)]
+    packed = [ranks[q][index[("zero", 0)]] for q in range(4)]
+    for q in range(4):
+        assert np.array_equal(f32[q]["img"], packed[q]["img"]), (
+            f"rank {q}: packed atlas frame != f32 atlas frame")
+    saved = f32[0]["gathered_bytes"] - packed[0]["gathered_bytes"]
+    assert saved > 0, saved
+    lines.append(
+        f"[25] u16-packed atlas gather vs f32: torch.equal frames on every "
+        f"rank; bytes received per rank and frame "
+        f"{packed[0]['gathered_bytes']:.0f} packed, "
+        f"{f32[0]['gathered_bytes']:.0f} f32 ({saved:.0f} fewer); rank 0 "
+        f"median ms/frame {statistics.median(packed[0]['ms']):.3f} packed "
+        f"(turn 0), {statistics.median(f32[0]['ms']):.3f} f32; f32 ranks: "
+        + " | ".join(_rank_note(o) for o in f32))
+
+    # render_frames_replicated on 2 x 2 ranks, compiled against eager
+    rep = [(ranks[q][index[("replicated", "compiled")]],
+            ranks[q][index[("replicated", "eager")]]) for q in range(4)]
+    for q, (g, e) in enumerate(rep):
+        assert np.array_equal(g["img"], e["img"]), (
+            f"replicated, rank {q}: compiled != eager")
+    assert not np.array_equal(rep[0][0]["img"], rep[2][0]["img"])
+    lines.append(
+        f"[25] render_frames_replicated, 2 replica groups x 2 gloo ranks "
+        f"(the second group's camera moved): every rank's replay "
+        f"torch.equal to its eager frame; rank 0 median ms/frame compiled "
+        f"{statistics.median(rep[0][0]['ms']):.3f}, eager "
+        f"{statistics.median(rep[0][1]['ms']):.3f}; per rank: "
+        + " | ".join(_rank_note(g) for g, _ in rep))
+
+    # 1 NCCL rank: the whole band frame, its collectives inside, one graph
+    cfg1 = sharded.autosize_band_capacities(scene, consts, r.cfg, 1)
+    t1 = time.perf_counter()
+    (g1, e1), = launch.render_sharded(
+        [scene], [consts], [(cfg1, 0, (0,)),
+                            (cfg1, 0, (0,), dict(compiled=False))],
+        1, "nccl", "cuda:0", warmup=P25_WARMUP, timed=P25_TIMED,
+        timeout=600)
+    nccl_s = time.perf_counter() - t1
+    assert g1["graph"]["graphs"] == 1, g1["graph"]
+    assert np.array_equal(g1["img"], e1["img"]), "NCCL: replay != eager"
+    assert g1["gathers"] == e1["gathers"] > 0, (g1["gathers"], e1["gathers"])
+    nccl = {}
+    for name, out, extra in (("compiled", g1, 1), ("eager", e1, 0)):
+        n = out["frames"] + extra
+        want = dict(ZERO, band_ids=n, band_depth=n)
+        assert out["launches"] == want, (name, out["launches"], want)
+        assert not out["overflowed"] and out["cache_fills"] == 0, name
+        nccl[name] = dict(ms=statistics.median(out["ms"]),
+                          issue_ms=statistics.median(out["issue_ms"]))
+    launches["p25_nccl"] = {k: g1["launches"][k] + e1["launches"][k]
+                            for k in ZERO}
+    lines.append(
+        f"[25] 1 NCCL rank: the whole band frame in one graph "
+        f"({g1['gathers']:.0f} all_gather_into_tensor inside, "
+        f"{g1['gathered_bytes']:.0f} bytes per frame), replay torch.equal "
+        f"to eager; median ms/frame compiled {nccl['compiled']['ms']:.3f} "
+        f"(issue {nccl['compiled']['issue_ms']:.3f}), eager "
+        f"{nccl['eager']['ms']:.3f} (issue {nccl['eager']['issue_ms']:.3f})"
+        f"; {_rank_note(g1)}; job {nccl_s:.1f} s")
+
+    # profile_frame's stage graphs (phase 14) beside phase 22's device ms
+    stages = frame_ms["profile_stages"]
+    side = {k: (round(stages[k], 3), round(p22[k][0], 3), round(p22[k][1], 3))
+            for k in p22}
+    lines.append(
+        f"[25] profile_frame, config 4 {r.cfg.width}x{r.cfg.height} "
+        f"(phase 14: each stage a CUDA graph, {PROFILE_REPS} replays after "
+        f"1, host clock ending in a synchronize), ms: "
+        f"{ {k: round(v, 3) for k, v in stages.items()} }; beside phase "
+        f"22's compacted device ms (stage: replay, busy, span): {side}")
+    for line in lines:
+        phase(line)
+    frame_ms["p25"] = dict(cells=cell_ms, job_s=job_s, nccl=nccl,
+                           packed_bytes=packed[0]["gathered_bytes"],
+                           f32_bytes=f32[0]["gathered_bytes"],
+                           f32_ms=statistics.median(f32[0]["ms"]),
+                           replicated_ms=[
+                               statistics.median(rep[0][0]["ms"]),
+                               statistics.median(rep[0][1]["ms"])])
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -32,9 +32,17 @@ The graph's intermediate tensors live in its private memory pool
 (``pool_bytes``, measured as the device memory the capture reserved).
 ``release()`` waits for the card, then frees the graph, its pool and the
 texture objects; it runs when the object is collected.
+
+``capture`` and ``Pieces`` are that procedure for any function: the
+profiler's stage graphs (app/profiler.py) and the band-sharded frame
+(parallel/graphs.py) use them too. ``Pieces`` holds a capture split into
+several graphs where the function hands work to the host between two of
+them (the band frame's gloo gathers), replayed in capture order with
+that work between the graphs.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 
@@ -68,6 +76,102 @@ def _tally():
     return dict(raster.LAUNCHES_BY_VARIANT), pcf.LAUNCHES
 
 
+def add_launches(launches):
+    """Count one replay of a capture's launches ((by variant, pcf))."""
+    raster.add_launches(launches[0])
+    pcf.add_launches(launches[1])
+
+
+class Pieces:
+    """The CUDA graphs of one capture, in capture order. ``split(fn,
+    *args)``, called while a graph is being captured, ends that graph,
+    records fn(*args) as host work to run after it, and opens the next
+    graph; without a split the capture is one graph. Every graph after
+    the first shares the first's memory pool, so a tensor one graph makes
+    and a later one reads keeps its address: the graphs replay in capture
+    order on one stream (``replay``: graph 0, step 0, graph 1, ...).
+    new_graph makes a graph (torch.cuda.CUDAGraph; a test hands a
+    stand-in)."""
+
+    def __init__(self, new_graph=None):
+        self.new_graph = new_graph or torch.cuda.CUDAGraph
+        self.graphs = []
+        self.steps = []  # (fn, args) run between graph k and graph k + 1
+        self.open = False
+
+    def begin(self):
+        pool = self.graphs[0].pool() if self.graphs else None
+        graph = self.new_graph()
+        graph.capture_begin(pool=pool, capture_error_mode="global")
+        self.graphs.append(graph)
+        self.open = True
+
+    def end(self):
+        if self.open:
+            self.open = False
+            self.graphs[-1].capture_end()
+
+    def split(self, fn, *args):
+        self.end()
+        self.steps.append((fn, args))
+        self.begin()
+
+    def replay(self):
+        for graph, (fn, args) in zip(self.graphs, self.steps):
+            graph.replay()
+            fn(*args)
+        self.graphs[-1].replay()
+
+    def reset(self):
+        for graph in self.graphs:
+            graph.reset()
+        self.graphs, self.steps = [], []
+
+
+def capture(fn, device, maps: pcf.OwnedMaps, pieces: Pieces,
+            during=None):
+    """Run fn() once eagerly, then capture it into `pieces` on a side
+    stream, both with the soft PCF's maps and texture objects in `maps`
+    (see the module doc). `during`, a context manager, is entered around
+    the capture alone (the band frame's split_gathers). Returns (fn's
+    output in the capture, capture ms on the host clock, the device
+    memory the capture reserved, the launches it captured: (by variant,
+    pcf)), after taking those launches back from the counters."""
+    global CAPTURES
+    device = torch.device(device)
+    stream = torch.cuda.Stream(device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    # the eager frame runs on the capture's stream: what a library makes
+    # once per stream (cuBLAS's workspace) is made here, outside the
+    # graph's pool, which would otherwise keep it after the graph is freed
+    with pcf.owned_maps(maps), torch.cuda.stream(stream):
+        fn()
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(device)
+    before = _tally()
+    t0 = time.perf_counter()
+    try:
+        with pcf.owned_maps(maps), torch.cuda.stream(stream), \
+                during or contextlib.nullcontext():
+            pieces.begin()
+            try:
+                out = fn()
+            finally:
+                pieces.end()
+    finally:
+        counts, n_pcf = _tally()
+        by_variant = {k: counts[k] - before[0][k] for k in counts}
+        raster.add_launches({k: -n for k, n in by_variant.items()})
+        pcf.add_launches(before[1] - n_pcf)
+    torch.cuda.current_stream(device).wait_stream(stream)
+    capture_ms = 1000.0 * (time.perf_counter() - t0)
+    pool_bytes = torch.cuda.memory_reserved(device) - reserved
+    CAPTURES += 1
+    return out, capture_ms, pool_bytes, (
+        {k: n for k, n in by_variant.items() if n}, n_pcf - before[1])
+
+
 class CompiledFrame:
     """fn(scene, *inputs) captured into a CUDA graph (see the module doc).
     After a capture: ``capture_ms`` (host time of the capture alone),
@@ -94,8 +198,7 @@ class CompiledFrame:
             for s, x in zip(self.static, inputs):
                 s.copy_(x)
         self.graph.replay()
-        raster.add_launches(self.launches[0])
-        pcf.add_launches(self.launches[1])
+        add_launches(self.launches)
         out = tuple(o.clone() for o in self.outputs)
         return out[0] if self.single else out
 
@@ -105,41 +208,16 @@ class CompiledFrame:
             for s, x in zip(self.static, inputs))
 
     def _capture(self, scene, inputs):
-        global CAPTURES
         self.release()
-        dev = self.device
         self.static = tuple(x.clone() for x in inputs)
-        with pcf.owned_maps(self.maps):  # the eager frame
-            self.fn(scene, *self.static)
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(dev)
-        before = _tally()
-        graph = torch.cuda.CUDAGraph()
-        stream = torch.cuda.Stream(dev)
-        t0 = time.perf_counter()
-        try:
-            with pcf.owned_maps(self.maps), torch.cuda.stream(stream):
-                graph.capture_begin(capture_error_mode="global")
-                try:
-                    out = self.fn(scene, *self.static)
-                finally:
-                    graph.capture_end()
-        finally:
-            counts, n_pcf = _tally()
-            by_variant = {k: counts[k] - before[0][k] for k in counts}
-            raster.add_launches({k: -n for k, n in by_variant.items()})
-            pcf.add_launches(before[1] - n_pcf)
-        torch.cuda.current_stream(dev).wait_stream(stream)
-        self.capture_ms = 1000.0 * (time.perf_counter() - t0)
-        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
-        self.launches = ({k: n for k, n in by_variant.items() if n},
-                         n_pcf - before[1])
+        graph = Pieces()
+        out, self.capture_ms, self.pool_bytes, self.launches = capture(
+            lambda: self.fn(scene, *self.static), self.device, self.maps,
+            graph)
         self.single = isinstance(out, torch.Tensor)
         self.outputs = (out,) if self.single else tuple(out)
         self.scene_leaves = _leaves(scene)
         self.graph = graph
-        CAPTURES += 1
 
     def release(self):
         """Free the graph, its pool and its maps' texture objects, once

@@ -6,25 +6,31 @@ on its own, with the JAX profiler's keys so the two reports line up:
 ``tri_attrs``, ``tri_setup``, ``bin_main`` (binning + records of the main
 view), ``raster_main`` (bin + records + K1), ``resolve_gbuffer``,
 ``shadow_maps_x4`` (``render_shadow_atlas``: bin + records + K2),
-``ssao``, ``lighting`` (with the debug overlay) and ``TOTAL_fused``
-(``render_frame`` whole; the port fuses nothing, the key keeps the JAX
-name). ``bin_main`` is also inside ``raster_main``, so the stages sum to
-more than the frame. A frame with the alpha-tested layer adds two stages
-the JAX profiler does not have: ``alpha_merge_main`` (the layer's vertex
-stage, depth peel and merge into the visibility buffer) after
-``raster_main``, and ``alpha_merge_shadow`` (the shadow punch) after
-``shadow_maps_x4``. Forward and Blinn-Phong frames keep the JAX keys
-(the forward path's shadow quad is inside ``lighting``).
+``ssao``, ``lighting`` (with the debug overlay) and ``TOTAL_fused`` (the
+Renderer's frame whole). ``bin_main`` is also inside ``raster_main``, so
+the stages sum to more than the frame. A frame with the alpha-tested
+layer adds two stages the JAX profiler does not have:
+``alpha_merge_main`` (the layer's vertex stage, depth peel and merge
+into the visibility buffer) after ``raster_main``, and
+``alpha_merge_shadow`` (the shadow punch) after ``shadow_maps_x4``.
+Forward and Blinn-Phong frames keep the JAX keys (the forward path's
+shadow quad is inside ``lighting``).
 
-Each stage is timed as the JAX ``_time`` does: one warm-up call, then the
-host clock around `reps` calls ending in ``torch.cuda.synchronize()``. On a
-host-bound frame that charges each stage the time the host takes to issue
-it, which is what the frame pays. ``run_stages`` chains the stages with the
-same functions and arguments as ``render_frame``, so the chain gives its
-image bit for bit. With a Renderer's tile capacities the ``resolve_gbuffer``,
-``ssao`` and ``lighting`` stages run the tile-compacted passes, as the frame
-does; the JAX profiler's ``ssao`` stage does not hand its ``ssao_pass`` the
-coverage, so there it times the dense occlusion.
+The JAX profiler jits every stage and times the compiled stage; on the
+card each stage here is compiled the same way, captured as its own CUDA
+graph (``app/graphs.capture``: one eager run, then the capture) and timed
+as the JAX ``_time`` does: one warm-up replay, then the host clock around
+`reps` replays ending in ``torch.cuda.synchronize()``. A replay is one
+graph launch, so that is the stage's time on the card, not the time
+Python takes to issue its kernels. ``TOTAL_fused`` times the frame that
+``Renderer.render`` replays (its compiled frame) the same way. On the CPU
+the stages and the frame run eagerly, timed alike. ``run_stages`` chains
+the stages with the same functions and arguments as ``render_frame``, so
+the chain gives its image bit for bit (on the card each stage's output is
+its graph's). With a Renderer's tile capacities the ``resolve_gbuffer``,
+``ssao`` and ``lighting`` stages run the tile-compacted passes, as the
+frame does; the JAX profiler's ``ssao`` stage does not hand its
+``ssao_pass`` the coverage, so there it times the dense occlusion.
 
 Usage::
 
@@ -40,9 +46,10 @@ import time
 
 import torch
 
-from ..ops import clipping, raster
+from ..ops import clipping, pcf, raster
 from ..ops import rasterizer as rz
 from ..passes import frame as fr
+from . import graphs
 
 
 def run_stages(scene: fr.DeviceScene, consts: fr.FrameConstants, cfg,
@@ -112,20 +119,43 @@ def _time(fn, reps: int, device: torch.device) -> float:
     return 1000.0 * (time.perf_counter() - t0) / reps
 
 
+def _graph_time(fn, reps: int, device: torch.device):
+    """fn captured as a CUDA graph (graphs.capture, after one eager run)
+    and _time of its replays: (fn's output in the graph, which the
+    replays leave holding fn's result, ms per replay). The graph, its
+    pool and its maps are freed before it returns; the output stays."""
+    maps, pieces = pcf.OwnedMaps(), graphs.Pieces()
+    try:
+        out, _, _, launches = graphs.capture(fn, device, maps, pieces)
+
+        def replay():
+            pieces.replay()
+            graphs.add_launches(launches)
+
+        return out, _time(replay, reps, device)
+    finally:
+        torch.cuda.synchronize(device)
+        pieces.reset()
+        maps.release()
+
+
 def profile_frame(renderer, total_time: float = 0.0, reps: int = 5) -> dict:
     """{stage: ms} of the renderer's frame at `total_time` (see the module
     doc), with TOTAL_fused last."""
-    scene, cfg = renderer.device_scene, renderer.cfg
+    scene, cfg, dev = renderer.device_scene, renderer.cfg, renderer.device
     consts = renderer.frame_constants(total_time)
     report = {}
 
     def timed(name, fn):
-        report[name] = _time(fn, reps, renderer.device)
+        if dev.type == "cuda":
+            out, report[name] = _graph_time(fn, reps, dev)
+            return out
+        report[name] = _time(fn, reps, dev)
         return fn()
 
     run_stages(scene, consts, cfg, timed)
-    report["TOTAL_fused"] = _time(
-        lambda: fr.render_frame(scene, consts, cfg), reps, renderer.device)
+    report["TOTAL_fused"] = _time(lambda: renderer.render(total_time), reps,
+                                  dev)
     return report
 
 
@@ -150,8 +180,11 @@ def main(argv=None):
     report = profile_frame(r, reps=args.reps)
     where = (torch.cuda.get_device_name(r.device)
              if r.device.type == "cuda" else "cpu")
+    how = ("CUDA graph replays" if r.device.type == "cuda"
+           else "eager calls")
     print(f"config {args.config} {r.cfg.width}x{r.cfg.height} on {where}, "
-          f"host clock per stage, {args.reps} reps after 1 warm-up")
+          f"host clock per stage over {args.reps} {how} after 1 warm-up, "
+          f"ending in a synchronize")
     for k, v in report.items():
         print(f"{k:20s} {v:10.2f} ms")
     print(json.dumps({"device": where, "config": args.config,

@@ -12,7 +12,8 @@ this, b, a). Each turn runs in a fresh process from the checkout's root,
 with that checkout's package and kernels: the Renderer at 1080p, band
 capacities autosized for 4 ranks and checked, then
 ``launch.render_sharded`` on 4 gloo ranks with 3 warm-up and ``--frames``
-timed frames. A turn's number is rank 0's median ms/frame, phase 10's
+timed frames (its default frame: the compiled band frame in a checkout
+that has parallel/graphs.py, the eager one before). A turn's number is rank 0's median ms/frame, phase 10's
 number (the host clock around each frame, ending in a synchronize; a
 frame ends in a collective, so every rank waits for the slowest). The
 turns' images are held to each other (at most 1e-3 of pixels above

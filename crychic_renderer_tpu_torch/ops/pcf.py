@@ -78,13 +78,26 @@ def nrand(uv: torch.Tensor) -> torch.Tensor:
     return torch.abs(v - torch.floor(v))
 
 
+def _quantize(depth: torch.Tensor) -> torch.Tensor:
+    """f32 depth -> int32 holding the int16 bits of quantize_bits."""
+    q = torch.round(torch.clamp(depth, 0.0, 1.0) * 65535.0).to(torch.int32)
+    return torch.where(q > 32767, q - 65536, q)
+
+
+def quantize_bits(depth: torch.Tensor) -> torch.Tensor:
+    """f32 depth -> int16 bits of the 16-bit UNORM depth
+    round(clip(d, 0, 1) * 65535), elementwise."""
+    return _quantize(depth).to(torch.int16)
+
+
 def quantize_map(shadow_maps: torch.Tensor) -> torch.Tensor:
     """(C, S, S) f32 depth -> (C, S, S) int16 bits of the 16-bit UNORM
-    depth round(clip(d, 0, 1) * 65535). Inside owned_maps the bits are
-    written into the compiled frame's own buffer (OwnedMaps.take)."""
-    q = torch.round(torch.clamp(shadow_maps, 0.0, 1.0) * 65535.0).to(
-        torch.int32)
-    q = torch.where(q > 32767, q - 65536, q)
+    depth (quantize_bits). Maps that are int16 bits already (the band
+    frame's u16-packed atlas, parallel/sharded.py) are taken as they are.
+    Inside owned_maps the bits are written into the compiled frame's own
+    buffer (OwnedMaps.take)."""
+    q = (shadow_maps if shadow_maps.dtype == torch.int16
+         else _quantize(shadow_maps))
     if _OWNED is not None:
         return _OWNED.take(q)
     return q.to(torch.int16).contiguous()
@@ -224,7 +237,7 @@ class OwnedMaps:
         self._next = 0
 
     def take(self, q: torch.Tensor) -> torch.Tensor:
-        """The int16 bits of the int32 q in the frame's next buffer."""
+        """The int16 bits q (int32 or int16) in the frame's next buffer."""
         k = self._next
         self._next += 1
         if k == len(self._maps):

@@ -50,7 +50,12 @@ def _quad_rows_from_u16(qi: torch.Tensor) -> torch.Tensor:
 
 def quad_maps_u16(shadow_maps: torch.Tensor) -> torch.Tensor:
     """(C, S, S) f32 depth -> (C*(S+2)^2, 2) quad rows of 16-bit UNORM
-    depth (round(clip(d, 0, 1) * 65535))."""
+    depth (round(clip(d, 0, 1) * 65535)). Maps that are the int16 bits of
+    ops.pcf.quantize_map already (the band frame's u16-packed atlas) are
+    read as they are, as the JAX package's quad_from_packed reads
+    them."""
+    if shadow_maps.dtype == torch.int16:
+        return _quad_rows_from_u16(shadow_maps.to(torch.int64) & 0xFFFF)
     q = torch.round(torch.clamp(shadow_maps, 0.0, 1.0) * 65535.0)
     return _quad_rows_from_u16(q)
 

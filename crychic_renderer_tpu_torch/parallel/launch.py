@@ -17,11 +17,13 @@ tensors.
 
 ``frame_worker`` is the rank body of sharded frames rendered from host
 leaves: the tests run it on CPU ranks, ``chip_smoke.py`` on ranks that
-share the card.
+share the card (gloo) and on one rank per card (NCCL). On the card it
+replays the compiled band frame (parallel/graphs.py) by default.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import pickle
 import queue
@@ -36,6 +38,7 @@ import torch.multiprocessing as mp
 from ..ops import pcf, raster
 from ..passes import frame as fr
 from . import sharded
+from .graphs import CompiledBandFrame
 
 
 def _rank_main(rank: int, n: int, backend: str, store_path: str, device,
@@ -135,27 +138,75 @@ def host_leaves(obj) -> dict:
     return out
 
 
+def _profile_frames(render, frames: int, top: int = 8) -> dict:
+    """torch.profiler (CUDA activity) over `frames` calls of render(): per
+    frame, the records and their device ms, and by name (without the
+    namespace and arguments) the records and device ms of the raster and
+    soft PCF kernels and of the `top` names that took the most."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(frames):
+            render()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name.removeprefix("void ").replace(
+                "(anonymous namespace)::", "").replace("at::native::", "")
+            name = name.split(" (")[0].split("(")[0][:60]
+            n, us = by_name.get(name, (0, 0.0))
+            by_name[name] = (n + 1, us + e.time_range.elapsed_us())
+    per = {k: (n / frames, us / 1000.0 / frames)
+           for k, (n, us) in by_name.items()}
+    ranked = sorted(per.items(), key=lambda kv: -kv[1][1])
+    return dict(frames=frames,
+                records=sum(n for n, _ in per.values()),
+                device_ms=sum(ms for _, ms in per.values()),
+                kernels={k: v for k, v in per.items()
+                         if "raster_tiles" in k or "soft_pcf" in k},
+                top=dict(ranked[:top]))
+
+
 def frame_worker(scenes: list, consts: list, runs: list, device,
                  warmup: int = 0, timed: int = 1) -> list:
     """One rank's part of sharded frames from host leaves.
 
     scenes, consts: host_leaves of DeviceScenes and FrameConstants. runs:
-    (cfg, scene index, consts indices) triples. With one consts index the
+    (cfg, scene index, consts indices[, opts]). With one consts index the
     job's ranks render one frame over the default group (make_mesh,
     render_frame_sharded); with several they form one replica group per
     index (make_mesh2, render_frames_replicated) and replica r renders
     consts[consts indices[r]]. Each run renders ``warmup`` + ``timed``
-    frames of scenes[scene index]. Per run,
-    returns dict(img: the last frame as numpy, ms: host ms of each timed
-    frame (it ends in a collective, so every rank waits for the slowest),
-    launches: this rank's raster launches by variant and soft PCF launches
-    ("pcf") over all the run's frames, overflowed: whether any frame
-    dropped pairs)."""
+    frames of scenes[scene index]. On a CUDA device the frame is compiled
+    by default, as every JAX caller jits the band frame: a
+    parallel/graphs.CompiledBandFrame captured at the run's first frame
+    (its eager frame, the capture and a replay) and replayed for every
+    later one; a capture that fails raises in the rank. The CPU renders
+    eagerly. opts (a dict, optional): ``compiled`` False renders eagerly
+    on the card too; ``packed_atlas`` is render_frame_sharded's (None:
+    the JAX rule); ``profile`` N (CUDA) profiles N more frames.
+
+    Per run, returns dict(img: the last frame as numpy, ms: host ms of
+    each timed frame until a synchronize (it ends in a collective, so
+    every rank waits for the slowest), issue_ms: host ms until each
+    timed frame's call returned, launches: this rank's raster launches by
+    variant and soft PCF launches ("pcf") over all the run's frames,
+    counted through the replay tally, frames: how many frames that is,
+    gathers and gathered_bytes: per timed frame, overflowed: whether any
+    frame dropped pairs), and on a compiled run graph: dict(graphs,
+    pool_bytes, capture_ms, launches per replay); on the card also
+    cache_fills (K6's texture cache over the run) and profile."""
+    if timed < 1:
+        raise ValueError(f"timed {timed}: a run times at least one frame")
     device = torch.device(device)
+    cuda = device.type == "cuda"
     dscenes = [fr.DeviceScene.from_numpy(s, device) for s in scenes]
     dconsts = [fr.FrameConstants.from_numpy(c, device) for c in consts]
     out = []
-    for cfg, si, ci in runs:
+    for cfg, si, ci, *rest in runs:
+        opts = rest[0] if rest else {}
         if len(ci) == 1:
             mesh = sharded.make_mesh()
             scene, c = dscenes[si], dconsts[ci[0]]
@@ -166,21 +217,53 @@ def frame_worker(scenes: list, consts: list, runs: list, device,
             scene = sharded.stack_frames([dscenes[si]] * len(ci))
             c = sharded.stack_frames([dconsts[i] for i in ci])
             render = sharded.render_frames_replicated
+        render = functools.partial(render,
+                                   packed_atlas=opts.get("packed_atlas"))
+        compiled = None
+        if cuda and opts.get("compiled", True):
+            compiled = CompiledBandFrame(render, mesh, device)
+
+        def frame(stats):
+            if compiled is not None:
+                return compiled(scene, c, cfg, stats)
+            return render(scene, c, cfg, mesh, stats)
+
         raster.reset_launches()
         pcf.reset_launches()
-        ms, over, img = [], False, None
+        fills = pcf.cache_fills() if cuda else 0
+        ms, issue_ms, over, img, gathered = [], [], False, None, None
         for i in range(warmup + timed):
+            if i == warmup:
+                gathered = sharded.GATHERS, sharded.GATHERED_BYTES
             stats = {}
             t0 = time.perf_counter()
-            img = render(scene, c, cfg, mesh, stats)
-            if device.type == "cuda":
+            img = frame(stats)
+            t1 = time.perf_counter()
+            if cuda:
                 torch.cuda.synchronize(device)
             if i >= warmup:
+                issue_ms.append(1000.0 * (t1 - t0))
                 ms.append(1000.0 * (time.perf_counter() - t0))
             over = over or any(bool(v) for v in stats.values())
-        out.append(dict(img=img.cpu().numpy(), ms=ms, overflowed=over,
-                        launches=dict(raster.LAUNCHES_BY_VARIANT,
-                                      pcf=pcf.LAUNCHES)))
+        res = dict(img=img.cpu().numpy(), ms=ms, issue_ms=issue_ms,
+                   overflowed=over, frames=warmup + timed,
+                   gathers=(sharded.GATHERS - gathered[0]) / timed,
+                   gathered_bytes=(sharded.GATHERED_BYTES - gathered[1])
+                   / timed)
+        if opts.get("profile") and cuda:
+            res["profile"] = _profile_frames(lambda: frame({}),
+                                             opts["profile"])
+            res["frames"] += opts["profile"]
+        res["launches"] = dict(raster.LAUNCHES_BY_VARIANT, pcf=pcf.LAUNCHES)
+        if cuda:
+            res["cache_fills"] = pcf.cache_fills() - fills
+        if compiled is not None:
+            res["graph"] = dict(graphs=compiled.graphs,
+                                pool_bytes=compiled.pool_bytes,
+                                capture_ms=compiled.capture_ms,
+                                launches=compiled.launches)
+            compiled.release()
+        out.append(res)
     return out
 
 

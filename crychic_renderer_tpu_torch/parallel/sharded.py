@@ -43,20 +43,37 @@ owner's own shard in place of the others', so the gathered triangle
 tables hold the owner's 1/n_dev triangle chunk n_dev times: the band is
 rendered from that made-up scene, not the real frame's band.
 
+The atlas travels u16-packed, as in the JAX package: each rank
+quantizes its own stripes to the maps' 16-bit grid (``ops/pcf``'s
+rounding, two texels to a 32-bit word: the words of JAX's
+``shadows.pack_depth_rows_u16``) before the all_gather, which halves the
+frame's largest transfer, and the PCF (the one-tap compare and K6) takes
+the gathered bits without quantizing again. Quantization is per texel and
+commutes with the row reassembly, so no pixel changes. The maps travel as
+f32 where raw depths are still read (the JAX rule): the alpha punch
+min-merges into them and the shadow debug quad blits them.
+
 The alpha-tested layer: each rank peels its band at global rows (plus
 the halo row) into its slice of the visibility buffer; the shadow punch
 windows are split by cascade across the ranks, all-gathered and
 min-merged into the maps on every rank. The forward path's ShadowDebug
-quad is drawn at global row phase; the maps travel as f32.
+quad is drawn at global row phase.
 
-Left out of the JAX module: the u16-packed atlas transfer (a TPU layout
-that halves the atlas gather without changing a pixel), the per-cascade
-XLA raster branch (the port has one raster path) and the vertex-sharded
-branches for draws without static corner tables (the port's draws always
-carry them; a draw without them raises).
+Every gather writes into one buffer made for it: NCCL's
+``all_gather_into_tensor``, which a CUDA graph can capture, or gloo's list
+form into the buffer's rows. The band frame makes no host sync, so it can
+be captured (``parallel/graphs.CompiledBandFrame``); inside
+``split_gathers`` a gather is not made but handed to a piecewise capture,
+which makes it between two graphs at replay (gloo runs on the host).
+
+Left out of the JAX module: the per-cascade XLA raster branch (the port
+has one raster path) and the vertex-sharded branches for draws without
+static corner tables (the port's draws always carry them; a draw without
+them raises).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
@@ -64,10 +81,19 @@ import torch
 import torch.distributed as dist
 
 from ..config import RenderConfig
-from ..ops import clipping, raster, shading, shadows
+from ..ops import clipping, pcf, raster, shading, shadows
 from ..ops import rasterizer as rz
 from ..ops import ssao as ssao_ops
+from ..ops.consts import device_constant
 from ..passes import frame as fr
+
+# The gathers this process made since import (or since a caller reset
+# them), and the bytes they received: each gather made on the host, and
+# for each replay of a CUDA graph the gathers it holds (parallel/graphs.py)
+GATHERS = 0
+GATHERED_BYTES = 0
+# The split of the piecewise capture in progress (split_gathers), or None
+_SPLIT = None
 
 
 def band_height(cfg: RenderConfig, n_dev: int) -> int:
@@ -130,13 +156,45 @@ class _Comm:
         return self.sim_index
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
-        """(...) -> (n_dev, ...) stacked over the group's ranks."""
+        """(...) -> (n_dev, ...) stacked over the group's ranks, in one
+        buffer made here. Inside split_gathers the gather is handed to
+        the split instead of being made."""
         if self.sim_index is not None:
             return x.unsqueeze(0).repeat((self.n_dev,) + (1,) * x.dim())
         x = x.contiguous()
-        parts = [torch.empty_like(x) for _ in range(self.n_dev)]
-        dist.all_gather(parts, x, group=self.group)
-        return torch.stack(parts)
+        out = torch.empty((self.n_dev,) + x.shape, dtype=x.dtype,
+                          device=x.device)
+        if _SPLIT is not None:
+            _SPLIT(self.gather_into, out, x)
+        else:
+            self.gather_into(out, x)
+        return out
+
+    def gather_into(self, out: torch.Tensor, x: torch.Tensor):
+        """Gather every rank's x into the rows of out, (n_dev, ...):
+        NCCL's all_gather_into_tensor, or gloo's list form."""
+        global GATHERS, GATHERED_BYTES
+        if dist.get_backend(self.group) == "nccl":
+            dist.all_gather_into_tensor(out, x, group=self.group)
+        else:
+            dist.all_gather(list(out.unbind(0)), x, group=self.group)
+        GATHERS += 1
+        GATHERED_BYTES += out.numel() * out.element_size()
+
+
+@contextlib.contextmanager
+def split_gathers(split):
+    """Inside the block every band gather calls split(gather, out, x) in
+    place of gather(out, x), with out the buffer the frame reads next: a
+    piecewise CUDA graph capture (parallel/graphs.py) ends its graph
+    there, opens the next, and makes the gather between the two at
+    replay."""
+    global _SPLIT
+    saved, _SPLIT = _SPLIT, split
+    try:
+        yield
+    finally:
+        _SPLIT = saved
 
 
 def _row_chunk(d: int, x: torch.Tensor, k: int, n: int) -> torch.Tensor:
@@ -213,8 +271,8 @@ def _band_shadow_atlas_tris(scene: fr.DeviceScene,
     chunks = []
     for c in range(C):
         t = rz.setup_tri_verts(shading.rowmat(part, vps[c]), None, S, S)
-        shift = torch.tensor([c * S, 0.0], dtype=torch.float32,
-                             device=t.xy.device)
+        shift = device_constant((float(c * S), 0.0), torch.float32,
+                                t.xy.device)
         chunks.append(fr._shadow_bias(t._replace(xy=t.xy + shift)))
 
     def reasm(field):  # (n, C, k, ...) -> (C*T, ...)
@@ -229,12 +287,26 @@ def _band_shadow_atlas_tris(scene: fr.DeviceScene,
     return tris, (col * S, (col + 1) * S)
 
 
+def pack_stripes(depth: torch.Tensor) -> torch.Tensor:
+    """(rows, 2K) f32 atlas depths -> (rows, K) int32: the 16-bit UNORM
+    depths of ops.pcf.quantize_bits, two texels to a word (texel 2i in the
+    low half, 2i + 1 in the high), the bits of the JAX package's
+    shadows.pack_depth_rows_u16."""
+    return pcf.quantize_bits(depth).view(torch.int32)
+
+
 def _band_shadow_maps(scene: fr.DeviceScene, consts: fr.FrameConstants,
                       cfg: RenderConfig, comm: _Comm, d: int,
-                      stats: dict) -> torch.Tensor:
+                      stats: dict, packed: bool = False) -> torch.Tensor:
     """Shadow maps with INTERLEAVED tile-row ownership: rank d rasterizes
     the atlas tile rows ty with ty % n_dev == d (one K3 launch), and one
-    all_gather + transpose reassembles the (C, S, S) stack everywhere."""
+    all_gather + transpose reassembles the (C, S, S) stack everywhere.
+
+    ``packed``: the rank quantizes and packs its own stripes before the
+    gather (pack_stripes, half the bytes) and the maps come back as the
+    (C, S, S) int16 bits the PCF reads (ops.pcf.quantize_map); else f32
+    depths. Quantization is per texel, so it commutes with the
+    reassembly and the PCF sees the same bits either way."""
     S = cfg.shadow_map_size
     C = consts.cascade_view_projs.shape[0]
     n = comm.n_dev
@@ -245,9 +317,15 @@ def _band_shadow_maps(scene: fr.DeviceScene, consts: fr.FrameConstants,
     # depth: (rpd * TILE_H, C*S) slot-major stripes; stripe s is tile row
     # s * n + d
     rpd = depth.shape[0] // raster.TILE_H
+    w = C * S
+    if packed:
+        depth = pack_stripes(depth)
+        w //= 2
     g = comm.all_gather(depth)
-    full = g.reshape(n, rpd, raster.TILE_H, C * S).transpose(0, 1).reshape(
-        n * rpd * raster.TILE_H, C * S)[:S]
+    full = g.reshape(n, rpd, raster.TILE_H, w).transpose(0, 1).reshape(
+        n * rpd * raster.TILE_H, w)[:S]
+    if packed:
+        full = full.view(torch.int16)
     return torch.stack([full[:, c * S:(c + 1) * S] for c in range(C)])
 
 
@@ -343,14 +421,24 @@ def _band_fast_shadow_factor(consts: fr.FrameConstants, cfg: RenderConfig,
     return sf_full[d * band_h:(d + 1) * band_h]
 
 
+def packs_atlas(scene: fr.DeviceScene, cfg: RenderConfig) -> bool:
+    """The JAX package's rule for the u16-packed atlas gather: packed
+    unless raw depths are still read, by the alpha punch's min-merge or
+    the shadow debug quad's blit."""
+    quad = cfg.debug_view == "shadow_cascade3" or (
+        not cfg.deferred and cfg.debug_view is None)
+    return not fr.alpha_enabled(scene, cfg) and not quad
+
+
 def _band_render(scene: fr.DeviceScene, consts: fr.FrameConstants,
                  cfg: RenderConfig, comm: _Comm, band_h: int,
-                 stats: dict = None) -> torch.Tensor:
+                 stats: dict = None, packed: bool = None) -> torch.Tensor:
     """One rank's band of the frame: rows [d*band_h, (d+1)*band_h) of an
     n_dev*band_h-row PADDED screen, (band_h, W, 4). NDC and viewport math
     use the TRUE cfg.height, so pad rows (>= cfg.height) hold don't-care
     values the caller crops. stats (optional dict) receives this rank's
-    raster overflow flags as 0-d bool tensors."""
+    raster overflow flags as 0-d bool tensors. packed: whether the atlas
+    travels u16-packed (None: packs_atlas)."""
     stats = {} if stats is None else stats
     # the bands stay dense, as in the JAX package: a band's occupancy is
     # not what the capacities were sized for, and the split already
@@ -364,7 +452,9 @@ def _band_render(scene: fr.DeviceScene, consts: fr.FrameConstants,
     dev = consts.view_proj.device
 
     if cfg.shadows_enabled:
-        shadow_maps = _band_shadow_maps(scene, consts, cfg, comm, d, stats)
+        shadow_maps = _band_shadow_maps(
+            scene, consts, cfg, comm, d, stats,
+            packs_atlas(scene, cfg) if packed is None else packed)
     else:
         shadow_maps = torch.ones((cfg.num_cascades, 2, 2),
                                  dtype=torch.float32, device=dev)
@@ -420,16 +510,20 @@ def _band_render(scene: fr.DeviceScene, consts: fr.FrameConstants,
 
 def render_frame_sharded(scene: fr.DeviceScene, consts: fr.FrameConstants,
                          cfg: RenderConfig, mesh: BandMesh,
-                         stats: dict = None) -> torch.Tensor:
+                         stats: dict = None,
+                         packed_atlas: bool = None) -> torch.Tensor:
     """The full frame over the mesh's band group -> (H, W, 4) float32, the
     same on every rank of the group (the bands are all-gathered at the
     end). Every rank of the group calls it with the same scene, constants
     and config. stats (optional dict) receives this rank's raster
     overflow flags ("main_overflowed", "shadow_overflowed"), 0-d bool
-    tensors read by nobody here."""
+    tensors read by nobody here. packed_atlas: whether the atlas travels
+    u16-packed (None: the JAX rule, packs_atlas; the image is the same
+    either way)."""
     band_h = band_height(cfg, mesh.size)
     comm = _Comm(mesh.group, mesh.size)
-    img = _band_render(scene, consts, cfg, comm, band_h, stats)
+    img = _band_render(scene, consts, cfg, comm, band_h, stats,
+                       packed_atlas)
     full = comm.all_gather(img)
     return full.reshape((mesh.size * band_h,) + img.shape[1:])[:cfg.height]
 
@@ -570,12 +664,12 @@ def _replica(stacked, r: int):
 
 
 def render_frames_replicated(scenes, consts, cfg: RenderConfig,
-                             mesh: BandMesh,
-                             stats: dict = None) -> torch.Tensor:
+                             mesh: BandMesh, stats: dict = None,
+                             packed_atlas: bool = None) -> torch.Tensor:
     """n_rep independent frames, each band-sharded over its replica group
     (make_mesh2): this rank's group renders frame ``mesh.replica`` of the
     stacked ``scenes``/``consts`` (stack_frames). Returns that frame,
     (H, W, 4), on every rank of the group."""
     return render_frame_sharded(_replica(scenes, mesh.replica),
                                 _replica(consts, mesh.replica), cfg, mesh,
-                                stats)
+                                stats, packed_atlas)

@@ -35,6 +35,12 @@
   back the graph's pool; a host read patched into render_frame makes the
   capture raise, twice (a process of its own); K6's texture object in the
   graph outlives a reset of the eager path's texture cache.
+- The compiled band frame (parallel/graphs.CompiledBandFrame), config 4
+  at 480x270: on 2 gloo ranks sharing the card (piecewise graphs, the
+  gathers + 1) with the zero radius and the soft disk, and on 1 NCCL
+  rank (the whole frame, its collectives inside, one graph), each rank's
+  replay torch.equal to its eager band frame; a host read patched into
+  the band frame makes the capture raise, twice (a process of its own).
 
 Imports torch and the port only (the card's machine has no jax). The
 cases marked ``cuda`` skip without a CUDA device; run them on the card
@@ -344,9 +350,10 @@ def test_band_kernel_rejects_malformed_grid(cuda):
 
 @pytest.mark.cuda
 def test_sharded_frame_on_card(cuda):
-    """Two gloo ranks sharing the card render the 1/8 frame: one K3 launch
-    of each kind per rank, and the frame equal to render_frame's within
-    tests/test_multichip.py's bound."""
+    """Two gloo ranks sharing the card render the 1/8 frame, compiled (the
+    default): two K3 launches of each kind per rank (the eager frame
+    before the capture and the replay), and the frame equal to
+    render_frame's within tests/test_multichip.py's bound."""
     from crychic_renderer_tpu_torch.parallel import launch
     from crychic_renderer_tpu_torch.passes import frame as fr
 
@@ -357,8 +364,8 @@ def test_sharded_frame_on_card(cuda):
                                   2, "gloo", cuda)
     ref = fr.render_frame(r.device_scene, c, r.cfg).cpu().numpy()
     for (out,) in ranks:
-        assert out["launches"] == dict(ids=0, depth=0, band_ids=1,
-                                       band_depth=1, field_ids=0,
+        assert out["launches"] == dict(ids=0, depth=0, band_ids=2,
+                                       band_depth=2, field_ids=0,
                                        field_depth=0, pcf=0)
         diff = np.abs(out["img"] - ref).max(axis=-1)
         assert (diff > 0.02).mean() <= 1e-3
@@ -777,3 +784,109 @@ def test_k6_texture_outlives_a_cache_reset(cuda):
     got = r.render(0.1)
     assert torch.equal(got, want)
     r.check_overflow()
+
+
+def _band_runs(cuda, n, backend, runs):
+    """launch.render_sharded of config 4 at 480x270 on n ranks, band
+    capacities sized for n; `runs` maps a run to its (cfg changes,
+    opts). 1 warm-up + 2 timed frames per run."""
+    from crychic_renderer_tpu_torch.app.renderer import Renderer
+    from crychic_renderer_tpu_torch.models import scenes_baseline as sb
+    from crychic_renderer_tpu_torch.parallel import launch, sharded
+
+    pcf.LIBRARY.load()  # built here once; the ranks load them
+    raster.LIBRARY.load()
+    scene, cfg, lights = sb.config4_shadow_pipeline()
+    r = Renderer(scene, dataclasses.replace(cfg, width=480, height=270),
+                 lights=lights, device=cuda)
+    c = r.frame_constants(0.0)
+    band = sharded.autosize_band_capacities(r.device_scene, c, r.cfg, n)
+    return launch.render_sharded(
+        [r.device_scene], [c],
+        [(dataclasses.replace(band, **kw), 0, (0,), opts)
+         for kw, opts in runs], n, backend,
+        "cuda:0" if backend == "nccl" else cuda, warmup=1, timed=2,
+        timeout=600)
+
+
+@pytest.mark.cuda
+def test_compiled_band_frame_gloo_replay_equals_eager(cuda):
+    """2 gloo ranks sharing the card: the compiled band frame, captured in
+    pieces (the gathers + 1 graphs), is torch.equal to the eager band
+    frame on every rank, with the zero radius and the soft disk; per
+    replay one K3 launch of each kind (and one K6 with the soft disk),
+    and the eager frame before the capture adds one of each."""
+    soft = dict(pcf_radius_texels=2.5)
+    runs = [({}, {}), ({}, dict(compiled=False)), (soft, {}),
+            (soft, dict(compiled=False))]
+    for rank_runs in _band_runs(cuda, 2, "gloo", runs):
+        for k in (0, 2):
+            graph, eager = rank_runs[k], rank_runs[k + 1]
+            assert np.array_equal(graph["img"], eager["img"])
+            assert graph["graph"]["graphs"] == eager["gathers"] + 1
+            per = {"band_ids": 1, "band_depth": 1}
+            assert graph["graph"]["launches"] == (per, 1 if k else 0)
+            n = graph["frames"] + 1
+            assert graph["launches"]["band_ids"] == n
+            assert graph["launches"]["pcf"] == (n if k else 0)
+            assert not graph["overflowed"] and graph["cache_fills"] == 0
+
+
+@pytest.mark.cuda
+def test_compiled_band_frame_nccl_one_graph(cuda):
+    """1 NCCL rank: the whole band frame, its all_gather_into_tensor
+    collectives included, is one CUDA graph, torch.equal to the eager
+    band frame, with the gathers counted per replay."""
+    (graph, eager), = _band_runs(cuda, 1, "nccl",
+                                 [({}, {}), ({}, dict(compiled=False))])
+    assert graph["graph"]["graphs"] == 1
+    assert np.array_equal(graph["img"], eager["img"])
+    assert graph["gathers"] == eager["gathers"] > 0
+    assert graph["gathered_bytes"] == eager["gathered_bytes"]
+
+
+@pytest.mark.cuda
+def test_host_read_in_band_frame_makes_capture_raise(cuda):
+    """A host read patched into the band frame (the eager frame allows it)
+    makes the compiled band frame's capture raise, and the next call
+    raises again: nothing falls back to the eager frame. One gloo rank in
+    a process of its own, since a failed capture leaves its stream state
+    behind."""
+    import os
+    import subprocess
+    import sys
+
+    script = """
+import dataclasses, os, tempfile, torch
+import torch.distributed as dist
+from crychic_renderer_tpu_torch.app.renderer import Renderer
+from crychic_renderer_tpu_torch.models import scenes_baseline as sb
+from crychic_renderer_tpu_torch.parallel import graphs, sharded
+from crychic_renderer_tpu_torch.passes import frame as fr
+real = fr.lighting_pass
+def reading(scene, consts, *args, **kwargs):
+    float(consts.view_proj[0, 0])  # a host read: waits for the stream
+    return real(scene, consts, *args, **kwargs)
+fr.lighting_pass = reading
+store = os.path.join(tempfile.mkdtemp(), "store")
+dist.init_process_group("gloo", store=dist.FileStore(store, 1), rank=0,
+                        world_size=1)
+scene, cfg, lights = sb.config4_shadow_pipeline()
+r = Renderer(scene, dataclasses.replace(cfg, width=240, height=135),
+             lights=lights, device="cuda")
+c = r.frame_constants(0.0)
+frame = graphs.CompiledBandFrame(sharded.render_frame_sharded,
+                                 sharded.make_mesh(), "cuda")
+for attempt in range(2):
+    try:
+        frame(r.device_scene, c, r.cfg)
+    except RuntimeError as e:
+        print("raised:", str(e).splitlines()[0])
+    else:
+        raise SystemExit("the capture did not raise")
+"""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    p = subprocess.run([sys.executable, "-c", script], cwd=repo,
+                       capture_output=True, text=True, timeout=600)
+    assert p.returncode == 0, p.stdout + p.stderr[-3000:]
+    assert p.stdout.count("raised:") == 2, p.stdout
