@@ -77,7 +77,8 @@ soft PCF kernel (csrc/pcf.cu). Phases, each printed as it ends:
    (host clock ending in a synchronize), with the launches of the
    profiling run counted;
 15. app/compare.parity([4], small=True) on the card (the card's 480x270
-   frame against the CPU path's: < 0.5% of pixels > 0.02), and a scripted
+   frame against the CPU path's, and under "xla" against the card's
+   pure-XLA frame: < 0.5% of pixels > 0.02 each), and a scripted
    headless app/viewer run on the card (config 4, fast preset, 1280x720,
    keys "wwjl", frames in flight): its caption lines, no overflow, one K1
    and one K2 launch per frame.
@@ -203,6 +204,26 @@ soft PCF kernel (csrc/pcf.cu). Phases, each printed as it ends:
    its all_gather_into_tensor collectives one graph, equal to eager; and
    phase 14's per-stage replay ms beside phase 22's device ms.
 
+26. the JAX package's pure-XLA raster path and a scene whose draws carry
+   no static tables, config 4 at 1920x1080: (a) the Renderer with
+   use_pallas=False (the binned tensor raster of ops.rasterizer, each
+   cascade in its own viewport), compiled: 3 warm-up + 10 frames with no
+   K1/K2 launch, the frame against the kernel frame (<= 0.5% of pixels >
+   0.02), the main view's tids against K1 on the same triangles (the
+   disagreeing pixels, and max |depth diff| where the tids agree), the
+   per-cascade maps against the atlas's, the capture ms and pool bytes;
+   (b) the same with the soft disk, K6 on that frame's receivers against
+   soft_pcf_plain (<= 1e-5) and one K6 launch per frame; (c) config 4's
+   scene without its static tables (passes.frame.strip_draw_statics)
+   through Renderer.render, 3 + 10 frames with one K1 and one K2 launch
+   each, against the frame with the tables (torch.equal, or max |diff|
+   <= 1e-5 with 0 pixels > 0.02); (d) the compiled band frame on 4 gloo
+   ranks of both families, 2 warm-up + 5 frames, compiled against eager:
+   every rank's replay torch.equal to its eager frame, the gathered image
+   against render_frame (phase 10's bound), 14 and 21 graphs per rank,
+   no K1/K2/K3 launch on the pure-XLA path. The card's name and power
+   limit head the phase's lines.
+
 Renderer.render replays a CUDA graph: a Renderer's first render, and the
 first after its cfg is replaced, runs one eager frame before it captures
 the graph, so a run's launch counts hold one more launch of each of its
@@ -256,6 +277,8 @@ P25_TURNS = ("compiled", "eager", "eager", "compiled")
 P25_WARMUP = 2
 P25_TIMED = 5
 P25_PROFILE = 3
+# phase 26: the band frame's cells; graphs per gloo rank of each (config 4)
+P26_GRAPHS = {"xla": 14, "no_statics": 21}
 FRAME_RUNS = ["config4", "soft", "soft_fast", "sharded", "profiler",
               "parity", "viewer", "config1", "forward", "rig", "fence",
               "fence_profiler", "soft_520", "config5", "config5_profiler",
@@ -266,7 +289,8 @@ FRAME_RUNS = ["config4", "soft", "soft_fast", "sharded", "profiler",
                   "p23_soft_queue", "bench"] + [
                   f"p24_{cell}_{turn}_{i}" for cell in P24_CELLS
                   for i, turn in enumerate(P24_TURNS)] + [
-                  "p25_gloo", "p25_nccl"]
+                  "p25_gloo", "p25_nccl", "p26_xla", "p26_xla_soft",
+                  "p26_no_statics", "p26_band"]
 ZERO = dict(ids=0, depth=0, band_ids=0, band_depth=0, field_ids=0,
             field_depth=0, pcf=0)
 PIX_BOUND = 0.005
@@ -629,6 +653,12 @@ def main():
     phase(f"[25] phase 25 took {t7 - t6:.1f} s; the script "
           f"{t7 - t_script:.1f} s, kernel builds included")
 
+    # 26: the pure-XLA raster path and draws without static tables
+    xla_runs(r, band_cfg[4], dev, frame_ms, launches, smi)
+    t8 = time.perf_counter()
+    phase(f"[26] phase 26 took {t8 - t7:.1f} s; the script "
+          f"{t8 - t_script:.1f} s, kernel builds included")
+
     kernels.sort(key=lambda k: k["name"])
     for k in kernels:
         variant = k.pop("variant")
@@ -941,12 +971,15 @@ def app_runs(dev, launches):
     the card."""
     from crychic_renderer_tpu_torch.app import compare, viewer
 
+    # the kernel frame's first render: its eager frame and a replay; the
+    # pure-XLA frame (parity's "xla") launches no raster kernel
     report, launches["parity"] = counted(
-        lambda: compare.parity([4], True, dev), dict(ids=1, depth=1),
-        "compare.parity", per_capture=dict(ids=1, depth=1))
+        lambda: compare.parity([4], True, dev), dict(ids=2, depth=2),
+        "compare.parity")
     assert report["ok"], f"parity: {report}"
     phase(f"[15] compare.parity([4], small=True) on the card vs the CPU "
-          f"path: {report[4]}; launches {launches['parity']}")
+          f"path (and, under 'xla', vs the card's pure-XLA frame): "
+          f"{report[4]}; launches {launches['parity']}")
     n = len(VIEWER_SCRIPT)
     frames, launches["viewer"] = counted(
         lambda: viewer.main(["--config", "4", "--script", VIEWER_SCRIPT,
@@ -2153,6 +2186,201 @@ def band_graph_runs(r, consts, band_cfg, dev, frame_ms, launches, p22,
                            replicated_ms=[
                                statistics.median(rep[0][0]["ms"]),
                                statistics.median(rep[0][1]["ms"])])
+
+
+def xla_frame_checks(rx, rk):
+    """Phase 26 (a)/(b) on the frame at t = 0 of rx (use_pallas=False)
+    against rk's (the kernel path, same options): the frame, the main
+    view's tids and depths against K1 on the same triangles, the
+    per-cascade maps against the atlas, and with the soft disk K6 on rx's
+    receivers against soft_pcf_plain. Returns (dict of numbers, note)."""
+    from crychic_renderer_tpu_torch.ops import pcf, raster, shadows
+    from crychic_renderer_tpu_torch.ops import rasterizer as rz
+    from crychic_renderer_tpu_torch.passes import frame as fr
+
+    cfg = rx.cfg
+    W, H, S = cfg.width, cfg.height, cfg.shadow_map_size
+    img_x = rx.render(0.0)
+    img_k = rk.render(0.0)
+    diff = (img_x - img_k).abs().amax(dim=-1)
+    frac = float((diff > 0.02).float().mean())
+    assert bool(img_x.isfinite().all()), "pure-XLA frame: non-finite pixels"
+    assert frac <= PIX_BOUND, f"pure-XLA vs kernel frame: {frac:.4%} > 0.02"
+    consts = rx.frame_constants(0.0)
+    tris, tri_attr = fr.main_view_tris(rx.device_scene, consts, cfg)
+    d_x, t_x, _, _ = rz.binned_raster(tris, W, H, cfg.pair_capacity,
+                                      cfg.bin_cap)
+    d_k, t_k, _ = raster.rasterize(tris, W, H, rk.cfg.pair_capacity)
+    same = t_x == t_k
+    dz = float((d_x - d_k).abs()[same].max())
+    maps = fr.render_shadow_maps(rx.device_scene, consts, cfg)
+    atlas = fr.render_shadow_atlas(rk.device_scene, consts.shadow_visibility,
+                                   consts.cascade_view_projs, rk.cfg)
+    both = (maps < 1.0) & (atlas < 1.0)
+    dmap = (maps - atlas).abs()
+    out = dict(vs_kernel_frac=frac, vs_kernel_max=float(diff.max()),
+               tid_differ=int((~same).sum()), dz_where_same=dz,
+               maps_max=float(dmap.max()),
+               maps_coverage_differ=int(((maps < 1.0) != (atlas < 1.0))
+                                        .sum()),
+               maps_far=int((dmap[both] > 1e-3).sum()))
+    note = (f"vs the kernel frame {frac:.4%} of pixels > 0.02 (max "
+            f"{out['vs_kernel_max']:.3g}); main view vs K1 on the same "
+            f"triangles: {out['tid_differ']} of {W * H} tids differ, max "
+            f"|depth diff| {dz:.3g} where they agree; per-cascade maps vs "
+            f"the atlas: max |diff| {out['maps_max']:.3g}, "
+            f"{out['maps_coverage_differ']} texels' coverage differs, "
+            f"{out['maps_far']} covered texels > 1e-3 apart")
+    if cfg.pcf_radius_texels:
+        g = fr.resolve_gbuffer(rx.device_scene, consts, cfg, tris, d_x, t_x,
+                               tri_attr)
+        _, _, cascades, shadow_pos = shadows.cascade_select(
+            consts.shadow_transforms, g["pos_w"], consts.eye_pos)
+        params = pcf.receiver_params(shadow_pos.reshape(-1, 4),
+                                     cascades.reshape(-1), S)
+        qmap = pcf.quantize_map(maps)
+        f_k = pcf.soft_pcf(qmap, params, SOFT)
+        torch.cuda.synchronize()
+        err = float((f_k - pcf.soft_pcf_plain(qmap, params, SOFT))
+                    .abs().max())
+        assert err <= PCF_TOL, f"K6 on the pure-XLA maps: max |err| {err}"
+        out["k6_max_abs_err"] = err
+        note += (f"; K6 on this frame's {params.shape[1]} receiver-cascades "
+                 f"over the per-cascade maps vs soft_pcf_plain: max |err| "
+                 f"{err}")
+    return out, note
+
+
+def xla_runs(r, band_cfg, dev, frame_ms, launches, card):
+    """Phase 26 (see the module doc). r: phase 3's Renderer (config 4,
+    the kernel path); band_cfg: phase 9's band capacities for 4 ranks."""
+    from crychic_renderer_tpu_torch.app.renderer import Renderer
+    from crychic_renderer_tpu_torch.models import scenes_baseline as sb
+    from crychic_renderer_tpu_torch.parallel import launch, sharded
+    from crychic_renderer_tpu_torch.passes import frame as fr
+
+    scene, cfg4, lights = sb.CONFIGS[4]()
+    lines = [f"[26] card: {card}"]
+    result = {}
+    rk_soft = Renderer(scene, dataclasses.replace(
+        cfg4, pcf_radius_texels=SOFT), lights=lights, device=dev)
+    xla_cfg = None
+    for name, over, per_frame, rk in (
+            ("xla", {}, {}, r),
+            ("xla_soft", dict(pcf_radius_texels=SOFT), dict(pcf=1),
+             rk_soft)):
+        rx = Renderer(scene, dataclasses.replace(cfg4, use_pallas=False,
+                                                 **over),
+                      lights=lights, device=dev)
+        req = rx.capacity_requirements(0.0)
+        ms, counts = run_frames(rx, dict(ZERO, **per_frame))
+        launches[f"p26_{name}"] = counts
+        cf = rx.compiled_frame
+        out, note = xla_frame_checks(rx, rk)
+        out.update(ms_per_frame=ms, capture_ms=cf.capture_ms,
+                   pool_bytes=cf.pool_bytes, bin_cap=rx.cfg.bin_cap,
+                   shadow_bin_cap=rx.cfg.shadow_bin_cap)
+        result[name] = out
+        lines.append(
+            f"[26] {name}: config 4 {rx.cfg.width}x{rx.cfg.height}, "
+            f"use_pallas=False (pair_capacity {rx.cfg.pair_capacity}, "
+            f"shadow_pair_capacity {rx.cfg.shadow_pair_capacity}, bin_cap "
+            f"{rx.cfg.bin_cap} for a largest run of {req['main_max_tile']}, "
+            f"shadow_bin_cap {rx.cfg.shadow_bin_cap} for "
+            f"{req['shadow_max_tile']}), compiled: {FRAMES_WARMUP} warm-up "
+            f"+ {FRAMES_TIMED} frames, median {ms:.3f} ms/frame, capture "
+            f"{cf.capture_ms:.1f} ms, pool {cf.pool_bytes} bytes; launches "
+            f"{counts} (no K1/K2); {note}")
+        if name == "xla":
+            xla_cfg = rx.cfg
+        del rx, cf
+
+    # (c) config 4's scene without its static tables through render(),
+    # against a Renderer of the scene with them
+    rs = Renderer(scene, cfg4, lights=lights, device=dev)
+    rn = Renderer(scene, cfg4, lights=lights, device=dev)
+    rn.device_scene = fr.strip_draw_statics(rn.device_scene)
+    ms, counts = run_frames(rn, dict(ZERO, ids=1, depth=1))
+    launches["p26_no_statics"] = counts
+    img_n, img_s = rn.render(0.0), rs.render(0.0)
+    diff = (img_n - img_s).abs().amax(dim=-1)
+    same = torch.equal(img_n, img_s)
+    above = int((diff > 0.02).sum())
+    assert same or (float(diff.max()) <= PCF_TOL and above == 0), (
+        f"no statics vs statics: max |diff| {float(diff.max())}, {above} "
+        f"pixels > 0.02")
+    result["no_statics"] = dict(ms_per_frame=ms, equal=same,
+                                max=float(diff.max()))
+    lines.append(
+        f"[26] no_statics: config 4 {r.cfg.width}x{r.cfg.height} with every "
+        f"draw's static tables dropped, through Renderer.render (the "
+        f"per-vertex stage inside the graph): {FRAMES_WARMUP} warm-up + "
+        f"{FRAMES_TIMED} frames, median {ms:.3f} ms/frame; launches "
+        f"{counts}; vs the frame with the tables: "
+        f"{'torch.equal' if same else 'not equal'}, max |diff| "
+        f"{float(diff.max()):.3g}, {above} pixels > 0.02")
+    kernel_cfg = rs.cfg
+    del rn, rs
+
+    # (d) the compiled band frame of both families on 4 gloo ranks
+    consts = r.frame_constants(0.0)
+    n = 4
+    bcx = sharded.autosize_band_capacities(r.device_scene, consts, xla_cfg,
+                                           n)
+    cells = {"xla": (bcx, 0), "no_statics": (band_cfg, 1)}
+    runs = []
+    for cfg, si in cells.values():
+        runs += [(cfg, si, (0,)), (cfg, si, (0,), dict(compiled=False))]
+    t0 = time.perf_counter()
+    ranks = launch.render_sharded(
+        [r.device_scene, fr.strip_draw_statics(r.device_scene)], [consts],
+        runs, n, "gloo", dev, warmup=P25_WARMUP, timed=P25_TIMED,
+        timeout=900)
+    job_s = time.perf_counter() - t0
+    total = dict(ZERO)
+    for k, (name, (cfg, si)) in enumerate(cells.items()):
+        for q in range(n):
+            g, e = ranks[q][2 * k], ranks[q][2 * k + 1]
+            assert np.array_equal(g["img"], e["img"]), (
+                f"{name}, rank {q}: replay != eager band frame")
+            assert g["graph"]["graphs"] == g["gathers"] + 1 \
+                == P26_GRAPHS[name], (name, q, g["graph"]["graphs"])
+            for out, extra in ((g, 1), (e, 0)):
+                frames = out["frames"] + extra
+                band = 0 if name == "xla" else frames
+                want = dict(ZERO, band_ids=band, band_depth=band)
+                assert out["launches"] == want, (name, q, out["launches"])
+                assert not out["overflowed"], (name, q)
+                for key in total:
+                    total[key] += out["launches"][key]
+        ref = fr.render_frame(r.device_scene if si == 0 else
+                              fr.strip_draw_statics(r.device_scene), consts,
+                              xla_cfg if name == "xla" else kernel_cfg)
+        img = ranks[0][2 * k]["img"]
+        diff = np.abs(img - ref.cpu().numpy()).max(axis=-1)
+        frac = float((diff > 0.02).mean())
+        assert frac <= SHARD_FRAC, f"{name} band frame: {frac:.4%} > 0.02"
+        ms = [statistics.median(ranks[0][2 * k + j]["ms"]) for j in (0, 1)]
+        result[f"band_{name}"] = dict(
+            ms_per_frame_compiled=ms[0], ms_per_frame_eager=ms[1],
+            graphs=P26_GRAPHS[name], vs_render_frame_max=float(diff.max()),
+            ranks=[ranks[q][2 * k]["graph"] for q in range(n)])
+        lines.append(
+            f"[26] band frame, {name}: config 4 {r.cfg.width}x"
+            f"{r.cfg.height} on {n} gloo ranks sharing the card, "
+            f"{P25_WARMUP} warm-up + {P25_TIMED} frames compiled then "
+            f"eager: every rank's replay torch.equal to its eager frame; vs "
+            f"render_frame max |diff| {diff.max():.3g}, {frac:.4%} > 0.02; "
+            f"rank 0 median ms/frame compiled {ms[0]:.3f}, eager "
+            f"{ms[1]:.3f}; per rank: "
+            + " | ".join(_rank_note(ranks[q][2 * k]) for q in range(n)))
+    launches["p26_band"] = total
+    lines.append(f"[26] band job {job_s:.1f} s with spawn; launches summed "
+                 f"over the ranks {total}")
+    for line in lines:
+        phase(line)
+    frame_ms["p26"] = dict(result, card=card, band_job_s=job_s)
+
 
 if __name__ == "__main__":
     sys.exit(main())

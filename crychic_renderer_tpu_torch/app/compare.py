@@ -7,11 +7,14 @@ writes them, ``--check`` reads them). The repository's ``tests/goldens/``
 were rendered with texture assets this tree lacks; do not check against
 them.
 
-``--parity`` is the port's counterpart of the JAX package's Pallas-vs-XLA
-sweep: the card's frame, with the hand-written kernels, against the same
-frame from the port's CPU path, which runs their plain versions. The bound
-is the JAX one: under 0.5% of pixels more than 0.02 apart; the exit code
-is nonzero when a config misses it.
+``--parity`` holds each config's frame on the card two ways, each under
+the JAX bound (under 0.5% of pixels more than 0.02 apart; the exit code is
+nonzero when a config misses either): against the same frame from the
+port's CPU path, which runs the kernels' plain versions, and (key
+``"xla"``) the JAX package's own comparison, the kernel frame
+(``use_pallas=True``) against the pure-tensor raster's frame
+(``use_pallas=False``) on the same card: a second rasterizer,
+independent of the kernels, at the card's resolution.
 
 Usage::
 
@@ -69,11 +72,34 @@ def _config(c: int, small: bool):
     return scene, cfg, lights
 
 
+def _judged(a: np.ndarray, b: np.ndarray) -> dict:
+    d = compare(a, b)
+    d["ok"] = d["frac_gt_2pct"] < PARITY_FRAC
+    return d
+
+
+def kernel_vs_xla(scene, cfg, lights, device, kernel_img=None) -> dict:
+    """The JAX package's parity check on `device`: the frame with
+    use_pallas=True (kernel_img when given, else rendered here) against
+    the frame with use_pallas=False (the pure-tensor binned raster, its
+    bin caps sized by the Renderer): compare() stats plus "ok"."""
+    from .renderer import Renderer
+
+    def frame(pallas):
+        return Renderer(scene, dataclasses.replace(cfg, use_pallas=pallas),
+                        lights=lights, device=device).render_np(0.0)
+
+    return _judged(frame(True) if kernel_img is None else kernel_img,
+                   frame(False))
+
+
 def parity(configs, small: bool, device) -> dict:
     """Each config's frame on the CUDA `device` against the port's CPU
-    path (plain versions of the kernels): compare() stats plus "ok"
-    (frac_gt_2pct < 0.5%) per config, and "ok" over all. A CPU `device`
-    raises: the CPU path is the reference here."""
+    path (plain versions of the kernels), and under "xla" against the
+    pure-tensor raster's frame on the same card (kernel_vs_xla):
+    compare() stats plus "ok" (frac_gt_2pct < 0.5%) for each, per config,
+    and "ok" over all. A CPU `device` raises: the CPU path is the
+    reference here."""
     from .renderer import Renderer
 
     if torch.device(device).type != "cuda":
@@ -85,9 +111,9 @@ def parity(configs, small: bool, device) -> dict:
         scene, cfg, lights = _config(c, small)
         imgs = [Renderer(scene, cfg, lights=lights, device=d).render_np(0.0)
                 for d in (device, "cpu")]
-        d = compare(*imgs)
-        d["ok"] = d["frac_gt_2pct"] < PARITY_FRAC
-        ok = ok and d["ok"]
+        d = _judged(*imgs)
+        d["xla"] = kernel_vs_xla(scene, cfg, lights, device, imgs[0])
+        ok = ok and d["ok"] and d["xla"]["ok"]
         report[c] = d
         print(f"config {c}: {report[c]}", flush=True)
     report["ok"] = ok

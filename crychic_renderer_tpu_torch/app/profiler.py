@@ -5,10 +5,13 @@
 on its own, with the JAX profiler's keys so the two reports line up:
 ``tri_attrs``, ``tri_setup``, ``bin_main`` (binning + records of the main
 view), ``raster_main`` (bin + records + K1), ``resolve_gbuffer``,
-``shadow_maps_x4`` (``render_shadow_atlas``: bin + records + K2),
-``ssao``, ``lighting`` (with the debug overlay) and ``TOTAL_fused`` (the
-Renderer's frame whole). ``bin_main`` is also inside ``raster_main``, so
-the stages sum to more than the frame. A frame with the alpha-tested
+``shadow_maps_x4`` (``render_shadow_maps``: the atlas's bin + records +
+K2), ``ssao``, ``lighting`` (with the debug overlay) and ``TOTAL_fused``
+(the Renderer's frame whole). ``bin_main`` is also inside ``raster_main``,
+so the stages sum to more than the frame. With ``cfg.use_pallas`` False
+the stages are the JAX profiler's XLA branch: no ``bin_main``,
+``raster_main`` the pure-tensor binned raster (``binned_raster``) and
+``shadow_maps_x4`` the per-cascade renders of ``render_shadow_maps``. A frame with the alpha-tested
 layer adds two stages the JAX profiler does not have:
 ``alpha_merge_main`` (the layer's vertex stage, depth peel and merge
 into the visibility buffer) after ``raster_main``, and
@@ -61,7 +64,8 @@ def run_stages(scene: fr.DeviceScene, consts: fr.FrameConstants, cfg,
     dev = consts.view_proj.device
 
     tri_attr0 = stage("tri_attrs", lambda: fr.tri_attrs(
-        scene.opaque, consts.opaque_visibility, consts.view_proj))
+        scene.opaque, consts.opaque_visibility, consts.view_proj,
+        scene.mat_transform))
 
     def setup():  # main_view_tris after tri_attrs
         ta, valid = clipping.clip_near(
@@ -70,10 +74,14 @@ def run_stages(scene: fr.DeviceScene, consts: fr.FrameConstants, cfg,
         return ta, rz.setup_tri_verts(ta[..., :4], valid, W, H)
 
     tri_attr, tris = stage("tri_setup", setup)
-    stage("bin_main", lambda: raster.binned_records(tris, W, H,
-                                                    cfg.pair_capacity))
-    depth, tid, _ = stage("raster_main", lambda: raster.rasterize(
-        tris, W, H, cfg.pair_capacity))
+    if cfg.use_pallas:
+        stage("bin_main", lambda: raster.binned_records(tris, W, H,
+                                                        cfg.pair_capacity))
+        depth, tid, _ = stage("raster_main", lambda: raster.rasterize(
+            tris, W, H, cfg.pair_capacity))
+    else:
+        depth, tid, _, _ = stage("raster_main", lambda: rz.binned_raster(
+            tris, W, H, cfg.pair_capacity, cfg.bin_cap))
     alpha_on = fr.alpha_enabled(scene, cfg)
     if alpha_on:
         depth, tid, tris, tri_attr = stage(
@@ -82,8 +90,8 @@ def run_stages(scene: fr.DeviceScene, consts: fr.FrameConstants, cfg,
     g = stage("resolve_gbuffer", lambda: fr.resolve_gbuffer(
         scene, consts, cfg, tris, depth, tid, tri_attr))
     if cfg.shadows_enabled:
-        shadow_maps = stage("shadow_maps_x4", lambda: fr.render_shadow_atlas(
-            scene, consts.shadow_visibility, consts.cascade_view_projs, cfg))
+        shadow_maps = stage("shadow_maps_x4", lambda: fr.render_shadow_maps(
+            scene, consts, cfg))
         if alpha_on:
             shadow_maps = stage("alpha_merge_shadow",
                                 lambda: fr.alpha_merge_shadow(

@@ -16,7 +16,13 @@ render whose device-scene leaves are not the bound ones captures anew.
 The card queues the frames, so the host runs ahead until something reads
 a frame — the reference's fence-wait pattern without explicit fences.
 The Renderer sizes the raster pair capacities and the tile capacities of
-the compacted passes from the start pose (``_autosize_capacity``).
+the compacted passes from the start pose (``_autosize_capacity``), and
+with ``cfg.use_pallas`` False the pure-tensor raster's per-tile caps
+``bin_cap`` and ``shadow_bin_cap`` too. The cfg's ``use_pallas`` is kept
+as given on every device: the JAX Renderer turns it off on a CPU backend
+(its Mosaic kernel targets the TPU), while on the CPU the port's kernel
+path runs the kernels' plain versions, so the CPU renders the path the
+cfg names.
 Capacity overflows are flagged on the device and OR-ed across frames
 inside the frame; ``check_overflow`` reads them when the caller chooses
 to wait.
@@ -268,6 +274,10 @@ _OVERFLOWS = {
                               "shade_tile_capacity were shaded as sky",
     "ssao_tiles_overflowed": "ssao tile overflow: tiles past "
                              "ssao_tile_capacity took no occlusion",
+    "main_bin_overflowed": "main tile overflow: triangles past bin_cap in "
+                           "a tile were dropped",
+    "shadow_bin_overflowed": "shadow tile overflow: triangles past "
+                             "shadow_bin_cap in a tile were dropped",
 }
 
 
@@ -306,10 +316,10 @@ class Renderer:
         self.rebind_frame_fn()
 
     def capacity_requirements(self, total_time: float = 0.0) -> dict:
-        """Exact (tile, triangle) pair counts of both raster launches for
-        the current camera (the atlas counted as it is binned), and the
-        tiles the compacted passes need (passes.frame.
-        capacity_requirements)."""
+        """Exact (tile, triangle) pair counts and largest per-tile counts
+        of the frame's rasters for the current camera (the atlas counted
+        as it is binned), and the tiles the compacted passes need
+        (passes.frame.capacity_requirements)."""
         consts = self.frame_constants(total_time)
         req = fr.capacity_requirements(self.device_scene, consts, self.cfg)
         return {k: int(v) for k, v in req.items()}
@@ -323,7 +333,11 @@ class Renderer:
         on). The tile capacity sets how many tiles the passes evaluate
         every frame, so its headroom is smaller: a pose that outruns it is
         reported (check_capacity, check_overflow) or grown
-        (ensure_capacity)."""
+        (ensure_capacity). With use_pallas False the pure-tensor raster
+        truncates each tile's run at bin_cap (main view) and
+        shadow_bin_cap (each cascade), so both are sized as the JAX
+        package sizes them: twice the largest run rounded up to 32, at
+        least 64."""
         req = self.capacity_requirements(0.0)
         cfg = self.cfg
 
@@ -343,6 +357,10 @@ class Renderer:
             kw["ssao_tile_capacity"] = tiles(
                 req["ssao_tiles"], cfg.ssao_height, cfg.ssao_width,
                 fr.SSAO_TILE_H, fr.SSAO_TILE_W)
+        if not cfg.use_pallas:
+            kw["bin_cap"] = max(64, -(-(req["main_max_tile"] * 2) // 32) * 32)
+            kw["shadow_bin_cap"] = max(
+                64, -(-(req["shadow_max_tile"] * 2) // 32) * 32)
         self.cfg = dataclasses.replace(cfg, **kw)
 
     def resize(self, width: int, height: int):
@@ -413,12 +431,14 @@ class Renderer:
 
     def check_capacity(self, total_time: float = 0.0) -> dict:
         """Raise CapacityError if the current camera's frame would expand
-        more raster pairs, or need more compacted tiles, than a sized
+        more raster pairs, bin more triangles in a tile of the
+        pure-tensor raster, or need more compacted tiles, than a sized
         capacity holds (callable per frame from an app loop; it waits for
         the device). Returns the counts (capacity_requirements)."""
         req = self.capacity_requirements(total_time)
         check_counts(self.cfg, req["main_pairs"], req["shadow_pairs"],
-                     req["shade_tiles"], req["ssao_tiles"])
+                     req["shade_tiles"], req["ssao_tiles"],
+                     req["main_max_tile"], req["shadow_max_tile"])
         return req
 
     def ensure_capacity(self, total_time: float = 0.0) -> dict:
@@ -508,7 +528,8 @@ class Renderer:
                 f"pair_capacity {cfg.pair_capacity}, shadow_pair_capacity "
                 f"{cfg.shadow_pair_capacity}, shade_tile_capacity "
                 f"{cfg.shade_tile_capacity}, ssao_tile_capacity "
-                f"{cfg.ssao_tile_capacity})")
+                f"{cfg.ssao_tile_capacity}, bin_cap {cfg.bin_cap}, "
+                f"shadow_bin_cap {cfg.shadow_bin_cap})")
 
     def _default_camera(self):
         cam = Camera()
@@ -635,10 +656,16 @@ class Renderer:
 
 
 def check_counts(cfg, main_pairs: int, shadow_pairs: int, shade_tiles: int,
-                 ssao_tiles: int):
+                 ssao_tiles: int, main_max_tile: int = None,
+                 shadow_max_tile: int = None):
     """Raise CapacityError where a frame's counts (capacity_requirements'
     keys) exceed cfg's capacities; a tile capacity of None (dense) holds
-    any count, as does ssao_tile_capacity with SSAO off."""
+    any count, as does ssao_tile_capacity with SSAO off. With use_pallas
+    False the largest per-tile counts, where given, must fit bin_cap and
+    shadow_bin_cap (the pure-tensor raster truncates a longer run; the
+    kernels take every pair of a run, as in the JAX package). The
+    viewer's step returns the pair and tile counts only, as the JAX
+    viewer's does."""
     if main_pairs > cfg.pair_capacity:
         raise CapacityError(
             f"main raster overflow: {main_pairs} pairs > pair_capacity "
@@ -647,6 +674,16 @@ def check_counts(cfg, main_pairs: int, shadow_pairs: int, shade_tiles: int,
         raise CapacityError(
             f"shadow raster overflow: {shadow_pairs} pairs > "
             f"shadow_pair_capacity {cfg.shadow_pair_capacity}")
+    if (not cfg.use_pallas and main_max_tile is not None
+            and main_max_tile > cfg.bin_cap):
+        raise CapacityError(
+            f"tile overflow: {main_max_tile} triangles in one tile > "
+            f"bin_cap {cfg.bin_cap}")
+    if (not cfg.use_pallas and shadow_max_tile is not None
+            and shadow_max_tile > cfg.shadow_bin_cap):
+        raise CapacityError(
+            f"shadow tile overflow: {shadow_max_tile} triangles in one tile "
+            f"> shadow_bin_cap {cfg.shadow_bin_cap}")
     if cfg.shade_tile_capacity and shade_tiles > cfg.shade_tile_capacity:
         raise CapacityError(
             f"shade tile overflow: {shade_tiles} occupied tiles > "

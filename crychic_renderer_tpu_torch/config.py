@@ -12,10 +12,15 @@ mean here:
 - Every rendering setting renders as in the JAX package: deferred or
   forward, PBR or Blinn-Phong (directional, point and spot lights), the
   alpha-tested layer, and the render options.
-- use_pallas, pallas_interpret, bin_cap and shadow_bin_cap have no
-  meaning in the port. They select the JAX package's Pallas or XLA
-  raster, which does not change the image; the port always rasterizes
-  through ops.raster.
+- use_pallas selects the raster path, as in the JAX package: True (the
+  default) the CUDA raster kernels of ops.raster (their plain PyTorch
+  versions for CPU tensors), False the JAX package's pure-XLA path, the
+  binned tensor raster of ops.rasterizer on 32-row tiles, per cascade
+  for the shadow maps. bin_cap and shadow_bin_cap are that path's
+  per-tile caps (the Renderer sizes them; a longer run is truncated and
+  flagged). The port keeps use_pallas as given on every device.
+  pallas_interpret has no meaning in the port (the kernels have no
+  interpret mode; CPU tensors take their plain versions).
 - shade_tile_capacity and ssao_tile_capacity mean what they mean in the
   JAX package: the slots of the tile-compacted resolve and PCF factor,
   in (8, 128) tiles, and of the compacted SSAO occlusion, in (8, 32)

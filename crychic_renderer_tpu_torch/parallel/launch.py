@@ -202,7 +202,10 @@ def frame_worker(scenes: list, consts: list, runs: list, device,
         raise ValueError(f"timed {timed}: a run times at least one frame")
     device = torch.device(device)
     cuda = device.type == "cuda"
-    dscenes = [fr.DeviceScene.from_numpy(s, device) for s in scenes]
+    # the scenes as sent: a draw sent without static tables renders
+    # through the vertex-sharded per-vertex path
+    dscenes = [fr.DeviceScene.from_numpy(s, device, attach_statics=False)
+               for s in scenes]
     dconsts = [fr.FrameConstants.from_numpy(c, device) for c in consts]
     out = []
     for cfg, si, ci, *rest in runs:

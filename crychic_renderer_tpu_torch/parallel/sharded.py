@@ -66,10 +66,18 @@ be captured (``parallel/graphs.CompiledBandFrame``); inside
 ``split_gathers`` a gather is not made but handed to a piecewise capture,
 which makes it between two graphs at replay (gloo runs on the host).
 
-Left out of the JAX module: the per-cascade XLA raster branch (the port
-has one raster path) and the vertex-sharded branches for draws without
-static corner tables (the port's draws always carry them; a draw without
-them raises).
+The pure-XLA path (``cfg.use_pallas`` False) shards as in the JAX
+package: each rank bins and rasterizes its interleaved 32-row tile rows
+of the main view and of each cascade in its own viewport with the
+pure-tensor raster (``ops.rasterizer.binned_raster``), and the cascades'
+stripes are all-gathered as f32 (the u16 packing is the kernel path's).
+
+Draws without static corner tables shard their vertex stage: each rank
+transforms a 1/n_dev vertex range (``_band_vertex_records``, and the
+shadow draw's world transform in ``_band_shadow_tri_world``), one
+all_gather reassembles the per-vertex table, and the corner gather to
+triangles is split by triangle ranges (``_chunk_gather_rows``); every op
+is per row, so the tables equal the replicated ones.
 """
 from __future__ import annotations
 
@@ -206,34 +214,65 @@ def _row_chunk(d: int, x: torch.Tensor, k: int, n: int) -> torch.Tensor:
     return x[d * k:(d + 1) * k]
 
 
-def _no_statics(what: str):
-    return ValueError(f"{what}: the band-sharded frame needs the draw's "
-                      f"static corner tables (passes.frame."
-                      f"attach_draw_statics)")
+def _band_vertex_records(draw: fr.DeviceDraw, visibility, view_proj,
+                         mat_transform, comm: _Comm, d: int):
+    """Vertex-sharded fr.vertex_stage + fr.vertex_records for a draw
+    without static tables: rank d transforms a 1/n_dev vertex range and
+    one all_gather reassembles the (V, 16) record table, equal to the
+    replicated one (every op is per row)."""
+    n = comm.n_dev
+    V = draw.positions.shape[0]
+    kv = -(-V // n)
+    chunk = dataclasses.replace(draw, **{
+        f: _row_chunk(d, getattr(draw, f), kv, n)
+        for f in ("positions", "normals", "tangents", "uvs",
+                  "vertex_instance")})
+    part = fr.vertex_records(chunk, *fr.vertex_stage(
+        chunk, visibility, view_proj, mat_transform))
+    return comm.all_gather(part).reshape(n * kv, 16)[:V]
+
+
+def _chunk_gather_rows(comm: _Comm, d: int, table: torch.Tensor,
+                       idx: torch.Tensor) -> torch.Tensor:
+    """Triangle-sharded row gather: rank d gathers the rows
+    idx[d*k .. (d+1)*k) of ``table`` and one all_gather reassembles the
+    full table[idx], (N, ...)."""
+    n = comm.n_dev
+    N = idx.shape[0]
+    k = -(-N // n)
+    part = table[_row_chunk(d, idx, k, n).long()]
+    return comm.all_gather(part).reshape((n * k,) + part.shape[1:])[:N]
 
 
 def _band_main_view_tris(scene: fr.DeviceScene, consts: fr.FrameConstants,
                          cfg: RenderConfig, comm: _Comm, d: int):
-    """Triangle-sharded main-view front end: the clip projection of the
-    static corner tables, the near clip and the screen setup run on a
-    1/n_dev triangle range per rank, and all_gathers reassemble tables
-    equal to fr.main_view_tris (every op is per-triangle)."""
+    """Triangle-sharded main-view front end: the per-triangle records of a
+    1/n_dev triangle range per rank (the clip projection of the static
+    corner tables, or, without them, the corner gather from the
+    vertex-sharded record table, _band_vertex_records), then the near
+    clip and the screen setup on that range; all_gathers reassemble
+    tables equal to fr.main_view_tris (every op is per-triangle)."""
     n = comm.n_dev
     draw = scene.opaque
-    if draw.tri_rest is None:
-        raise _no_statics("opaque draw")
     if n == 1:
         return fr.main_view_tris(scene, consts, cfg)
-    T = draw.tri_posw_h.shape[0]
+    T = draw.indices.shape[0] // 3
     k = -(-T // n)
-    poswh = _row_chunk(d, draw.tri_posw_h, k, n)
-    poswh = torch.cat([poswh[..., :3], torch.ones_like(poswh[..., :1])],
-                      dim=-1)
-    clip = shading.rowmat(poswh, consts.view_proj)
-    vis = consts.opaque_visibility[
-        _row_chunk(d, draw.tri_instance, k, n).long()]
-    a = torch.cat([clip * vis[:, None, None],
-                   _row_chunk(d, draw.tri_rest, k, n)], dim=-1)
+    if draw.tri_rest is not None:
+        poswh = _row_chunk(d, draw.tri_posw_h, k, n)
+        poswh = torch.cat([poswh[..., :3], torch.ones_like(poswh[..., :1])],
+                          dim=-1)
+        clip = shading.rowmat(poswh, consts.view_proj)
+        vis = consts.opaque_visibility[
+            _row_chunk(d, draw.tri_instance, k, n).long()]
+        a = torch.cat([clip * vis[:, None, None],
+                       _row_chunk(d, draw.tri_rest, k, n)], dim=-1)
+    else:
+        vrec = _band_vertex_records(draw, consts.opaque_visibility,
+                                    consts.view_proj, scene.mat_transform,
+                                    comm, d)
+        # pad rows gather vertex 0 and are marked invalid below
+        a = vrec[_row_chunk(d, draw.indices.reshape(-1, 3), k, n).long()]
     valid0 = (d * k + torch.arange(k, device=a.device)) < T
     a2, valid = clipping.clip_near(a, valid0)  # (2k, ...): mains, extras
     t = rz.setup_tri_verts(a2[..., :4], valid, cfg.width, cfg.height)
@@ -247,24 +286,43 @@ def _band_main_view_tris(scene: fr.DeviceScene, consts: fr.FrameConstants,
     return rz.ScreenTris(*(reasm(f) for f in t)), reasm(a2)
 
 
+def _band_shadow_tri_world(scene: fr.DeviceScene, visibility,
+                           comm: _Comm, d: int) -> torch.Tensor:
+    """fr.shadow_tri_world of the shadow draw. With static tables it is
+    one multiply, replicated. Without them the world transform runs on a
+    1/n_dev vertex range per rank (one all_gather reassembles the (V, 4)
+    table) and the corner gather is triangle-sharded
+    (_chunk_gather_rows): equal to the replicated table."""
+    draw = scene.shadow
+    if comm.n_dev == 1 or draw.tri_posw_h is not None:
+        return fr.shadow_tri_world(draw, visibility)
+    n = comm.n_dev
+    V = draw.positions.shape[0]
+    kv = -(-V // n)
+    chunk = dataclasses.replace(draw, **{
+        f: _row_chunk(d, getattr(draw, f), kv, n)
+        for f in ("positions", "vertex_instance")})
+    part = fr._culled_world_positions(chunk, visibility)
+    pos_w = comm.all_gather(part).reshape(n * kv, 4)[:V]
+    return _chunk_gather_rows(comm, d, pos_w, draw.indices.reshape(-1, 3))
+
+
 def _band_shadow_atlas_tris(scene: fr.DeviceScene,
                             consts: fr.FrameConstants, cfg: RenderConfig,
                             comm: _Comm, d: int):
     """Triangle-sharded fr.shadow_atlas_tris: the per-cascade projection,
     screen setup, atlas column shift and depth bias run on the rank's
-    1/n_dev chunk of the world-space table; one all_gather per field
-    reassembles the cascade-major atlas layout. The world-space table
-    itself comes from the static tables, replicated (one multiply)."""
+    1/n_dev chunk of the world-space table (_band_shadow_tri_world); one
+    all_gather per field reassembles the cascade-major atlas layout."""
     S = cfg.shadow_map_size
     vps = consts.cascade_view_projs
     C = vps.shape[0]
     n = comm.n_dev
-    if scene.shadow.tri_posw_h is None:
-        raise _no_statics("shadow draw")
     if n == 1:
         return fr.shadow_atlas_tris(scene, consts.shadow_visibility, vps,
                                     cfg)
-    tri_world = fr.shadow_tri_world(scene.shadow, consts.shadow_visibility)
+    tri_world = _band_shadow_tri_world(scene, consts.shadow_visibility,
+                                       comm, d)
     T = tri_world.shape[0]
     k = -(-T // n)
     part = _row_chunk(d, tri_world, k, n)  # (k, 3, 4)
@@ -306,10 +364,37 @@ def _band_shadow_maps(scene: fr.DeviceScene, consts: fr.FrameConstants,
     gather (pack_stripes, half the bytes) and the maps come back as the
     (C, S, S) int16 bits the PCF reads (ops.pcf.quantize_map); else f32
     depths. Quantization is per texel, so it commutes with the
-    reassembly and the PCF sees the same bits either way."""
+    reassembly and the PCF sees the same bits either way.
+
+    With cfg.use_pallas False (the JAX package's XLA branch) each cascade
+    renders in its own S x S viewport, as the single-card
+    fr.render_shadow_maps does: rank d bins and rasterizes its
+    interleaved XLA_TILE_H-row tiles of each cascade (binned_raster), and
+    one all_gather of the (C, rows, S) f32 stripes + a transpose
+    reassembles the stack. ``packed`` does not apply there."""
     S = cfg.shadow_map_size
     C = consts.cascade_view_projs.shape[0]
     n = comm.n_dev
+    if not cfg.use_pallas:
+        tri_world = _band_shadow_tri_world(scene, consts.shadow_visibility,
+                                           comm, d)
+        parts, flags = [], []
+        for c in range(C):
+            t = fr._shadow_bias(rz.setup_tri_verts(
+                shading.rowmat(tri_world, consts.cascade_view_projs[c]),
+                None, S, S))
+            depth, _, over, bin_over = rz.binned_raster(
+                t, S, S, _shadow_band_cap(cfg), cfg.shadow_bin_cap,
+                with_ids=False, row_stride=(n, d))
+            parts.append(depth)  # (rpd * XLA_TILE_H, S)
+            flags.append(torch.stack([over, bin_over]))
+        stats["shadow_overflowed"], stats["shadow_bin_overflowed"] = \
+            torch.stack(flags).any(dim=0)
+        TH = rz.XLA_TILE_H
+        rpd = parts[0].shape[0] // TH
+        g = comm.all_gather(torch.stack(parts))  # (n, C, rpd*TH, S)
+        return g.reshape(n, C, rpd, TH, S).permute(1, 2, 0, 3, 4).reshape(
+            C, n * rpd * TH, S)[:, :S]
     tris, xrange = _band_shadow_atlas_tris(scene, consts, cfg, comm, d)
     depth, _, stats["shadow_overflowed"] = raster.rasterize(
         tris, C * S, S, _shadow_band_cap(cfg), with_ids=False,
@@ -422,12 +507,13 @@ def _band_fast_shadow_factor(consts: fr.FrameConstants, cfg: RenderConfig,
 
 
 def packs_atlas(scene: fr.DeviceScene, cfg: RenderConfig) -> bool:
-    """The JAX package's rule for the u16-packed atlas gather: packed
-    unless raw depths are still read, by the alpha punch's min-merge or
-    the shadow debug quad's blit."""
+    """The JAX package's rule for the u16-packed atlas gather: packed on
+    the kernel path unless raw depths are still read, by the alpha
+    punch's min-merge or the shadow debug quad's blit; the pure-tensor
+    path's per-cascade maps travel as f32."""
     quad = cfg.debug_view == "shadow_cascade3" or (
         not cfg.deferred and cfg.debug_view is None)
-    return not fr.alpha_enabled(scene, cfg) and not quad
+    return cfg.use_pallas and not fr.alpha_enabled(scene, cfg) and not quad
 
 
 def _band_render(scene: fr.DeviceScene, consts: fr.FrameConstants,
@@ -460,17 +546,26 @@ def _band_render(scene: fr.DeviceScene, consts: fr.FrameConstants,
                                  dtype=torch.float32, device=dev)
 
     # main visibility buffer: this rank's interleaved tile rows (one K3
-    # launch), all-gathered into the full (depth, tid) buffer; the rank
-    # then resolves and shades its contiguous pixel band
+    # launch, or the pure-tensor raster on 32-row tiles), all-gathered
+    # into the full (depth, tid) buffer; the rank then resolves and
+    # shades its contiguous pixel band
     tris, tri_attr = _band_main_view_tris(scene, consts, cfg, comm, d)
-    dpart, tpart, stats["main_overflowed"] = raster.rasterize(
-        tris, W, H_pad, _main_band_cap(cfg), row_stride=(n, d))
-    rpd = dpart.shape[0] // raster.TILE_H
+    if cfg.use_pallas:
+        TH = raster.TILE_H
+        dpart, tpart, stats["main_overflowed"] = raster.rasterize(
+            tris, W, H_pad, _main_band_cap(cfg), row_stride=(n, d))
+    else:
+        TH = rz.XLA_TILE_H
+        dpart, tpart, stats["main_overflowed"], \
+            stats["main_bin_overflowed"] = rz.binned_raster(
+                tris, W, H_pad, _main_band_cap(cfg), cfg.bin_cap,
+                row_stride=(n, d))
+    rpd = dpart.shape[0] // TH
 
     def reassemble(part):
-        g = comm.all_gather(part)  # (n, rpd*TILE_H, W)
-        full = g.reshape(n, rpd, raster.TILE_H, W).transpose(0, 1)
-        full = full.reshape(n * rpd * raster.TILE_H, W)
+        g = comm.all_gather(part)  # (n, rpd*TH, W)
+        full = g.reshape(n, rpd, TH, W).transpose(0, 1)
+        full = full.reshape(n * rpd * TH, W)
         # one duplicate row keeps the last band's halo row in range
         return torch.cat([full, full[-1:]])
 
@@ -531,16 +626,18 @@ def render_frame_sharded(scene: fr.DeviceScene, consts: fr.FrameConstants,
 def band_requirements(scene: fr.DeviceScene, consts: fr.FrameConstants,
                       cfg: RenderConfig, n_dev: int) -> dict:
     """Exact worst-RANK (tile, triangle) pair counts of the interleaved
-    band binning (tile rows ty % n_dev == d): what the band capacities
-    must reach, else a rank drops geometry. Dense per-triangle math (a
-    difference array over tile rows, no pair expansion); the counts are
-    read back to the host as ints."""
+    band binning (tile rows ty % n_dev == d), on the path's tile height
+    (the pure-tensor path's shadow count is the worst cascade's, each
+    binned in its own viewport, as the JAX package counts it): what the
+    band capacities must reach, else a rank drops geometry. Dense
+    per-triangle math (a difference array over tile rows, no pair
+    expansion); the counts are read back to the host as ints."""
     band_h = band_height(cfg, n_dev)
     H_pad = band_h * n_dev
 
-    def worst_owner(tris, width, height):
+    def worst_owner(tris, width, height, tile_h):
         _, ty0, bw, bh, _, nty = rz._tile_bbox(tris, width, height,
-                                               raster.TILE_H, raster.TILE_W)
+                                               tile_h, raster.TILE_W)
         # pairs per tile row = sum of the bbox widths of the triangles
         # overlapping the row: difference-array scatter + cumsum
         w = (bw * (bh > 0)).long()
@@ -553,16 +650,25 @@ def band_requirements(scene: fr.DeviceScene, consts: fr.FrameConstants,
         # owner d's total = sum of the rows ty with ty % n_dev == d
         return int(per_row.reshape(rpd, n_dev).sum(0).max())
 
+    th = raster.TILE_H if cfg.use_pallas else rz.XLA_TILE_H
     tris, _ = fr.main_view_tris(scene, consts, cfg)
     out = dict(band_h=band_h,
-               main_band_pairs=worst_owner(tris, cfg.width, H_pad),
+               main_band_pairs=worst_owner(tris, cfg.width, H_pad, th),
                main_band_capacity=_main_band_cap(cfg))
     if cfg.shadows_enabled:
         S = cfg.shadow_map_size
         vps = consts.cascade_view_projs
-        s_tris, _ = fr.shadow_atlas_tris(scene, consts.shadow_visibility,
-                                         vps, cfg)
-        out["shadow_band_pairs"] = worst_owner(s_tris, vps.shape[0] * S, S)
+        if cfg.use_pallas:
+            s_tris, _ = fr.shadow_atlas_tris(
+                scene, consts.shadow_visibility, vps, cfg)
+            worst = worst_owner(s_tris, vps.shape[0] * S, S, th)
+        else:  # each cascade binned in its own viewport
+            tri_world = fr.shadow_tri_world(scene.shadow,
+                                            consts.shadow_visibility)
+            worst = max(worst_owner(rz.setup_tri_verts(
+                shading.rowmat(tri_world, vps[c]), None, S, S), S, S, th)
+                for c in range(cfg.num_cascades))
+        out["shadow_band_pairs"] = worst
         out["shadow_band_capacity"] = _shadow_band_cap(cfg)
     return out
 

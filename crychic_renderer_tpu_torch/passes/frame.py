@@ -24,9 +24,16 @@ evaluates directional, point and spot lights), the alpha-tested layer
 (``cfg.alpha_test_enabled``: a dense depth peel merged into the
 visibility buffer and punched into the shadow maps) and the render
 options (fast preset, soft PCF disk, trilinear and other anisotropy
-settings, single-mip pool, cubemap sky, debug views). Both raster
-launches go through ``ops.raster`` and the soft PCF through ``ops.pcf``
-(CUDA kernels on the card); the rest is tensor code. With
+settings, single-mip pool, cubemap sky, debug views). With
+``cfg.use_pallas`` (the default) both raster launches go through
+``ops.raster``; with it False the frame takes the JAX package's pure-XLA
+path, the binned tensor raster of ``ops.rasterizer`` on 32-row tiles
+truncated at ``bin_cap``, per cascade for the shadow maps. The soft PCF
+goes through ``ops.pcf`` (CUDA kernels on the card); the rest is tensor
+code. A draw without static corner tables (``strip_draw_statics``, or a
+scene built without ``attach_draw_statics``) renders through the
+per-vertex stage (``vertex_stage``, ``build_tri_attrs``) with the same
+records. With
 ``cfg.shade_tile_capacity`` and ``cfg.ssao_tile_capacity`` set (the
 Renderer sizes both) the resolve, the SSAO occlusion and the cascade PCF
 factor are tile-compacted as in the JAX package: their per-pixel work
@@ -159,10 +166,13 @@ class DeviceScene:
             dual=self.pair_data.shape[-1] == sampling.PAIR_ROW_DUAL)
 
     @staticmethod
-    def from_numpy(d: dict, device) -> "DeviceScene":
+    def from_numpy(d: dict, device,
+                   attach_statics: bool = True) -> "DeviceScene":
         """From a mapping of field name -> numpy array, with the draws
         (opaque, shadow, alpha) as nested mappings and n_big_pairs an int,
-        on `device`. Draws without static tables get them attached here."""
+        on `device`. Draws without static tables get them attached here
+        unless attach_statics is False (they then render through the
+        per-vertex path, as in the JAX package)."""
         kw = {}
         for f in dataclasses.fields(DeviceScene):
             v = d.get(f.name)
@@ -173,7 +183,8 @@ class DeviceScene:
                 kw[f.name] = int(v)
             else:
                 kw[f.name] = _tensor(v, device)
-        return attach_draw_statics(DeviceScene(**kw))
+        scene = DeviceScene(**kw)
+        return attach_draw_statics(scene) if attach_statics else scene
 
     def to(self, device) -> "DeviceScene":
         return _fields_to(self, device)
@@ -237,6 +248,78 @@ class _LightsView:
 # Vertex stage (static per-corner tables + the per-frame projection)
 # ---------------------------------------------------------------------------
 
+def _homogeneous(p: torch.Tensor, w: float) -> torch.Tensor:
+    """(..., k) -> (..., k + 1) with w appended."""
+    return torch.cat([p, torch.full_like(p[..., :1], w)], dim=-1)
+
+
+def _vertex_uv(draw: DeviceDraw, mat_transform: torch.Tensor):
+    """Per-vertex final uv: (u, v, 0, 1) @ TexTransform @ MatTransform
+    (Default.hlsl:69-70)."""
+    vi = draw.vertex_instance.long()
+    uvh = torch.cat([draw.uvs, torch.zeros_like(draw.uvs[..., :1]),
+                     torch.ones_like(draw.uvs[..., :1])], dim=-1)
+    M = mat_transform[draw.material_indices.long()[vi]]
+    return shading.rowmat(shading.rowmat(uvh, draw.tex_transforms[vi]),
+                          M)[:, :2]
+
+
+def vertex_stage(draw: DeviceDraw, visibility: torch.Tensor,
+                 view_proj: torch.Tensor, mat_transform: torch.Tensor):
+    """All instances' vertices -> world space + clip space + final uvs:
+    the VS of Default.hlsl/GeometryPass.hlsl:22-42 for every (item,
+    instance) pair at once, the path of a draw without static tables.
+    Culled instances get clip w = 0, which the rasterizer's near-plane
+    test discards. Returns (pos_w, nrm_w, tan_w, uv, clip) per vertex."""
+    vi = draw.vertex_instance.long()
+    W = draw.worlds[vi]  # (V, 4, 4)
+    pos_w = shading.rowmat(_homogeneous(draw.positions, 1.0), W)[:, :3]
+    nrm_w = shading.rowmat(draw.normals, W[:, :3, :3])
+    tan_w = shading.rowmat(draw.tangents, W[:, :3, :3])
+    clip = shading.rowmat(_homogeneous(pos_w, 1.0), view_proj)
+    clip = clip * visibility[vi][:, None]
+    return pos_w, nrm_w, tan_w, _vertex_uv(draw, mat_transform), clip
+
+
+def vertex_records(draw: DeviceDraw, pos_w, nrm_w, tan_w, uv, clip):
+    """Per-VERTEX records (V, 16): [clip4 | posW3 | nrm3 | tan3 | uv2 |
+    mat1], the quantities near-plane clipping interpolates and the
+    resolve reads."""
+    mat = draw.material_indices.long()[draw.vertex_instance.long()]
+    return torch.cat([clip, pos_w, nrm_w, tan_w, uv,
+                      mat.to(torch.float32)[:, None]], dim=-1)
+
+
+def build_tri_attrs(draw: DeviceDraw, pos_w, nrm_w, tan_w, uv, clip):
+    """Per-triangle vertex records (T, 3, 16): vertex_records gathered to
+    triangles (3 row gathers per triangle; parallel.sharded splits this
+    gather by triangle ranges)."""
+    vrec = vertex_records(draw, pos_w, nrm_w, tan_w, uv, clip)
+    return vrec[draw.indices.long().reshape(-1, 3)]
+
+
+def _world_positions(draw: DeviceDraw) -> torch.Tensor:
+    """(V, 4) homogeneous world positions: each vertex by its instance's
+    world transform."""
+    return shading.rowmat(_homogeneous(draw.positions, 1.0),
+                          draw.worlds[draw.vertex_instance.long()])
+
+
+def _culled_world_positions(draw: DeviceDraw,
+                            visibility: torch.Tensor) -> torch.Tensor:
+    """_world_positions with culled instances' vertices zeroed."""
+    vis = visibility[draw.vertex_instance.long()]
+    return _world_positions(draw) * vis[:, None]
+
+
+def shadow_clip(draw: DeviceDraw, visibility: torch.Tensor,
+                cascade_vp: torch.Tensor):
+    """Per-vertex world positions of shadow casters projected by one
+    cascade's view-projection, culled instances zeroed."""
+    vis = visibility[draw.vertex_instance.long()]
+    return shading.rowmat(_world_positions(draw), cascade_vp) * vis[:, None]
+
+
 def draw_with_statics(draw: DeviceDraw,
                       mat_transform: torch.Tensor = None) -> DeviceDraw:
     """Precompute the frame-constant per-corner tables: world-space
@@ -283,12 +366,35 @@ def attach_draw_statics(scene: DeviceScene) -> DeviceScene:
         alpha=attach(scene.alpha, scene.mat_transform))
 
 
+def strip_draw_statics(scene: DeviceScene) -> DeviceScene:
+    """The scene with every draw's static corner tables taken off: its
+    frames run the per-vertex path (vertex_stage, build_tri_attrs), the
+    path of a JAX DeviceScene built without attach_draw_statics, and
+    equal the frames with the tables."""
+    def strip(draw):
+        if draw is None:
+            return None
+        return dataclasses.replace(draw, tri_posw_h=None, tri_instance=None,
+                                   tri_rest=None)
+
+    return dataclasses.replace(scene, opaque=strip(scene.opaque),
+                               shadow=strip(scene.shadow),
+                               alpha=strip(scene.alpha))
+
+
 def tri_attrs(draw: DeviceDraw, visibility: torch.Tensor,
-              view_proj: torch.Tensor):
-    """Per-triangle vertex records (T, 3, 16) for one main-layer draw with
-    its static tables attached: [clip4 | posW3 | nrm3 | tan3 | uv2 | mat1]
-    — a dense (T,3,4)@(4,4) clip projection, the per-triangle visibility
-    multiply, a concat."""
+              view_proj: torch.Tensor, mat_transform: torch.Tensor):
+    """Per-triangle vertex records (T, 3, 16) for one main-layer draw:
+    [clip4 | posW3 | nrm3 | tan3 | uv2 | mat1].
+
+    With the static tables attached: a dense (T,3,4)@(4,4) clip
+    projection, the per-triangle visibility multiply, a concat. Without
+    them: the per-vertex vertex_stage and the corner gather, which give
+    the same records bit for bit (rowmat is per row, so it commutes with
+    the gather, and a triangle's corners share one instance)."""
+    if draw.tri_rest is None:
+        return build_tri_attrs(draw, *vertex_stage(
+            draw, visibility, view_proj, mat_transform))
     poswh = torch.cat([draw.tri_posw_h[..., :3],
                        torch.ones_like(draw.tri_posw_h[..., :1])], dim=-1)
     clip = shading.rowmat(poswh, view_proj)
@@ -298,15 +404,21 @@ def tri_attrs(draw: DeviceDraw, visibility: torch.Tensor,
 
 def shadow_tri_world(draw: DeviceDraw, visibility: torch.Tensor):
     """Per-triangle world-space homogeneous vertices (T, 3, 4), culled
-    instances zeroed; shared by all cascades."""
-    return (draw.tri_posw_h
-            * visibility[draw.tri_instance.long()][:, None, None])
+    instances zeroed; shared by all cascades. With the static tables
+    only the visibility multiply runs per frame; without them the world
+    transform runs per vertex and the corners are gathered."""
+    if draw.tri_posw_h is not None:
+        return (draw.tri_posw_h
+                * visibility[draw.tri_instance.long()][:, None, None])
+    pos_w = _culled_world_positions(draw, visibility)
+    return pos_w[draw.indices.long().reshape(-1, 3)]  # (T, 3, 4)
 
 
 def _view_tris(draw: DeviceDraw, visibility: torch.Tensor,
-               consts: FrameConstants, cfg: RenderConfig):
+               mat_transform: torch.Tensor, consts: FrameConstants,
+               cfg: RenderConfig):
     """Vertex stage + near clip + screen setup of one main-layer draw."""
-    tri_attr = tri_attrs(draw, visibility, consts.view_proj)
+    tri_attr = tri_attrs(draw, visibility, consts.view_proj, mat_transform)
     tri_attr, tri_valid = clipping.clip_near(
         tri_attr, torch.ones(tri_attr.shape[0], dtype=torch.bool,
                              device=tri_attr.device))
@@ -318,7 +430,8 @@ def _view_tris(draw: DeviceDraw, visibility: torch.Tensor,
 def main_view_tris(scene: DeviceScene, consts: FrameConstants,
                    cfg: RenderConfig):
     """Vertex stage + near clip + screen setup for the main view."""
-    return _view_tris(scene.opaque, consts.opaque_visibility, consts, cfg)
+    return _view_tris(scene.opaque, consts.opaque_visibility,
+                      scene.mat_transform, consts, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -382,6 +495,56 @@ def render_shadow_atlas(scene: DeviceScene, shadow_visibility,
     if stats is not None:
         stats["shadow_overflowed"] = overflowed
     return torch.stack([depth[:, c * S:(c + 1) * S] for c in range(k)])
+
+
+def render_one_shadow_map(scene: DeviceScene, shadow_visibility, vp,
+                          cfg: RenderConfig, tri_world=None,
+                          stats: dict = None) -> torch.Tensor:
+    """One cascade's depth-only render in its own S x S viewport -> (S, S)
+    f32, with the shadow PSO's depth bias (_shadow_bias): the raster
+    kernel's launch with cfg.use_pallas, else the pure-tensor binned
+    raster at cfg.shadow_bin_cap. stats (optional dict) receives
+    "shadow_overflowed" and, on the pure-tensor path,
+    "shadow_bin_overflowed" (0-d bool tensors)."""
+    S = cfg.shadow_map_size
+    if tri_world is None:
+        tri_world = shadow_tri_world(scene.shadow, shadow_visibility)
+    tris = _shadow_bias(rz.setup_tri_verts(shading.rowmat(tri_world, vp),
+                                           None, S, S))
+    stats = {} if stats is None else stats
+    if cfg.use_pallas:
+        depth, _, stats["shadow_overflowed"] = raster.rasterize(
+            tris, S, S, cfg.shadow_pair_capacity, with_ids=False)
+    else:
+        depth, _, stats["shadow_overflowed"], \
+            stats["shadow_bin_overflowed"] = rz.binned_raster(
+                tris, S, S, cfg.shadow_pair_capacity, cfg.shadow_bin_cap,
+                with_ids=False)
+    return depth
+
+
+def render_shadow_maps(scene: DeviceScene, consts: FrameConstants,
+                       cfg: RenderConfig, stats: dict = None) -> torch.Tensor:
+    """The cascades' depth-only renders -> (C, S, S) f32: with
+    cfg.use_pallas the atlas's one raster launch (render_shadow_atlas),
+    else each cascade in its own viewport through the pure-tensor raster
+    (render_one_shadow_map), the world-space table shared. stats
+    (optional dict) receives the flags OR-ed over the cascades."""
+    vps = consts.cascade_view_projs
+    if cfg.use_pallas:
+        return render_shadow_atlas(scene, consts.shadow_visibility, vps,
+                                   cfg, stats)
+    tri_world = shadow_tri_world(scene.shadow, consts.shadow_visibility)
+    maps, flags = [], []
+    for c in range(vps.shape[0]):
+        flags.append({})
+        maps.append(render_one_shadow_map(scene, consts.shadow_visibility,
+                                          vps[c], cfg, tri_world,
+                                          flags[-1]))
+    if stats is not None:
+        for k in flags[0]:
+            stats[k] = torch.stack([f[k] for f in flags]).any()
+    return torch.stack(maps)
 
 
 # ---------------------------------------------------------------------------
@@ -965,7 +1128,8 @@ def alpha_view_tris(scene: DeviceScene, consts: FrameConstants,
                     cfg: RenderConfig):
     """Vertex stage + near clip for the AlphaTested layer (same pipeline
     as main_view_tris, over scene.alpha)."""
-    return _view_tris(scene.alpha, consts.alpha_visibility, consts, cfg)
+    return _view_tris(scene.alpha, consts.alpha_visibility,
+                      scene.mat_transform, consts, cfg)
 
 
 def _alpha_peel(tris: rz.ScreenTris, uv_tri, mat_tri, scene: DeviceScene,
@@ -1099,10 +1263,17 @@ def alpha_merge_main(scene: DeviceScene, consts: FrameConstants,
 def alpha_shadow_geom(scene: DeviceScene, consts: FrameConstants):
     """Cascade-independent inputs of the alpha shadow punch, computed
     once: per-triangle world-space vertices, and the uv and material ids
-    of the draw's static corner tables (frame-constant)."""
+    of each corner: from the draw's static corner tables (frame-constant),
+    or without them through the vertex stage's uv chain and a gather."""
     draw = scene.alpha
-    return (shadow_tri_world(draw, consts.alpha_visibility),
-            draw.tri_rest[..., 9:11], draw.tri_rest[:, 0, 11].long())
+    tri_world = shadow_tri_world(draw, consts.alpha_visibility)
+    if draw.tri_rest is not None:
+        return (tri_world, draw.tri_rest[..., 9:11],
+                draw.tri_rest[:, 0, 11].long())
+    tri_idx = draw.indices.long().reshape(-1, 3)
+    mat = draw.material_indices.long()[draw.vertex_instance.long()]
+    return (tri_world, _vertex_uv(draw, scene.mat_transform)[tri_idx],
+            mat[tri_idx[:, 0]])
 
 
 def alpha_punch_window(scene: DeviceScene, cfg: RenderConfig, tri_world,
@@ -1173,14 +1344,12 @@ def alpha_enabled(scene: DeviceScene, cfg: RenderConfig) -> bool:
 # Capacity counts
 # ---------------------------------------------------------------------------
 
-def _bbox_occupancy(tris: rz.ScreenTris, width: int, height: int,
-                    tile_h: int, tile_w: int) -> torch.Tensor:
-    """(nty, ntx) bool: the tiles some valid triangle's bounding box
-    touches, a superset of the tiles with a covered pixel. Each box adds
-    +-1 at its four corners (inclusion-exclusion); a 2D cumsum gives the
-    count per tile."""
-    tx0, ty0, bw, bh, ntx, nty = rz._tile_bbox(tris, width, height, tile_h,
-                                               tile_w)
+def _tile_counts(bbox) -> torch.Tensor:
+    """(nty, ntx) int32: how many valid triangles' bounding boxes touch
+    each tile, from rz._tile_bbox's output. Each box adds +-1 at its four
+    corners (inclusion-exclusion); a 2D cumsum gives the count per tile,
+    with no pair expansion."""
+    tx0, ty0, bw, bh, ntx, nty = bbox
     tx0, ty0, bw, bh = tx0.long(), ty0.long(), bw.long(), bh.long()
     one = (bw > 0).to(torch.int32)
     img = torch.zeros((nty + 1, ntx + 1), dtype=torch.int32,
@@ -1188,22 +1357,47 @@ def _bbox_occupancy(tris: rz.ScreenTris, width: int, height: int,
     img.index_put_((torch.cat([ty0, ty0, ty0 + bh, ty0 + bh]),
                     torch.cat([tx0, tx0 + bw, tx0, tx0 + bw])),
                    torch.cat([one, -one, -one, one]), accumulate=True)
-    return img.cumsum(0).cumsum(1)[:nty, :ntx] > 0
+    return img.cumsum(0).cumsum(1)[:nty, :ntx]
+
+
+def _bbox_occupancy(tris: rz.ScreenTris, width: int, height: int,
+                    tile_h: int, tile_w: int) -> torch.Tensor:
+    """(nty, ntx) bool: the tiles some valid triangle's bounding box
+    touches, a superset of the tiles with a covered pixel."""
+    return _tile_counts(rz._tile_bbox(tris, width, height, tile_h,
+                                      tile_w)) > 0
+
+
+def _pairs_and_max_tile(tris: rz.ScreenTris, width: int, height: int,
+                        tile_h: int):
+    """(pairs, largest per-tile count) of one binning, 0-d tensors."""
+    bbox = rz._tile_bbox(tris, width, height, tile_h, rz.TILE_W)
+    _, _, bw, bh, _, _ = bbox
+    return (bw * bh).sum(), _tile_counts(bbox).max().to(torch.int64)
 
 
 def capacity_requirements(scene: DeviceScene, consts: FrameConstants,
                           cfg: RenderConfig) -> dict:
-    """Exact (tile, triangle) pair counts the frame's two raster launches
-    expand to — what pair_capacity / shadow_pair_capacity must reach, else
-    pairs are dropped (and the launch reports overflowed) — and bounds on
-    the tiles the compacted passes evaluate, which shade_tile_capacity /
-    ssao_tile_capacity must reach, else covered tiles are shaded as sky.
+    """Exact (tile, triangle) pair counts the frame's rasters expand to —
+    what pair_capacity / shadow_pair_capacity must reach, else pairs are
+    dropped (and the raster reports overflowed) — the largest per-tile
+    triangle counts, which bin_cap / shadow_bin_cap must reach on the
+    pure-tensor path (use_pallas False), else a tile's run is truncated,
+    and bounds on the tiles the compacted passes evaluate, which
+    shade_tile_capacity / ssao_tile_capacity must reach, else covered
+    tiles are shaded as sky.
 
-    The shadow count bins the 4S-wide ATLAS triangles exactly as
-    render_shadow_atlas does. The JAX package sums per-cascade counts with
-    each cascade clipped to its own S x S map (frame.py:1394-1404), which
-    misses the pairs of triangles whose bbox runs into a neighbouring
-    column and undercounts the atlas at 1080p.
+    Tile heights per path, as the rasters bin: the kernel path on
+    raster.TILE_H-row tiles, the pure-tensor path on rz.XLA_TILE_H-row
+    tiles. The kernel path's shadow counts bin the 4S-wide ATLAS
+    triangles as render_shadow_atlas does; the JAX package sums
+    per-cascade counts with each cascade clipped to its own S x S map
+    (frame.py:1394-1404), which misses the pairs of triangles whose bbox
+    runs into a neighbouring column and undercounts the atlas at 1080p.
+    The pure-tensor path renders each cascade in its own viewport, so
+    there the counts are the JAX package's: the cascades' pairs summed
+    (each cascade's binning holds one of them) and the largest tile of
+    any cascade.
 
     shade_tiles counts the (8, 128) tiles the main view's and the alpha
     layer's triangle boxes touch (the alpha layer sets tid >= 0 where no
@@ -1212,9 +1406,9 @@ def capacity_requirements(scene: DeviceScene, consts: FrameConstants,
     _SSAO_DILATE_TILES, as the JAX package counts them. Returns 0-d int
     tensors."""
     tris, _ = main_view_tris(scene, consts, cfg)
-    _, _, bw, bh, _, _ = rz._tile_bbox(tris, cfg.width, cfg.height,
-                                       raster.TILE_H, raster.TILE_W)
-    main_pairs = (bw * bh).sum()
+    th = raster.TILE_H if cfg.use_pallas else rz.XLA_TILE_H
+    main_pairs, main_max_tile = _pairs_and_max_tile(tris, cfg.width,
+                                                    cfg.height, th)
     views = [tris]
     if alpha_enabled(scene, cfg):
         views.append(alpha_view_tris(scene, consts, cfg)[0])
@@ -1230,17 +1424,28 @@ def capacity_requirements(scene: DeviceScene, consts: FrameConstants,
         k = cfg.ssao_scale
         ssao_tiles = _dilate(occupancy(SSAO_TILE_H * k, SSAO_TILE_W * k),
                              *_SSAO_DILATE_TILES).sum()
-    shadow_pairs = torch.zeros((), dtype=main_pairs.dtype,
-                               device=main_pairs.device)
+    shadow_pairs = torch.zeros_like(main_pairs)
+    shadow_max_tile = torch.zeros_like(main_max_tile)
     if cfg.shadows_enabled:
         S = cfg.shadow_map_size
-        k = consts.cascade_view_projs.shape[0]
-        atris, _ = shadow_atlas_tris(scene, consts.shadow_visibility,
-                                     consts.cascade_view_projs, cfg)
-        _, _, bw, bh, _, _ = rz._tile_bbox(atris, k * S, S, raster.TILE_H,
-                                           raster.TILE_W)
-        shadow_pairs = (bw * bh).sum()
+        vps = consts.cascade_view_projs
+        if cfg.use_pallas:
+            atris, _ = shadow_atlas_tris(scene, consts.shadow_visibility,
+                                         vps, cfg)
+            shadow_pairs, shadow_max_tile = _pairs_and_max_tile(
+                atris, vps.shape[0] * S, S, raster.TILE_H)
+        else:
+            tri_world = shadow_tri_world(scene.shadow,
+                                         consts.shadow_visibility)
+            for c in range(cfg.num_cascades):
+                t = rz.setup_tri_verts(shading.rowmat(tri_world, vps[c]),
+                                       None, S, S)
+                pairs, top = _pairs_and_max_tile(t, S, S, rz.XLA_TILE_H)
+                shadow_pairs = shadow_pairs + pairs
+                shadow_max_tile = torch.maximum(shadow_max_tile, top)
     return dict(main_pairs=main_pairs, shadow_pairs=shadow_pairs,
+                main_max_tile=main_max_tile,
+                shadow_max_tile=shadow_max_tile,
                 shade_tiles=shade_tiles, ssao_tiles=ssao_tiles)
 
 
@@ -1252,9 +1457,16 @@ def render_frame(scene: DeviceScene, consts: FrameConstants,
                  cfg: RenderConfig, stats: dict = None) -> torch.Tensor:
     """One full frame -> (H, W, 4) float32 linear color (see module doc).
 
-    stats (optional dict) receives the raster launches' and the
-    compacted passes' overflow flags as 0-d bool tensors
-    ("main_overflowed", "shadow_overflowed", "shade_tiles_overflowed",
+    cfg.use_pallas selects the rasters: the CUDA kernels of ops.raster
+    (the main view and the cascade atlas, one launch each), or the
+    pure-tensor binned raster of ops.rasterizer (the main view, and each
+    cascade in its own viewport, render_shadow_maps), the JAX package's
+    XLA path. Only the cfg selects; neither path stands in for the other.
+
+    stats (optional dict) receives the rasters' and the compacted passes'
+    overflow flags as 0-d bool tensors ("main_overflowed",
+    "shadow_overflowed", on the pure-tensor path "main_bin_overflowed"
+    and "shadow_bin_overflowed", "shade_tiles_overflowed",
     "ssao_tiles_overflowed"), read by nobody here, so the frame never
     waits on the device."""
     H, W = cfg.height, cfg.width
@@ -1264,8 +1476,13 @@ def render_frame(scene: DeviceScene, consts: FrameConstants,
     # vertex stage + near-plane clip + main rasterization (one visibility
     # buffer feeds the normal/depth, G-buffer and lighting passes)
     tris, tri_attr = main_view_tris(scene, consts, cfg)
-    depth, tid, stats["main_overflowed"] = raster.rasterize(
-        tris, W, H, cfg.pair_capacity)
+    if cfg.use_pallas:
+        depth, tid, stats["main_overflowed"] = raster.rasterize(
+            tris, W, H, cfg.pair_capacity)
+    else:
+        depth, tid, stats["main_overflowed"], \
+            stats["main_bin_overflowed"] = rz.binned_raster(
+                tris, W, H, cfg.pair_capacity, cfg.bin_cap)
 
     alpha_on = alpha_enabled(scene, cfg)
     if alpha_on:
@@ -1276,9 +1493,7 @@ def render_frame(scene: DeviceScene, consts: FrameConstants,
                         stats=stats)
 
     if cfg.shadows_enabled:
-        shadow_maps = render_shadow_atlas(scene, consts.shadow_visibility,
-                                          consts.cascade_view_projs, cfg,
-                                          stats)
+        shadow_maps = render_shadow_maps(scene, consts, cfg, stats)
         if alpha_on:
             shadow_maps = alpha_merge_shadow(scene, consts, cfg,
                                              shadow_maps)

@@ -35,6 +35,12 @@
   back the graph's pool; a host read patched into render_frame makes the
   capture raise, twice (a process of its own); K6's texture object in the
   graph outlives a reset of the eager path's texture cache.
+- The pure-XLA raster path (use_pallas=False) and a scene without
+  static tables, config 4 at 480x270 through Renderer.render on the card:
+  the XLA-path frame against the kernel frame on the card and against
+  the XLA path on the CPU (at most 0.5% of pixels above 0.02 each), with
+  no K1/K2 launch; the frame without static tables equal to the frame
+  with them (torch.equal, or within 1e-5 and no pixel above 0.02).
 - The compiled band frame (parallel/graphs.CompiledBandFrame), config 4
   at 480x270: on 2 gloo ranks sharing the card (piecewise graphs, the
   gathers + 1) with the zero radius and the soft disk, and on 1 NCCL
@@ -549,6 +555,46 @@ def test_frame_on_card_matches_cpu(cuda, case):
     assert np.isfinite(imgs[0]).all()
     diff = np.abs(imgs[0] - imgs[1]).max(axis=-1)
     assert (diff > 0.02).mean() <= 0.005, (case, (diff > 0.02).mean())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["xla", "no_statics"])
+def test_xla_and_no_statics_frames_on_card(cuda, case):
+    """Config 4 at 480x270 through Renderer.render on the card. "xla":
+    use_pallas=False launches no raster kernel and stays within 0.5% of
+    pixels above 0.02 of the kernel frame on the card and of the same
+    path on the CPU. "no_statics": the scene's draws without their
+    static tables give the frame with them."""
+    from crychic_renderer_tpu_torch.app import renderer as tren
+    from crychic_renderer_tpu_torch.models import scenes_baseline as sb
+    from crychic_renderer_tpu_torch.passes import frame as fr
+
+    scene, cfg, lights = sb.config4_shadow_pipeline()
+    cfg = dataclasses.replace(cfg, width=480, height=270,
+                              shadow_map_size=512)
+    kernel = tren.Renderer(scene, cfg, lights=lights, device=cuda)
+    want = kernel.render(0.0)
+    if case == "xla":
+        xcfg = dataclasses.replace(cfg, use_pallas=False)
+        r = tren.Renderer(scene, xcfg, lights=lights, device=cuda)
+        raster.reset_launches()
+        got = r.render(0.0)
+        torch.cuda.synchronize()
+        assert raster.LAUNCHES == 0
+        cpu = tren.Renderer(scene, xcfg, lights=lights,
+                            device="cpu").render_np(0.0)
+        for ref in (want, torch.from_numpy(cpu).to(cuda)):
+            diff = (got.clamp(0.0, 1.0) - ref.clamp(0.0, 1.0)).abs()
+            assert float((diff.amax(-1) > 0.02).float().mean()) <= 0.005
+    else:
+        r = tren.Renderer(scene, cfg, lights=lights, device=cuda)
+        r.device_scene = fr.strip_draw_statics(r.device_scene)
+        got = r.render(0.0)
+        if not torch.equal(got, want):
+            diff = (got - want).abs().amax(dim=-1)
+            assert float(diff.max()) <= 1e-5 and not bool((diff > 0.02).any())
+    r.check_overflow()
+    assert bool(got.isfinite().all())
 
 
 @pytest.mark.cuda
