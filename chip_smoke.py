@@ -29,9 +29,12 @@ soft PCF kernel (csrc/pcf.cu). Phases, each printed as it ends:
    covered and sky pixels, exactly one K1 and one K2 launch per frame, no
    capacity overflow; the median ms/frame;
 7. the soft PCF kernel (K6) on the dense 1080p receivers, both cascades
-   of all 2.07M pixels, against soft_pcf_plain: max |err| <= 1e-5, with
-   both times and the share of them the frame discards (phase 22 checks
-   it on the compacted receivers the frame hands it now);
+   of all 2.07M pixels, read from the window-ready buffer of the maps
+   (ops/pcf.quantize_map), against soft_pcf_plain: max |err| <= 1e-5,
+   with both times, the share of them the frame discards and the share
+   whose window lies on the map's last block (the receivers the former
+   kernel sent down its scalar branch) (phase 22 checks it on the
+   compacted receivers the frame hands it now);
 8. 3 warm-up + 10 timed frames each of config 4 with the soft disk, and of
    the same with the fast preset: finite, one K1, one K2 and one K6 launch
    per frame, no overflow, the median ms/frame of each; and a 240x135
@@ -98,10 +101,14 @@ soft PCF kernel (csrc/pcf.cu). Phases, each printed as it ends:
    capacities capacity_requirements sizes, timed the same way (one K1 and
    one K2 per frame), and profile_frame of the 1080p fence frame: the
    alpha peel's stages (alpha_merge_main, alpha_merge_shadow);
-19. the soft PCF kernel (K6) on 520^2 maps, which the card cannot texture
-   (1,040-byte rows): the 1080p receivers of config 4 with 520^2 maps
-   against soft_pcf_plain (<= 1e-5), every receiver on the kernel's
-   scalar path, with both times; and 3 warm-up + 10 timed frames of that
+19. the soft PCF kernel (K6) on 520^2 maps, whose 1,040-byte rows are off
+   the card's texture pitch alignment: their window-ready buffer (a
+   544-texel pitch) has a texture object, so every receiver takes the
+   gather path. The 1080p receivers of config 4 with 520^2 maps against
+   soft_pcf_plain (<= 1e-5), kernel, device, plain and bound times, with
+   the scalar path's device time before the window-ready map quoted
+   beside them (every receiver took it then), and the share with a
+   window on the last block; and 3 warm-up + 10 timed frames of that
    config with the soft disk (one K1, K2 and K6 launch per frame).
 
 20. config 5 (skull + car + instanced boxes + grid, PBR, shadows, SSAO,
@@ -224,6 +231,15 @@ soft PCF kernel (csrc/pcf.cu). Phases, each printed as it ends:
    no K1/K2/K3 launch on the pure-XLA path. The card's name and power
    limit head the phase's lines.
 
+27. K6 off the frame's receivers: the card's texture limits (and the S
+   from which four cascades pass them); receivers near every edge and
+   corner of patchy maps made from a seed, with 1,000 NaN, +-inf and
+   +-1e30 parameters among them, at S = 520 and 2048 (textured), and at
+   S = 136 on one cascade more than the card's texture height holds (no
+   texture object: the scalar path): each against soft_pcf_plain (<=
+   1e-5; torch.equal printed). The K6 entries of the kernels line carry
+   these errors.
+
 Renderer.render replays a CUDA graph: a Renderer's first render, and the
 first after its cfg is replaced, runs one eager frame before it captures
 the graph, so a run's launch counts hold one more launch of each of its
@@ -233,8 +249,11 @@ variant is kept off every frame path.
 
 Then one JSON line of per-kernel results (with each kernel's bound: the
 larger of the bytes its function must move over 3.35 TB/s and the f32
-operations the function needs over 67 TFLOP/s, counted from this run's
-inputs) and, last, the device line. Any
+operations the function needs on this run's inputs over 33.5 T/s, the
+rate with every operation rounded on its own, as the kernels are built
+(-fmad=false): for the raster kernel the warp-level reject's test of
+every (record, warp) pair and the pixel tests of the pairs it keeps,
+for K6 460 per receiver-cascade) and, last, the device line. Any
 failed phase raises, so the script exits non-zero and prints no result;
 so does a machine without CUDA, and a directory without the repository.
 """
@@ -297,15 +316,47 @@ PIX_BOUND = 0.005
 SHARD_FRAC = 1e-3  # tests/test_multichip.py's sharded-frame bound
 PCF_TOL = 1e-5
 SOFT = 2.5
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 operations/s
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and f32 operations/s
+# with each rounded on its own: the kernels are built with -fmad=false,
+# so every mul and add issues alone, at half the 67 TFLOP/s that counts
+# an FMA as two
 HBM_BYTES_S = 3.35e12
-F32_OPS_S = 67e12
-# f32 operations per (pair, 8x128 tile) that the raster function needs:
-# each of the 4 planes multiplies A by 128 column centres and B by 8 row
-# centres, then per pixel 8 adds and 6 compares; the atlas's column guard
-# adds 2 compares per column
-_RASTER_OPS = 4 * (128 + 8) + 1024 * (8 + 6)
-RASTER_OPS_PER_PAIR = {"ids": _RASTER_OPS, "depth": _RASTER_OPS + 128 * 2}
+F32_OPS_S = 33.5e12
+# The raster function's f32 operations on these inputs, each rounded on
+# its own: the warp-level reject's test for every (record, warp) pair,
+# and the pixel tests of the pairs it keeps (ops/raster.warp_rejects).
+# The test: per edge its margin (|A|*128, |B|*8, two sums, the 2^-20
+# product and the 2^-120 sum: 6), the plane at the maximising corner (2
+# compares to pick it, 2 products, 2 sums) and a compare: 13; the depth
+# plane's margin (6), both corners (6 + 4, the compares shared), 1 + m
+# and two compares: 19; the column guard 2 compares. The pixel tests of
+# a warp's 16x8 rectangle: each of the 4 planes multiplies A by 16
+# column centres and B by 8 row centres, then per pixel 8 adds and 6
+# compares; the guard 2 compares per column.
+RASTER_REJECT_OPS = {False: 3 * 13 + 19, True: 3 * 13 + 19 + 2}
+RASTER_WARP_OPS = {False: 4 * (16 + 8) + 128 * (8 + 6),
+                   True: 4 * (16 + 8) + 128 * (8 + 6) + 16 * 2}
+# The former rule, printed beside the new bound once (phase 4): every
+# pair's full 8x128 tile, 14,880 operations (15,136 with the guard), over
+# 67 TFLOP/s
+OLD_RASTER_OPS = {False: 4 * (128 + 8) + 1024 * (8 + 6),
+                  True: 4 * (128 + 8) + 1024 * (8 + 6) + 128 * 2}
+OLD_F32_OPS_S = 67e12
+# K6's scalar path on config 4's 1080p receivers at S = 520 before the
+# window-ready map (every receiver: its 1,040-byte rows had no texture),
+# device ms on an NVIDIA H100 80GB HBM3 at 700.00 W, quoted in phase 19
+K6_520_SCALAR_MS = 0.4932
+
+
+def raster_ops(records, with_xrange):
+    """f32 operations the raster function needs on these records (the
+    valid pairs): RASTER_REJECT_OPS per (record, warp), RASTER_WARP_OPS
+    per (record, warp) the reject keeps."""
+    from crychic_renderer_tpu_torch.ops import raster
+
+    kept = int((~raster.warp_rejects(records, with_xrange)).sum())
+    return (records.shape[0] * raster.WARPS * RASTER_REJECT_OPS[with_xrange]
+            + kept * RASTER_WARP_OPS[with_xrange])
 
 
 def bound(nbytes, ops):
@@ -317,6 +368,29 @@ def bound(nbytes, ops):
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
     return keys, (f"bound {keys['bound_ms']:.4f} ms (bytes {t_bytes:.4f}, "
                   f"operations {t_ops:.4f})")
+
+
+def k6_bound(qmap, params):
+    """K6's bound on these inputs: the parameters read, the map's C*S*S
+    16-bit texels read (not the window-ready padding) and the factors
+    written; OPS_PER_RECEIVER per receiver-cascade."""
+    from crychic_renderer_tpu_torch.ops import pcf
+
+    S = pcf.map_size(qmap)
+    m = params.shape[1]
+    return bound(params.numel() * 4 + qmap.shape[0] * S * S * 2 + m * 4,
+                 m * pcf.OPS_PER_RECEIVER)
+
+
+def last_block_share(params, S):
+    """The share of receiver-cascades whose window lies on the map's last
+    8-texel block in x or y (qx0 or qy0 = S/8 - 1): the ones the former
+    kernel sent down its scalar path on a textured map."""
+    nb = S // 8
+    corner = torch.clamp(torch.floor(params[:2]).nan_to_num(nan=-2.0 ** 30),
+                         -2.0 ** 30, 2.0 ** 30).long() - 3
+    q = torch.clamp(corner >> 3, 0, nb - 1)
+    return float((q == nb - 1).any(dim=0).float().mean())
 
 
 def phase(msg):
@@ -445,11 +519,14 @@ def main():
         # records of the valid pairs, per-tile starts and counts, depth
         # (+ id) out
         nbytes = pairs * 64 + starts.numel() * 8 + W * H * (8 if ids else 4)
-        b, note = bound(nbytes, pairs * RASTER_OPS_PER_PAIR[variant])
+        b, note = bound(nbytes, raster_ops(rec[:pairs], xrange))
+        old_ms = 1000.0 * max(nbytes / HBM_BYTES_S, pairs * OLD_RASTER_OPS[
+            xrange] / OLD_F32_OPS_S)
         phase(f"[4] {name}: {W}x{H}, {pairs} pairs, equal to "
               f"rasterize_plain (max |err| {err}); kernel {ms:.4f} ms "
-              f"(device {dev_ms:.4f}), plain {plain_ms:.4f} ms, {note}; "
-              f"{reject_note(rec[:pairs], xrange)}")
+              f"(device {dev_ms:.4f}), plain {plain_ms:.4f} ms, {note} "
+              f"(the former rule, every pair's whole tile over 67 "
+              f"TFLOP/s: {old_ms:.4f}); {reject_note(rec[:pairs], xrange)}")
         kernels.append(dict(name=name, route="cuda",
                             source="crychic_renderer_tpu_torch/csrc/raster.cu",
                             replaces=replaces, variant=variant,
@@ -512,13 +589,14 @@ def main():
                        "soft_pcf_kernel")
     plain_ms = cuda_ms(lambda: pcf.soft_pcf_plain(qmap, params, SOFT), 3)
     m = params.shape[1]
-    nbytes = params.numel() * 4 + qmap.numel() * 2 + m * 4
-    b, note = bound(nbytes, m * pcf.OPS_PER_RECEIVER)
+    b, note = k6_bound(qmap, params)
     soft_share = float(((f_p > 0) & (f_p < 1)).float().mean())
     phase(f"[7] K6 soft PCF on the dense receivers (the frame now hands "
           f"it the compacted ones, phase 22): {m} receiver-cascades "
-          f"({cfg.width}x{cfg.height} x 2), {soft_share:.2%} in a penumbra; "
-          f"max |err| "
+          f"({cfg.width}x{cfg.height} x 2) on the {tuple(qmap.shape)} "
+          f"window-ready buffer, {soft_share:.2%} in a penumbra; "
+          f"{last_block_share(params, S):.2%} with a window on the map's "
+          f"last block (the former kernel's scalar branch); max |err| "
           f"{max_err} vs soft_pcf_plain, {above:.4%} above 1e-5; kernel "
           f"{ms:.4f} ms (device {dev_ms:.4f}), plain {plain_ms:.4f} ms, "
           f"{note}; discarded by the "
@@ -659,6 +737,15 @@ def main():
     phase(f"[26] phase 26 took {t8 - t7:.1f} s; the script "
           f"{t8 - t_script:.1f} s, kernel builds included")
 
+    # 27: K6 on edge, NaN and huge receivers, and past the texture limits
+    k6_edges = pcf_edge_runs(smi)
+    for k in kernels:
+        if k["name"].startswith("K6"):
+            k["edge_max_abs_err"] = k6_edges
+    t9 = time.perf_counter()
+    phase(f"[27] phase 27 took {t9 - t8:.1f} s; the script "
+          f"{t9 - t_script:.1f} s, kernel builds included")
+
     kernels.sort(key=lambda k: k["name"])
     for k in kernels:
         variant = k.pop("variant")
@@ -702,6 +789,7 @@ def band_launches(name, variant, n, tris, W, H, cap, xrange, full):
         pairs = int(counts[off:off + grid].sum())
         first = int(starts[off])
         recs.append(rec[first:first + pairs])
+        ops = raster_ops(recs[-1], xrange is not None)
         owners.append(dict(
             pairs=pairs,
             ms=cuda_ms(lambda: raster.raster_tiles(*args), 20),
@@ -711,7 +799,7 @@ def band_launches(name, variant, n, tris, W, H, cap, xrange, full):
             # records of the valid pairs, the grid's starts and counts,
             # depth (+ id) out
             nbytes=pairs * 64 + grid * 8 + W * rows * (8 if ids else 4),
-            ops=pairs * RASTER_OPS_PER_PAIR[variant]))
+            ops=ops))
         parts.append((d_k, t_k))
     rows = parts[0][0].shape[0]
 
@@ -1300,8 +1388,9 @@ def asset_runs(dev, frame_ms, launches):
 
 
 def pcf_520(dev, frame_ms, launches):
-    """Phase 19: K6 on 520^2 maps (no texture object; see the module
-    doc). Returns the kernels-line entry."""
+    """Phase 19: K6 on 520^2 maps, whose window-ready buffer (a 544-texel
+    pitch) the card textures (see the module doc). Returns the
+    kernels-line entry."""
     from crychic_renderer_tpu_torch.app.renderer import Renderer
     from crychic_renderer_tpu_torch.models.scenes_baseline import CONFIGS
     from crychic_renderer_tpu_torch.ops import pcf, raster, shadows
@@ -1324,6 +1413,9 @@ def pcf_520(dev, frame_ms, launches):
     qmap = pcf.quantize_map(maps)
     params = pcf.receiver_params(pos.reshape(-1, 4), cascades.reshape(-1), S)
     assert (2 * S) % 32 != 0, "S = 520 is meant to be off the pitch alignment"
+    tex, has_tex = pcf.make_texture(qmap)
+    assert has_tex == 1, "the 520^2 window-ready buffer has no texture"
+    pcf.destroy_texture(tex)
     f_k = pcf.soft_pcf(qmap, params, SOFT)
     torch.cuda.synchronize()
     f_p = pcf.soft_pcf_plain(qmap, params, SOFT)
@@ -1335,25 +1427,109 @@ def pcf_520(dev, frame_ms, launches):
                        "soft_pcf_kernel")
     plain_ms = cuda_ms(lambda: pcf.soft_pcf_plain(qmap, params, SOFT), 3)
     m = params.shape[1]
-    b, note = bound(params.numel() * 4 + qmap.numel() * 2 + m * 4,
-                    m * pcf.OPS_PER_RECEIVER)
+    b, note = k6_bound(qmap, params)
+    edge = last_block_share(params, S)
     frame_ms["soft_520"], launches["soft_520"] = run_frames(
         r, dict(ZERO, ids=1, depth=1, pcf=1))
-    phase(f"[19] K6 soft PCF on {S}^2 maps (2*S = {2 * S} bytes a row: no "
-          f"texture object, every receiver on the scalar path): {m} "
-          f"receiver-cascades at {cfg.width}x{cfg.height}; max |err| {err} "
-          f"vs soft_pcf_plain; kernel {ms:.4f} ms (device {dev_ms:.4f}), "
-          f"plain {plain_ms:.4f} ms, {note}; the soft-disk frame on "
-          f"{S}^2 maps: {FRAMES_WARMUP} warm-up + {FRAMES_TIMED} frames, "
-          f"median {frame_ms['soft_520']:.3f} ms/frame; launches "
+    phase(f"[19] K6 soft PCF on {S}^2 maps ({2 * S}-byte rows, off the "
+          f"texture pitch alignment), read from the {tuple(qmap.shape)} "
+          f"window-ready buffer ({2 * qmap.shape[2]}-byte rows) through "
+          f"its texture object: every receiver on the gather path; {m} "
+          f"receiver-cascades at {cfg.width}x{cfg.height}, all of them on "
+          f"the former kernel's scalar path (no texture), {edge:.2%} with "
+          f"a window on the last block; max |err| {err} vs "
+          f"soft_pcf_plain; kernel {ms:.4f} ms (device {dev_ms:.4f}; the "
+          f"scalar path read {K6_520_SCALAR_MS} on an NVIDIA H100 80GB "
+          f"HBM3 at 700.00 W), plain {plain_ms:.4f} ms, {note}, device "
+          f"time {b['bound_ms'] / dev_ms:.1%} of the bound; the soft-disk "
+          f"frame on {S}^2 maps: {FRAMES_WARMUP} warm-up + {FRAMES_TIMED} "
+          f"frames, median {frame_ms['soft_520']:.3f} ms/frame; launches "
           f"{launches['soft_520']}; no overflow")
     return dict(
-        name=f"K6 soft-disk PCF at S={S}: scalar path, no texture object "
+        name=f"K6 soft-disk PCF at S={S}: the window-ready buffer of a map "
+             f"whose rows are off the texture pitch alignment "
              f"(shadows.py:319)", route="cuda",
         source="crychic_renderer_tpu_torch/csrc/pcf.cu",
         replaces="experiments/pcf_probe.py:46", variant="pcf",
         runs=["soft_520"], max_abs_err=err, ms=ms, device_ms=dev_ms,
-        plain_ms=plain_ms, library_ms=None, **b)
+        plain_ms=plain_ms, library_ms=None, receivers=m,
+        map_buffer=list(qmap.shape), last_block_share=edge, **b)
+
+
+def pcf_edge_params(S, n, seed, cascades=4):
+    """(qmap, params) for phase 27: patchy maps made with numpy from
+    `seed`, and n receivers whose window corner cx, cy lies within 8
+    texels of the map's low edge, within 8 of its high edge, or inside,
+    independently in x and y, in every cascade, with depths near the
+    map's; then 1,000 receivers each with one parameter (cx, cy, dq, cos,
+    sin, cascade by turns) set to NaN, +inf, -inf, 1e30 or -1e30."""
+    from crychic_renderer_tpu_torch.ops import pcf
+
+    rng = np.random.default_rng(seed)
+
+    def coord():
+        return np.choose(rng.integers(0, 3, n),
+                         [rng.uniform(-8.5, 8.5, n),
+                          rng.uniform(S - 9.5, S + 7.5, n),
+                          rng.uniform(8.0, S - 9.0, n)])
+
+    yy, xx = np.mgrid[0:S, 0:S]
+    ph = rng.uniform(0, 6, (cascades, 2))
+    maps = np.stack([0.5 + 0.3 * np.sin(xx / (7.0 + c % 4) + ph[c, 0])
+                     * np.cos(yy / (5.0 + c % 4) + ph[c, 1])
+                     for c in range(cascades)]).astype(np.float32)
+    cx, cy = coord(), coord()
+    casc = rng.integers(0, cascades, n)
+    ix = np.clip(np.floor(cx + 0.5).astype(int), 0, S - 1)
+    iy = np.clip(np.floor(cy + 0.5).astype(int), 0, S - 1)
+    dq = (maps[casc, iy, ix] + rng.uniform(-0.05, 0.05, n)) * 65535.0 - 0.5
+    theta = rng.uniform(0, 2 * np.pi, n)
+    params = np.stack([cx, cy, dq, np.cos(theta), np.sin(theta),
+                       casc]).astype(np.float32)
+    extreme = [np.nan, np.inf, -np.inf, 1e30, -1e30]
+    for k in range(1000):
+        params[k % pcf.PARAMS, k] = extreme[k % len(extreme)]
+    dev = torch.device("cuda", 0)
+    return (pcf.quantize_map(torch.from_numpy(maps).to(dev)),
+            torch.from_numpy(params).to(dev))
+
+
+def pcf_edge_runs(card):
+    """Phase 27 (see the module doc). Returns {case: max |err|}."""
+    from crychic_renderer_tpu_torch.ops import pcf
+
+    lim = pcf.texture_limits(torch.device("cuda", 0))
+    four = (lim["max_height"] // 4 - pcf.WINDOW_PAD) // 8 * 8 + 8
+    phase(f"[27] {card}; texture limits {lim}: four cascades take the "
+          f"scalar path from S = {four}")
+    out = {}
+    fit = lim["max_height"] // (136 + pcf.WINDOW_PAD)
+    for name, S, n, cascades in (
+            ("S=520", 520, 200_001, 4), ("S=2048", 2048, 1_000_001, 4),
+            (f"past the limits, S=136 x {fit + 1} cascades", 136, 200_001,
+             fit + 1)):
+        qmap, params = pcf_edge_params(S, n, seed=S + cascades,
+                                       cascades=cascades)
+        tex, has_tex = pcf.make_texture(qmap)
+        if has_tex:
+            pcf.destroy_texture(tex)
+        assert has_tex == (cascades * (S + pcf.WINDOW_PAD)
+                           <= lim["max_height"]), (name, has_tex)
+        f_k = pcf.soft_pcf(qmap, params, SOFT)
+        torch.cuda.synchronize()
+        f_p = pcf.soft_pcf_plain(qmap, params, SOFT)
+        err = float((f_k - f_p).abs().max())
+        assert bool(f_k.isfinite().all()) and err <= PCF_TOL, \
+            f"K6 {name}: max |err| {err} vs plain"
+        out[name] = err
+        phase(f"[27] K6 {name}: {n} receiver-cascades on the "
+              f"{tuple(qmap.shape)} buffer "
+              f"({'texture' if has_tex else 'no texture: scalar path'}), "
+              f"{last_block_share(params, S):.2%} with a window on the "
+              f"last block, 1,000 with a NaN, +-inf or +-1e30 parameter: "
+              f"torch.equal to soft_pcf_plain {torch.equal(f_k, f_p)}, "
+              f"max |err| {err}")
+    return out
 
 
 DEVICE_STAGES = ("resolve_gbuffer", "ssao", "lighting")
@@ -1623,8 +1799,8 @@ def k6_compacted(r, consts, call, tid, pos_w):
     dev_ms = device_ms(lambda: pcf.soft_pcf(qmap, params, radius), 20,
                        "soft_pcf_kernel")
     plain_ms = cuda_ms(lambda: pcf.soft_pcf_plain(qmap, params, radius), 3)
-    b, bnote = bound(params.numel() * 4 + qmap.numel() * 2 + m * 4,
-                     m * pcf.OPS_PER_RECEIVER)
+    b, bnote = k6_bound(qmap, params)
+    edge = last_block_share(params, pcf.map_size(qmap))
     # the receiver-cascades the frame keeps: both slots of covered pixels
     # with a shadow, less the second slot of cascade-3 pixels (the
     # deferred quirk blends below cascade 3 only)
@@ -1641,18 +1817,21 @@ def k6_compacted(r, consts, call, tid, pos_w):
         * fr.SHADE_TILE_H * fr.SHADE_TILE_W
     note = (f"; K6 on the compacted receivers: {m} receiver-cascades "
             f"(2 x CB {cfg.shade_tile_capacity} x 1024; the dense frame "
-            f"{2 * cfg.width * cfg.height}), max |err| {err} vs "
-            f"soft_pcf_plain; kernel {ms:.4f} ms (device {dev_ms:.4f}), "
-            f"plain {plain_ms:.4f} ms, {bnote}; discarded by the frame "
-            f"{1 - used / m:.2%} of them (slots of no occupied tile "
-            f"{empty / m:.2%})")
+            f"{2 * cfg.width * cfg.height}) on the {tuple(qmap.shape)} "
+            f"window-ready buffer, {edge:.2%} with a window on the last "
+            f"block (the former kernel's scalar branch), max |err| {err} "
+            f"vs soft_pcf_plain; kernel {ms:.4f} ms (device "
+            f"{dev_ms:.4f}), plain {plain_ms:.4f} ms, {bnote}; discarded "
+            f"by the frame {1 - used / m:.2%} of them (slots of no "
+            f"occupied tile {empty / m:.2%})")
     return dict(
         name="K6 soft-disk PCF: 16 taps, 2.5 texels, 2 cascades, on the "
              "compacted receivers (shadows.py:319)", route="cuda",
         source="crychic_renderer_tpu_torch/csrc/pcf.cu",
         replaces="experiments/pcf_probe.py:46", variant="pcf",
         runs=FRAME_RUNS, max_abs_err=err, ms=ms, device_ms=dev_ms,
-        plain_ms=plain_ms, library_ms=None, receivers=m, **b), note
+        plain_ms=plain_ms, library_ms=None, receivers=m,
+        map_buffer=list(qmap.shape), last_block_share=edge, **b), note
 
 
 def queued_runs(dev, assets, frame_ms, launches):

@@ -16,9 +16,10 @@ frame the caller still holds is not overwritten by the next replay.
 
 The eager frame comes first because a capture refuses what a frame does
 on its first run: ``ops/consts.device_constant`` makes its tensors with a
-pageable copy, the kernel libraries load, and the soft PCF's map buffers
-and their texture objects are made (``ops/pcf.OwnedMaps``; the capture
-makes none and never touches the kernel's texture cache). The capture
+pageable copy, the kernel libraries load, and the soft PCF's
+window-ready map buffers and their texture objects are made
+(``ops/pcf.OwnedMaps``; the capture makes none and never touches the
+kernel's texture cache). The capture
 runs in CUDA's global capture mode, PyTorch's default: a host sync or an
 unsafe call inside the frame makes it raise, and nothing falls back to
 the eager frame.

@@ -6,19 +6,29 @@
 // :319, tap loop :423-457) and as the Pallas kernel make_kernel(mode).kern
 // (experiments/pcf_probe.py:46, launched by run_kernel :117). Both read
 // 16x16-texel "superwindows", a per-receiver gather table laid out for
-// the TPU; this kernel reads the 16-bit quantized shadow maps directly
-// and computes each window texel's address itself, which gives the same
-// texels.
+// the TPU (superwindow_maps_u16, shadows.py:208); this kernel reads one
+// window-ready copy of the 16-bit quantized maps instead, in which every
+// receiver's superwindow is a 16x16 rectangle of the buffer.
+//
+// The window-ready map (ops/pcf.py quantize_map). A (C, S + 8, P) buffer
+// of 16-bit depths: rows and columns 0..S-1 of cascade c are its map;
+// rows S..S+7 repeat rows S-8..S-1, columns S..S+7 repeat columns
+// S-8..S-1 (the corner block both), and columns S+8..P-1 are zero and
+// never read. P, the row pitch in texels, is the least multiple of 16
+// above S + 8 (ops/pcf.py window_pitch): 32-byte rows, the H100's
+// texture pitch alignment. The superwindow's second block along each
+// axis is min(q + 1, S/8 - 1), the clamp of superwindow_from_packed
+// (shadows.py:197-205); at q = S/8 - 1 that is the last block again,
+// which is what the padding holds. So window texel (wy, wx) of every
+// receiver is buffer texel (8*qy0 + wy, 8*qx0 + wx) with no clamp in the
+// address.
 //
 // What it computes, per (receiver, cascade) i, from the parameters
 // params[k * m + i] that ops/pcf.py receiver_params prepares in PyTorch
 // (k = 0..5: cx = u*S - 0.5, cy = v*S - 0.5, dq = z*65535 - 0.5, cos and
 // sin of the rotation hash, the cascade index):
 //   - the window: x_lo = floor(cx) - 3, qx0 = clip(x_lo >> 3, 0, S/8 - 1)
-//     (the same for y). Window texel (wy, wx), wy and wx in [0, 16), is
-//     map row min(qy0 + wy/8, S/8 - 1)*8 + wy%8 and column likewise: the
-//     block past the map's edge is clamped, as superwindow_from_packed
-//     clamps it. fx = cx - 8*qx0, fy = cy - 8*qy0.
+//     (the same for y); fx = cx - 8*qx0, fy = cy - 8*qy0.
 //   - tap t of the disk sits at (fx + (px*c - py*s)*r, fy + (px*s +
 //     py*c)*r). It adds relu(1 - |wx - tx|) * relu(1 - |wy - ty|) for each
 //     of the <= 4 window texels under its tent whose 16-bit depth passes
@@ -30,8 +40,8 @@
 // Each weight is evaluated with every operation rounded on its own (the
 // file is built with -fmad=false) and summed tap by tap, then (ky, kx),
 // in the order of the plain version (ops/pcf.py soft_pcf_plain); a texel
-// that does not count adds +0.0, which leaves the sum as it was. So the
-// two agree to the last bit on the card.
+// that does not count adds +0.0, which leaves the sum as it was (it
+// starts at +0.0). So the two agree to the last bit on the card.
 //
 // Work split. i = 2 * pixel + slot (cascades.reshape(-1) in
 // ops/shadows.py). Warp v of the grid takes slot v % 2 of the 32
@@ -39,50 +49,57 @@
 // So a warp reads one cascade's map around 32 neighbouring receivers,
 // where one thread per consecutive i read two maps 8 MB apart.
 //
-// Footprint fetches. When the receiver's window lies inside the map
-// (qx0 and qy0 below the last 8-texel block), window texel (wy, wx) is map
-// texel (8*qy0 + wy, 8*qx0 + wx), so a tap's 2x2 footprint is 2x2
-// neighbouring texels, and one tex2Dgather fetches all four: the texture
-// object views the (C, S, S) map as a (C*S, S) 16-bit pitch-linear 2D
-// texture (point sampling, unnormalised coordinates, clamped at its
-// edges), and the gather at (X + 1, Y + 1) returns texels (X, Y), (X+1,
-// Y), (X, Y+1), (X+1, Y+1) as .w, .z, .x, .y. 16 fetches per receiver-
-// cascade replace 64 scalar loads. The window masks (columns in [0, 16),
-// the inner taps' 8 rows from oy) select the four weights without
-// branches; a texel outside the window (even one the texture clamped, or
-// one of the neighbouring cascade's rows) is fetched and masked away. A
-// receiver whose window reaches the map's last block, where
-// min(q + 1, S/8 - 1) repeats that block, and any receiver with a
-// non-finite or huge coordinate (its window clamps there) takes the
-// exact scalar path of the plain version in a branch. The eager C entry
-// makes the texture object at the first launch on a map pointer and shape
-// and caches it; the compiled frame (app/graphs.py) makes one per map
-// buffer it owns before its CUDA graph is captured and launches with it,
-// so a graph never reads a cached object. A failure to make one is
-// returned as an error, never worked around. A map whose rows (2*S
-// bytes) or address do not meet the card's texture pitch alignment or
-// texture alignment (read once per device: 32 and 512 bytes on an H100,
-// so S = 520 has no texture) gets no texture object: the launch sends
-// every receiver down the scalar path, which gives the same bits.
+// Footprint fetches. A tap's 2x2 footprint is 2x2 neighbouring texels
+// of the buffer, and one tex2Dgather fetches all four: the texture object
+// views the buffer as a (C*(S+8)) x (S+8) 16-bit pitch-linear 2D texture
+// with a pitch of 2*P bytes (point sampling, unnormalised coordinates,
+// clamped at its edges), and the gather at (X + 1, Y + 1) returns texels
+// (X, Y), (X+1, Y), (X, Y+1), (X+1, Y+1) as .w, .z, .x, .y; window row 0
+// of cascade c is texture row c*(S+8) + 8*qy0. 16 fetches per receiver-
+// cascade replace 64 scalar loads, for every receiver: the window masks
+// (columns in [0, 16), the inner taps' 8 rows from oy) select the four
+// weights without branches, and a texel outside the window (one the
+// texture clamped, or one of the next cascade's rows) is fetched and
+// masked away. A receiver with a non-finite or huge coordinate gets its
+// window clamped to the map as any other and its taps masked.
+//
+// Texture objects. The eager C entry makes one at the first launch on a
+// buffer's pointer and shape and caches it; the compiled frame
+// (app/graphs.py) makes one per buffer it owns before its CUDA graph is
+// captured and launches with it, so a graph never reads a cached object.
+// The buffer's pitch (2*P bytes) and address must meet the card's
+// texture pitch alignment and texture alignment (read once per device:
+// 32 and 512 bytes on an H100); a buffer that does not is refused with
+// an error, never read some other way. A buffer past the card's limits
+// for pitch-linear textures (read once per device: 65,000 rows on an
+// H100, so C*(S+8) > 65,000, four cascades from S = 16,248) gets no
+// texture object, and only there the launch takes the scalar path,
+// which reads the same texels of the buffer with the same addressing,
+// four loads per tap.
 //
 // What bounds it. Per (receiver, cascade): 24 bytes of parameters in, 4
 // bytes out, and the 28 f32 operations per tap that the function needs
 // (two tap offsets and positions, two floors, the four bilinear weights,
 // then per texel a product, a compare and an add), 460 with the window
-// set-up (ops/pcf.py OPS_PER_RECEIVER). At 1080p that is 4.15M
-// receiver-cascades, 116 MB of parameters and output plus the 32 MB map,
-// against 1.9e9 operations: bound by memory (~45 us at 3.35 TB/s) more
-// than by f32 throughput (~29 us at 67 TFLOP/s). The map fits in the 50
-// MB L2, so the former design (two cascades per warp, four 2-byte loads
-// per tap behind data-dependent branches, ~265M texel loads at 1080p) was
-// bound by load issue and L1 traffic, not DRAM: 0.372 ms on an H100 SXM
-// at 700 W. This one issues one gather and ~55 f32 and integer
-// instructions per tap (the tap position, floors, masks, four tents and
-// products, four selected adds), ~114M warp instructions at 1080p, ~0.12
-// ms at 132 SMs x 4 schedulers x ~1.75 GHz: it is bound by instruction
-// issue, and ran in 0.161 ms on the same card
-// (experiments/kernel_ab_probe.py). Comparing the texels with ceil(dq)
-// as integers, to save their conversion to f32, made it no faster. A
+// set-up (ops/pcf.py OPS_PER_RECEIVER), each rounded on its own. At 1080p
+// that is 4.15M receiver-cascades, 116 MB of parameters and output plus
+// the 32 MB map, against 1.9e9 operations: ~57 us at 33.5 T/s (the f32
+// rate with every mul and add issued alone, half the 67 TFLOP/s that
+// counts an FMA as two), more than the ~45 us of memory at 3.35 TB/s.
+// The map fits in the 50 MB L2, so the first design (two cascades per
+// warp, four 2-byte loads per tap behind data-dependent branches, ~265M
+// texel loads at 1080p) was bound by load issue and L1 traffic, not DRAM:
+// 0.372 ms on an H100 SXM at 700 W. This one issues one gather and ~55
+// f32 and integer instructions per tap (the tap position, floors, masks,
+// four tents and products, four selected adds), ~114M warp instructions
+// at 1080p, ~0.12 ms at 132 SMs x 4 schedulers x ~1.75 GHz: it is bound
+// by instruction issue, and ran in 0.161 ms on the same card
+// (experiments/kernel_ab_probe.py). Before the window-ready map, the
+// receivers whose window reached the map's last block, and every
+// receiver of a map whose 2*S-byte rows missed the pitch alignment (S =
+// 520), took the scalar path: config 4's 1080p receivers on 520^2 maps
+// ran in 0.493 ms on that card. Comparing the texels with ceil(dq) as
+// integers, to save their conversion to f32, made it no faster. A
 // receiver's two cascades cannot share tap offsets: the rotation hash
 // reads each cascade's own uv (ops/pcf.py receiver_params), so their
 // angles differ. Skipping the receivers the frame discards (sky, no
@@ -150,14 +167,14 @@ struct Tap {
   }
 };
 
-// The window inside the map: one gather per tap, branch-free masks.
+// One gather per tap. rows = S + 8, the buffer's rows per cascade.
 __device__ __forceinline__ float taps_gather(const Receiver& r,
                                              cudaTextureObject_t tex,
-                                             int size, float radius) {
-  // map row of window row 0 in the (C*S, S) texture, and column of
-  // window column 0; exact in f32 (< 2^24)
+                                             int rows, float radius) {
+  // texture row of window row 0 and column of window column 0; exact in
+  // f32 (C*(S+8) <= the texture height limit < 2^24)
   const float row_base =
-      static_cast<float>(r.cascade * size + 8 * r.qy0);
+      static_cast<float>(r.cascade * rows + 8 * r.qy0);
   const float col_base = static_cast<float>(8 * r.qx0);
   float acc = 0.0f;
 #pragma unroll
@@ -190,14 +207,15 @@ __device__ __forceinline__ float taps_gather(const Receiver& r,
   return acc;
 }
 
-// Any window, the clamped last block included: the plain version's
-// scalar reads.
-__device__ __noinline__ float taps_scalar(const Receiver& r,
-                                          const unsigned short* map,
-                                          int size, float radius) {
-  const int nb = size >> 3;
-  const unsigned short* cmap =
-      map + static_cast<size_t>(r.cascade) * size * size;
+// Scalar loads of the same texels, for a buffer past the card's texture
+// limits: the plain version's reads, with the gather's addressing.
+__device__ __forceinline__ float taps_scalar(const Receiver& r,
+                                             const unsigned short* map,
+                                             int rows, int pitch,
+                                             float radius) {
+  const unsigned short* win =
+      map + (static_cast<size_t>(r.cascade) * rows + 8 * r.qy0) * pitch +
+      8 * r.qx0;
   float acc = 0.0f;
   for (int t = 0; t < N_SAMPLE; ++t) {
     const Tap p(r, t, radius);
@@ -207,15 +225,13 @@ __device__ __noinline__ float taps_scalar(const Receiver& r,
       const float wyf = y0 + static_cast<float>(ky);
       if (!(wyf >= 0.0f && wyf < p.rows)) continue;  // NaN-safe
       const float wy = tent(wyf, p.ty);
-      const int wr = static_cast<int>(wyf) + p.row0;  // window row
-      const int mrow = min(r.qy0 + (wr >> 3), nb - 1) * 8 + (wr & 7);
-      const unsigned short* row = cmap + static_cast<size_t>(mrow) * size;
+      const unsigned short* row =
+          win + static_cast<size_t>(static_cast<int>(wyf) + p.row0) * pitch;
       for (int kx = 0; kx < 2; ++kx) {
         const float wxf = x0 + static_cast<float>(kx);
         if (!(wxf >= 0.0f && wxf < 16.0f)) continue;
-        const int wc = static_cast<int>(wxf);
-        const int mcol = min(r.qx0 + (wc >> 3), nb - 1) * 8 + (wc & 7);
-        const float texel = static_cast<float>(__ldg(row + mcol));
+        const float texel =
+            static_cast<float>(__ldg(row + static_cast<int>(wxf)));
         if (r.dq <= texel) acc += wy * tent(wxf, p.tx);
       }
     }
@@ -223,11 +239,14 @@ __device__ __noinline__ float taps_scalar(const Receiver& r,
   return acc;
 }
 
+// TEXTURE: every receiver through taps_gather; else (a buffer past the
+// texture limits) through taps_scalar.
+template <bool TEXTURE>
 __global__ void __launch_bounds__(THREADS)
-soft_pcf_kernel(cudaTextureObject_t tex, int has_tex,
+soft_pcf_kernel(cudaTextureObject_t tex,
                 const unsigned short* __restrict__ map,
                 const float* __restrict__ params, int m, int num_cascades,
-                int size, float radius, float* __restrict__ out) {
+                int size, int pitch, float radius, float* __restrict__ out) {
   const int v = (blockIdx.x * THREADS + threadIdx.x) / 32;  // grid warp
   const int lane = threadIdx.x % 32;
   const int i = 2 * (32 * (v / 2) + lane) + v % 2;
@@ -252,55 +271,85 @@ soft_pcf_kernel(cudaTextureObject_t tex, int has_tex,
   r.fy = cy - static_cast<float>(8 * r.qy0);
   r.fy_rel = r.fy - static_cast<float>(r.oy);
 
-  const float acc = (has_tex && r.qx0 < nb - 1 && r.qy0 < nb - 1)
-                        ? taps_gather(r, tex, size, radius)
-                        : taps_scalar(r, map, size, radius);
+  const int rows = size + 8;
+  float acc;
+  if constexpr (TEXTURE)
+    acc = taps_gather(r, tex, rows, radius);
+  else
+    acc = taps_scalar(r, map, rows, pitch, radius);
   out[i] = acc * (1.0f / N_SAMPLE);
 }
 
-// The device's texturePitchAlignment and textureAlignment in bytes, read
-// at its first launch (0: not read yet).
+// What the card allows a pitch-linear 2D texture, read at the device's
+// first launch: its texturePitchAlignment and textureAlignment in bytes,
+// and its maxTexture2DLinear width and height in texels and pitch in
+// bytes.
+struct TexLimits {
+  int pitch_align, base_align, max_width, max_height, max_pitch;
+};
 constexpr int MAX_DEVICES = 64;
 std::mutex tex_mutex;
-int pitch_align[MAX_DEVICES] = {};
-int base_align[MAX_DEVICES] = {};
+TexLimits tex_limits[MAX_DEVICES] = {};
 
-// *ok = 1 when the map's rows (2*S bytes) and address meet the current
-// device's texture alignment, so a texture object can view it. The caller
-// holds tex_mutex.
-cudaError_t texturable(const void* map, int size, int* device, int* ok) {
-  *ok = 0;
+// The current device in *device and its limits in *lim. The caller holds
+// tex_mutex.
+cudaError_t device_limits(int* device, TexLimits* lim) {
   cudaError_t err = cudaGetDevice(device);
   if (err != cudaSuccess) return err;
   if (*device < 0 || *device >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  if (pitch_align[*device] == 0) {
-    int pitch = 0, base = 0;
-    err = cudaDeviceGetAttribute(&pitch, cudaDevAttrTexturePitchAlignment,
-                                 *device);
-    if (err != cudaSuccess) return err;
-    err = cudaDeviceGetAttribute(&base, cudaDevAttrTextureAlignment,
-                                 *device);
-    if (err != cudaSuccess) return err;
-    if (pitch <= 0 || base <= 0) return cudaErrorInvalidValue;
-    pitch_align[*device] = pitch;
-    base_align[*device] = base;
+  TexLimits& l = tex_limits[*device];
+  if (l.pitch_align == 0) {
+    const cudaDeviceAttr attrs[5] = {
+        cudaDevAttrTexturePitchAlignment, cudaDevAttrTextureAlignment,
+        cudaDevAttrMaxTexture2DLinearWidth,
+        cudaDevAttrMaxTexture2DLinearHeight,
+        cudaDevAttrMaxTexture2DLinearPitch};
+    int v[5];
+    for (int k = 0; k < 5; ++k) {
+      err = cudaDeviceGetAttribute(&v[k], attrs[k], *device);
+      if (err != cudaSuccess) return err;
+      if (v[k] <= 0) return cudaErrorInvalidValue;
+    }
+    l = {v[0], v[1], v[2], v[3], v[4]};
   }
-  *ok = (static_cast<size_t>(size) * 2) % pitch_align[*device] == 0 &&
-        reinterpret_cast<uintptr_t>(map) % base_align[*device] == 0;
+  *lim = l;
   return cudaSuccess;
 }
 
-// A texture object viewing the (C, S, S) map as a (C*S, S) 16-bit
-// pitch-linear 2D texture (see "Footprint fetches" above).
+// Whether the (C, S + 8, P) buffer is read through a texture object:
+// *use = 1 within the card's limits, 0 past them (the scalar path). A
+// buffer within the limits whose pitch or address is off the card's
+// texture alignment is an error (cudaErrorInvalidPitchValue,
+// cudaErrorMisalignedAddress). The caller holds tex_mutex.
+cudaError_t texture_plan(const void* map, int num_cascades, int size,
+                         int pitch, int* device, int* use) {
+  *use = 0;
+  TexLimits lim;
+  cudaError_t err = device_limits(device, &lim);
+  if (err != cudaSuccess) return err;
+  const long long rows = size + 8;
+  const long long pitch_bytes = 2LL * pitch;
+  if (rows > lim.max_width || num_cascades * rows > lim.max_height ||
+      pitch_bytes > lim.max_pitch)
+    return cudaSuccess;
+  if (pitch_bytes % lim.pitch_align != 0) return cudaErrorInvalidPitchValue;
+  if (reinterpret_cast<uintptr_t>(map) % lim.base_align != 0)
+    return cudaErrorMisalignedAddress;
+  *use = 1;
+  return cudaSuccess;
+}
+
+// A texture object viewing the buffer as a (C*(S+8)) x (S+8) 16-bit
+// pitch-linear 2D texture of pitch 2*P bytes (see "Footprint fetches").
 cudaError_t create_texture(const void* map, int num_cascades, int size,
-                           cudaTextureObject_t* tex) {
+                           int pitch, cudaTextureObject_t* tex) {
   cudaResourceDesc res = {};
   res.resType = cudaResourceTypePitch2D;
   res.res.pitch2D.devPtr = const_cast<void*>(map);
   res.res.pitch2D.desc = cudaCreateChannelDesc<unsigned short>();
-  res.res.pitch2D.width = size;
-  res.res.pitch2D.height = static_cast<size_t>(num_cascades) * size;
-  res.res.pitch2D.pitchInBytes = static_cast<size_t>(size) * 2;
+  res.res.pitch2D.width = size + 8;
+  res.res.pitch2D.height = static_cast<size_t>(num_cascades) * (size + 8);
+  res.res.pitch2D.pitchInBytes = static_cast<size_t>(pitch) * 2;
   cudaTextureDesc desc = {};
   desc.addressMode[0] = cudaAddressModeClamp;
   desc.addressMode[1] = cudaAddressModeClamp;
@@ -310,7 +359,7 @@ cudaError_t create_texture(const void* map, int num_cascades, int size,
   return cudaCreateTextureObject(tex, &res, &desc, nullptr);
 }
 
-// The eager path's cache: texture objects over the maps launched on so
+// The eager path's cache: texture objects over the buffers launched on so
 // far, by device, pointer and shape. A texture object views the memory,
 // not a copy, so a new map in the same allocation reads through the same
 // object. When the cache is full the device is synchronised (no launch
@@ -321,7 +370,7 @@ cudaError_t create_texture(const void* map, int num_cascades, int size,
 // compiled frame makes its own objects with crychic_soft_pcf_texture and
 // destroys them with its graph.
 struct TexEntry {
-  int device, num_cascades, size;
+  int device, num_cascades, size, pitch;
   const void* map;
   cudaTextureObject_t tex;
 };
@@ -331,20 +380,21 @@ int tex_count = 0;
 // how often the cache was full and reset (each a device synchronize)
 int tex_fills = 0;
 
-// The map's cached texture object in *tex and *has_tex = 1, or *has_tex
-// = 0 when its row pitch or address does not meet the device's texture
-// alignment.
+// The buffer's cached texture object in *tex and *has_tex = 1, or
+// *has_tex = 0 past the card's texture limits.
 cudaError_t map_texture(const void* map, int num_cascades, int size,
-                        cudaTextureObject_t* tex, int* has_tex) {
+                        int pitch, cudaTextureObject_t* tex, int* has_tex) {
   *has_tex = 0;
   std::lock_guard<std::mutex> lock(tex_mutex);
-  int device = 0, ok = 0;
-  cudaError_t err = texturable(map, size, &device, &ok);
-  if (err != cudaSuccess || !ok) return err;  // no texture: scalar path
+  int device = 0, use = 0;
+  cudaError_t err =
+      texture_plan(map, num_cascades, size, pitch, &device, &use);
+  if (err != cudaSuccess || !use) return err;
   for (int k = 0; k < tex_count; ++k) {
     const TexEntry& e = tex_cache[k];
     if (e.device == device && e.map == map &&
-        e.num_cascades == num_cascades && e.size == size) {
+        e.num_cascades == num_cascades && e.size == size &&
+        e.pitch == pitch) {
       *tex = e.tex;
       *has_tex = 1;
       return cudaSuccess;
@@ -358,67 +408,76 @@ cudaError_t map_texture(const void* map, int num_cascades, int size,
       cudaDestroyTextureObject(tex_cache[k].tex);
     tex_count = 0;
   }
-  err = create_texture(map, num_cascades, size, tex);
+  err = create_texture(map, num_cascades, size, pitch, tex);
   if (err != cudaSuccess) return err;
-  tex_cache[tex_count++] = {device, num_cascades, size, map, *tex};
+  tex_cache[tex_count++] = {device, num_cascades, size, pitch, map, *tex};
   *has_tex = 1;
   return cudaSuccess;
 }
 
 cudaError_t launch(cudaTextureObject_t tex, int has_tex, const void* map,
                    const void* params, int m, int num_cascades, int size,
-                   float radius, void* out, void* stream) {
+                   int pitch, float radius, void* out, void* stream) {
   // a pair of warps (the two slots) per 32 pixels
   const int pixels = (m + 1) / 2;
   const int warps = 2 * ((pixels + 31) / 32);
   const int blocks = (warps * 32 + THREADS - 1) / THREADS;
-  soft_pcf_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      tex, has_tex, static_cast<const unsigned short*>(map),
-      static_cast<const float*>(params), m, num_cascades, size, radius,
-      static_cast<float*>(out));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned short* m16 = static_cast<const unsigned short*>(map);
+  const float* p = static_cast<const float*>(params);
+  float* o = static_cast<float*>(out);
+  if (has_tex)
+    soft_pcf_kernel<true><<<blocks, THREADS, 0, st>>>(
+        tex, m16, p, m, num_cascades, size, pitch, radius, o);
+  else
+    soft_pcf_kernel<false><<<blocks, THREADS, 0, st>>>(
+        tex, m16, p, m, num_cascades, size, pitch, radius, o);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry points bound with ctypes (ops/pcf.py). map: (C, S, S)
-// 16-bit depths; params: (6, m) f32; out: (m,) f32.
+// Plain C entry points bound with ctypes (ops/pcf.py). map: the (C, S +
+// 8, pitch) window-ready 16-bit buffer (pitch in texels); params: (6, m)
+// f32; out: (m,) f32.
 //
-// crychic_soft_pcf, the eager path: the map's texture object from the
-// cache. Returns cudaGetLastError() after the launch (0 = launched), or
-// the error of reading the texture alignments or making the map's texture
-// object without launching. A map the card cannot texture launches with
-// no texture object (every receiver on the scalar path).
+// crychic_soft_pcf, the eager path: the buffer's texture object from the
+// cache. Returns cudaGetLastError() after the launch (0 = launched), or,
+// without launching, the error of reading the device's texture limits,
+// of a pitch or address off its texture alignment, or of making the
+// texture object. A buffer past the texture limits launches the scalar
+// path.
 extern "C" int crychic_soft_pcf(const void* map, const void* params, int m,
-                                int num_cascades, int size, float radius,
-                                void* out, void* stream) {
+                                int num_cascades, int size, int pitch,
+                                float radius, void* out, void* stream) {
   cudaTextureObject_t tex = 0;
   int has_tex = 0;
   const cudaError_t err =
-      map_texture(map, num_cascades, size, &tex, &has_tex);
+      map_texture(map, num_cascades, size, pitch, &tex, &has_tex);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(launch(tex, has_tex, map, params, m, num_cascades,
-                                 size, radius, out, stream));
+                                 size, pitch, radius, out, stream));
 }
 
-// A texture object over the map that the caller owns (*tex, *has_tex =
-// 1), or *has_tex = 0 when the card cannot texture the map; it is not
-// cached, and lives until crychic_soft_pcf_texture_destroy. The compiled
-// frame makes one per map buffer it owns, before its CUDA graph is
-// captured, and destroys it with the graph. Returns the error of reading
-// the alignments or of cudaCreateTextureObject (0 = made or not
-// texturable).
+// A texture object over the buffer that the caller owns (*tex, *has_tex =
+// 1), or *has_tex = 0 past the card's texture limits; it is not cached,
+// and lives until crychic_soft_pcf_texture_destroy. The compiled frame
+// makes one per map buffer it owns, before its CUDA graph is captured,
+// and destroys it with the graph. Returns the error of crychic_soft_pcf's
+// checks or of cudaCreateTextureObject (0 = made, or past the limits).
 extern "C" int crychic_soft_pcf_texture(const void* map, int num_cascades,
-                                        int size, unsigned long long* tex,
+                                        int size, int pitch,
+                                        unsigned long long* tex,
                                         int* has_tex) {
   *tex = 0;
   *has_tex = 0;
   std::lock_guard<std::mutex> lock(tex_mutex);
-  int device = 0, ok = 0;
-  cudaError_t err = texturable(map, size, &device, &ok);
-  if (err != cudaSuccess || !ok) return static_cast<int>(err);
+  int device = 0, use = 0;
+  cudaError_t err =
+      texture_plan(map, num_cascades, size, pitch, &device, &use);
+  if (err != cudaSuccess || !use) return static_cast<int>(err);
   cudaTextureObject_t t = 0;
-  err = create_texture(map, num_cascades, size, &t);
+  err = create_texture(map, num_cascades, size, pitch, &t);
   if (err != cudaSuccess) return static_cast<int>(err);
   *tex = t;
   *has_tex = 1;
@@ -430,15 +489,32 @@ extern "C" int crychic_soft_pcf_texture_destroy(unsigned long long tex) {
 }
 
 // The launch with a texture object of crychic_soft_pcf_texture (has_tex
-// as it returned), on a map the caller owns: no cache, no allocation, no
-// synchronize, so a CUDA graph can capture it.
+// as it returned), on a buffer the caller owns: no cache, no allocation,
+// no synchronize, so a CUDA graph can capture it.
 extern "C" int crychic_soft_pcf_owned(unsigned long long tex, int has_tex,
                                       const void* map, const void* params,
                                       int m, int num_cascades, int size,
-                                      float radius, void* out,
+                                      int pitch, float radius, void* out,
                                       void* stream) {
   return static_cast<int>(launch(tex, has_tex, map, params, m, num_cascades,
-                                 size, radius, out, stream));
+                                 size, pitch, radius, out, stream));
+}
+
+// The current device's texture alignments and pitch-linear limits:
+// out[0..4] = pitch alignment and address alignment in bytes, maximum
+// width and height in texels, maximum pitch in bytes.
+extern "C" int crychic_soft_pcf_limits(int* out) {
+  std::lock_guard<std::mutex> lock(tex_mutex);
+  int device = 0;
+  TexLimits lim;
+  const cudaError_t err = device_limits(&device, &lim);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = lim.pitch_align;
+  out[1] = lim.base_align;
+  out[2] = lim.max_width;
+  out[3] = lim.max_height;
+  out[4] = lim.max_pitch;
+  return 0;
 }
 
 // The number of times the texture cache was full since the library was

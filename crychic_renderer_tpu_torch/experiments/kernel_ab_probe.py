@@ -8,10 +8,13 @@
 archive`` of the parent commit unpacked under ``build/``). Its
 ``csrc/raster.cu`` and ``csrc/pcf.cu`` are built beside this checkout's
 and launched through this checkout's wrappers (``ops/raster.raster_tiles``,
-``ops/pcf.soft_pcf``), whose C interfaces the two share, on the main view
-(K1), the atlas (K2), each owner's band launch at n=4 (K3) and both
-cascades of every pixel's receiver with the 2.5-texel disk (K6). Each
-kernel is timed in turns (other, this, this, other), two ways:
+``ops/pcf.soft_pcf``) on the main view (K1), the atlas (K2), each owner's
+band launch at n=4 (K3) and both cascades of every pixel's receiver with
+the 2.5-texel disk (K6) on 2048^2 maps and on 520^2 maps. A ``pcf.cu``
+older than the window-ready map (no ``crychic_soft_pcf_limits`` entry)
+reads the (C, S, S) map through its own C entry; each side gets the
+layout its source reads. Each kernel is timed in turns (other, this,
+this, other), two ways:
 
 - device ms: the kernel's own duration per launch, from torch.profiler's
   CUDA kernel records; the host's work in the wrapper is not in it;
@@ -27,6 +30,8 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
+import dataclasses
 import json
 import os
 import subprocess
@@ -98,19 +103,29 @@ def queued_event_ms(fn, reps: int, sleep_cycles: int = 4_000_000) -> float:
 # the C entries of the eager wrapper: an older checkout's pcf.cu lacks
 # the compiled frame's texture entries
 PCF_ENTRIES = ("crychic_soft_pcf", "crychic_soft_pcf_error")
+# the eager entry of a pcf.cu that reads the unpadded (C, S, S) map:
+# (map, params, m, C, S, radius, out, stream)
+_LEGACY_PCF = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+                ctypes.c_void_p], ctypes.c_int)
 
 
 def libraries(root: str):
-    """(raster, pcf) KernelLibrary of the checkout at `root`."""
+    """(raster, pcf) KernelLibrary of the checkout at `root`. The pcf
+    library's `window_ready` says which map its kernel reads."""
     csrc = os.path.join(os.path.abspath(root), "crychic_renderer_tpu_torch",
                         "csrc")
+    with open(os.path.join(csrc, "pcf.cu")) as f:
+        window_ready = "crychic_soft_pcf_limits" in f.read()
+    sigs = {k: pcf.LIBRARY.signatures[k] for k in PCF_ENTRIES}
+    if not window_ready:
+        sigs["crychic_soft_pcf"] = _LEGACY_PCF
+    lib = build.KernelLibrary(os.path.join(csrc, "pcf.cu"), pcf.LIBRARY.name,
+                              sigs)
+    lib.window_ready = window_ready
     return (build.KernelLibrary(os.path.join(csrc, "raster.cu"),
                                 raster.LIBRARY.name,
-                                raster.LIBRARY.signatures),
-            build.KernelLibrary(os.path.join(csrc, "pcf.cu"),
-                                pcf.LIBRARY.name,
-                                {k: pcf.LIBRARY.signatures[k]
-                                 for k in PCF_ENTRIES}))
+                                raster.LIBRARY.signatures), lib)
 
 
 @contextlib.contextmanager
@@ -124,16 +139,18 @@ def using(libs):
         raster.LIBRARY, pcf.LIBRARY = saved
 
 
-def pcf_inputs(device):
-    """(qmap, params) of config 4's 1080p frame at time 0: the quantized
-    atlas and both cascades of every pixel's receiver (chip_smoke.py
-    phase 7's inputs)."""
+def pcf_inputs(device, size: int = None):
+    """(qmap, params) of config 4's 1080p frame at time 0, on size^2 maps
+    if given: the window-ready atlas and both cascades of every pixel's
+    receiver (chip_smoke.py phase 7's inputs; phase 19's at 520)."""
     from ..app.renderer import Renderer
     from ..models.scenes_baseline import CONFIGS
     from ..ops import shadows
     from ..passes import frame as fr
 
     scene, cfg, lights = CONFIGS[4]()
+    if size is not None:
+        cfg = dataclasses.replace(cfg, shadow_map_size=size)
     r = Renderer(scene, cfg, lights=lights, device=device)
     cfg = r.cfg
     c = r.frame_constants(0.0)
@@ -148,6 +165,27 @@ def pcf_inputs(device):
     return (pcf.quantize_map(maps),
             pcf.receiver_params(pos.reshape(-1, 4), cascades.reshape(-1),
                                 cfg.shadow_map_size))
+
+
+def soft_pcf_any(qmap, params):
+    """K6 of the pcf library the wrappers use now (`using`): through
+    ops/pcf.soft_pcf where it reads the window-ready buffer, else through
+    the older C entry on the unpadded (C, S, S) map."""
+    lib = pcf.LIBRARY
+    if getattr(lib, "window_ready", True):
+        return pcf.soft_pcf(qmap, params, SOFT)
+    S = pcf.map_size(qmap)
+    flat = qmap[:, :S, :S].contiguous()
+    m = params.shape[1]
+    out = torch.empty((m,), dtype=torch.float32, device=params.device)
+    stream = torch.cuda.current_stream(params.device).cuda_stream
+    cdll = lib.load()
+    rc = cdll.crychic_soft_pcf(flat.data_ptr(), params.data_ptr(), m,
+                               flat.shape[0], S, SOFT, out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError("the other checkout's soft PCF: "
+                           + cdll.crychic_soft_pcf_error(rc).decode())
+    return out
 
 
 def launches(device):
@@ -170,13 +208,14 @@ def launches(device):
             a = (*b[:3], W, rows, ids, xr is not None, off)
             out[f"K3 {'main' if ids else 'atlas'} owner {d}"] = (
                 lambda a=a: raster.raster_tiles(*a))
-    qmap, params = pcf_inputs(device)
-    out["K6"] = lambda: (pcf.soft_pcf(qmap, params, SOFT), None)
+    for key, size in (("K6", None), ("K6 S=520", 520)):
+        qmap, params = pcf_inputs(device, size)
+        out[key] = (lambda q=qmap, p=params: (soft_pcf_any(q, p), None))
     return out
 
 
 def _same(key, a, b):
-    if key == "K6":
+    if key.startswith("K6"):
         return float((a[0] - b[0]).abs().max()) <= 1e-5
     return torch.equal(a[0], b[0]) and (
         (a[1] is None and b[1] is None) or torch.equal(a[1], b[1]))
@@ -204,7 +243,8 @@ def main(argv=None):
     fns = launches(dev)
     result = {}
     for key, fn in fns.items():
-        kernel = "soft_pcf_kernel" if key == "K6" else "raster_tiles_kernel"
+        kernel = ("soft_pcf_kernel" if key.startswith("K6")
+                  else "raster_tiles_kernel")
         times = {"other": {"device_ms": [], "event_ms": []},
                  "this": {"device_ms": [], "event_ms": []}}
         outs = {}

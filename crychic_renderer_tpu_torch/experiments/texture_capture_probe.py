@@ -4,8 +4,9 @@ global capture mode, PyTorch's default for ``torch.cuda.graph``.
     python -m crychic_renderer_tpu_torch.experiments.texture_capture_probe
 
 Begins a capture on a side stream, calls the soft PCF library's
-``crychic_soft_pcf_texture`` (``cudaCreateTextureObject`` over a 64^2
-16-bit map) and one kernel inside it, and ends the capture. Prints one
+``crychic_soft_pcf_texture`` (``cudaCreateTextureObject`` over the
+window-ready buffer of a 64^2 16-bit map) and one kernel inside it, and
+ends the capture. Prints one
 JSON line: the card, the C entry's return code and CUDA's message for
 it, whether it made an object, and "ok" or the error that ended the
 capture. The compiled frame does not depend on the answer: it makes its
@@ -32,7 +33,7 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    buf = torch.zeros((1, 64, 64), dtype=torch.int16, device="cuda")
+    buf = pcf.quantize_map(torch.zeros((1, 64, 64), device="cuda"))
     torch.cuda.synchronize()
     tex, has_tex = ctypes.c_ulonglong(0), ctypes.c_int(0)
     graph = torch.cuda.CUDAGraph()
@@ -43,8 +44,8 @@ def main():
             graph.capture_begin(capture_error_mode="global")
             try:
                 rc = lib.crychic_soft_pcf_texture(
-                    buf.data_ptr(), 1, 64, ctypes.byref(tex),
-                    ctypes.byref(has_tex))
+                    buf.data_ptr(), 1, 64, pcf.window_pitch(64),
+                    ctypes.byref(tex), ctypes.byref(has_tex))
                 buf.add_(1)
             finally:
                 graph.capture_end()

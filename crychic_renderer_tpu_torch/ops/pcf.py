@@ -5,25 +5,28 @@ its plain PyTorch version.
 The JAX package evaluates this function as ``poisson_pcf_windowed``'s soft
 branch (``crychic_renderer_tpu/ops/shadows.py:319``) and as the Pallas
 probe kernel K6 (``experiments/pcf_probe.py:46``), both over per-receiver
-16x16 "superwindow" gather tables. Those tables are a TPU layout that does
-not change the image, so the port reads the 16-bit quantized maps
-directly; the quantization does change pixels and is kept.
+16x16 "superwindow" gather tables (``superwindow_maps_u16``). The port
+reads one window-ready copy of the 16-bit quantized maps instead, in which
+every receiver's superwindow is a 16x16 rectangle; the quantization does
+change pixels and is kept.
 
-- ``quantize_map`` makes the (C, S, S) map of 16-bit depths
-  round(clip(d, 0, 1) * 65535), held as int16 BITS (torch.uint16 has few
-  ops): a value above 32767 is stored as value - 65536, and readers mask
-  with 0xFFFF (the kernel reads the same bits as unsigned short).
+- ``quantize_map`` makes the window-ready (C, S + 8, P) buffer of 16-bit
+  depths round(clip(d, 0, 1) * 65535), held as int16 BITS (torch.uint16
+  has few ops): a value above 32767 is stored as value - 65536, and
+  readers mask with 0xFFFF (the kernel reads the same bits as unsigned
+  short). Rows and columns S..S+7 repeat the map's last 8, which is the
+  JAX package's superwindow clamp; P is ``window_pitch(S)``.
 - ``receiver_params`` computes in PyTorch what the kernel takes as
   parameters, so the kernel and the plain version share every input,
   cos and sin of the rotation hash included.
 - ``soft_pcf`` is the kernel's wrapper: CPU tensors take
   ``soft_pcf_plain``; CUDA tensors launch ``csrc/pcf.cu`` or raise.
-- ``OwnedMaps`` / ``owned_maps``: the quantized maps of a compiled frame
-  (app/graphs.py) and their texture objects, made before its CUDA graph
-  is captured and destroyed with it. Inside the block ``quantize_map``
-  writes into the frame's own buffers and ``soft_pcf`` launches with
-  their objects; outside it the kernel's texture cache serves the eager
-  path.
+- ``OwnedMaps`` / ``owned_maps``: the window-ready buffers of a compiled
+  frame (app/graphs.py) and their texture objects, made before its CUDA
+  graph is captured and destroyed with it. Inside the block
+  ``quantize_map`` writes into the frame's own buffers and ``soft_pcf``
+  launches with their objects; outside it the kernel's texture cache
+  serves the eager path.
 """
 from __future__ import annotations
 
@@ -62,6 +65,12 @@ MAX_RADIUS_TEXELS = 2.5
 # add) + 12 for the window set-up.
 OPS_PER_RECEIVER = N_SAMPLE * 28 + 12
 PARAMS = 6  # cx, cy, dq, cos, sin, cascade
+# The window-ready buffer: WINDOW_PAD rows and columns past the map repeat
+# its last 8-texel block; rows are padded to a multiple of PITCH_TEXELS
+# (32 bytes, the H100's texture pitch alignment; the kernel checks it
+# against the card's at launch).
+WINDOW_PAD = 8
+PITCH_TEXELS = 16
 
 # Launches of the CUDA kernel since import (or since a caller reset it).
 # Incremented by soft_pcf where it launches, and by add_launches for each
@@ -90,17 +99,74 @@ def quantize_bits(depth: torch.Tensor) -> torch.Tensor:
     return _quantize(depth).to(torch.int16)
 
 
+def window_pitch(size: int) -> int:
+    """P, the row pitch in texels of an S = size map's window-ready
+    buffer: the least multiple of PITCH_TEXELS above S + WINDOW_PAD. Rows
+    are then always longer than the buffer's S + 8 rows per cascade, so
+    an unpadded (C, S, S) map never passes for a buffer."""
+    return ((size + WINDOW_PAD) // PITCH_TEXELS + 1) * PITCH_TEXELS
+
+
+def window_shape(num_cascades: int, size: int) -> tuple:
+    """(C, S + 8, P): the shape of an S = size map's window-ready buffer.
+    It holds (S + 8) * P / S^2 - 1 more bytes than the map: 1.2% at S =
+    2048, 6.2% at S = 520."""
+    return (num_cascades, size + WINDOW_PAD, window_pitch(size))
+
+
+def map_size(qmap: torch.Tensor) -> int:
+    """S of a window-ready buffer; raises on any other tensor (an
+    unpadded (C, S, S) map, a pitch off window_pitch, another dtype or a
+    non-contiguous view), which the kernel would misread."""
+    size = qmap.shape[1] - WINDOW_PAD if qmap.dim() == 3 else -1
+    if (qmap.dtype != torch.int16 or size < 8 or size % 8
+            or tuple(qmap.shape) != window_shape(qmap.shape[0], size)
+            or not qmap.is_contiguous()):
+        raise ValueError(
+            "the map must be a contiguous window-ready (C, S + 8, "
+            "window_pitch(S)) int16 buffer of quantize_map, S a multiple "
+            f"of 8; got {tuple(qmap.shape)} {qmap.dtype}")
+    return size
+
+
+def _new_window_buffer(num_cascades: int, size: int,
+                      device) -> torch.Tensor:
+    """An unfilled window-ready buffer, its columns past S + 8 zero."""
+    buf = torch.empty(window_shape(num_cascades, size), dtype=torch.int16,
+                      device=device)
+    buf[..., size + WINDOW_PAD:].zero_()
+    return buf
+
+
+def _write_windows(buf: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """The (C, S, S) int16 bits q (int32 or int16) into the window-ready
+    buffer `buf`: the map, then its last 8 columns, rows, and the corner
+    block again past it (superwindow_from_packed's min(q + 1, S/8 - 1)).
+    Returns buf."""
+    S = q.shape[1]
+    lo, hi = S - WINDOW_PAD, S + WINDOW_PAD
+    buf[:, :S, :S].copy_(q)
+    buf[:, :S, S:hi].copy_(q[:, :, lo:])
+    buf[:, S:hi, :S].copy_(q[:, lo:])
+    buf[:, S:hi, S:hi].copy_(q[:, lo:, lo:])
+    return buf
+
+
 def quantize_map(shadow_maps: torch.Tensor) -> torch.Tensor:
-    """(C, S, S) f32 depth -> (C, S, S) int16 bits of the 16-bit UNORM
-    depth (quantize_bits). Maps that are int16 bits already (the band
-    frame's u16-packed atlas, parallel/sharded.py) are taken as they are.
-    Inside owned_maps the bits are written into the compiled frame's own
-    buffer (OwnedMaps.take)."""
+    """(C, S, S) f32 depth -> the window-ready (C, S + 8, window_pitch(S))
+    int16 buffer of its 16-bit UNORM depths (quantize_bits). Maps that
+    are int16 bits already (the band frame's u16-packed atlas,
+    parallel/sharded.py) go into the same buffer as they are. Inside
+    owned_maps the buffer is the compiled frame's own (OwnedMaps.take)."""
+    C, S, S2 = shadow_maps.shape
+    if S != S2 or S % 8:
+        raise ValueError(f"shadow maps {tuple(shadow_maps.shape)}: square, "
+                         "with S a multiple of 8")
     q = (shadow_maps if shadow_maps.dtype == torch.int16
          else _quantize(shadow_maps))
     if _OWNED is not None:
         return _OWNED.take(q)
-    return q.to(torch.int16).contiguous()
+    return _write_windows(_new_window_buffer(C, S, q.device), q)
 
 
 def receiver_params(shadow_pos: torch.Tensor, cascade: torch.Tensor,
@@ -120,8 +186,10 @@ def receiver_params(shadow_pos: torch.Tensor, cascade: torch.Tensor,
 
 def _floor_sat(x: torch.Tensor) -> torch.Tensor:
     """floor(x) as int64, saturated at +-2^30 as the kernel saturates (an
-    out-of-range float -> int cast is undefined)."""
-    return torch.clamp(torch.floor(x), -2.0 ** 30, 2.0 ** 30).long()
+    out-of-range float -> int cast is undefined), NaN to -2^30 as the
+    kernel's fmaxf takes it."""
+    lim = 2.0 ** 30
+    return torch.clamp(torch.floor(x).nan_to_num(nan=-lim), -lim, lim).long()
 
 
 def _tent(w: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -130,20 +198,24 @@ def _tent(w: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
 
 def soft_pcf_plain(qmap: torch.Tensor, params: torch.Tensor,
                    radius_texels: float) -> torch.Tensor:
-    """What the kernel computes, in plain tensor ops: (M,) lit factors.
-    Tap by tap and texel by texel in the kernel's order (see
-    csrc/pcf.cu for the window and the taps), with one gather of M texels
-    per (tap, texel)."""
-    C, S, _ = qmap.shape
+    """What the kernel computes, in plain tensor ops: (M,) lit factors
+    against the window-ready buffer qmap. Tap by tap and texel by texel in
+    the kernel's order (see csrc/pcf.cu for the window and the taps), with
+    one gather of M texels per (tap, texel) at the kernel's address:
+    window texel (wy, wx) is buffer texel (8*qy0 + wy, 8*qx0 + wx)."""
+    S = map_size(qmap)
+    C, rows, P = qmap.shape
     nb = S // 8
     cx, cy, dq, c, s, casc = params
     table = (qmap.reshape(-1).to(torch.int32) & 0xFFFF).to(torch.float32)
-    base = torch.clamp(casc.long(), 0, C - 1) * (S * S)
     x_lo = _floor_sat(cx) - 3
     y_lo = _floor_sat(cy) - 3
     qx0 = torch.clamp(x_lo >> 3, 0, nb - 1)
     qy0 = torch.clamp(y_lo >> 3, 0, nb - 1)
     oy = torch.clamp(y_lo - 8 * qy0, 0, 7)
+    # buffer texel of window texel (0, 0)
+    corner = (torch.clamp(casc.long(), 0, C - 1) * rows + 8 * qy0) * P \
+        + 8 * qx0
     fx = cx - (8 * qx0).to(torch.float32)
     fy = cy - (8 * qy0).to(torch.float32)
     fy_rel = fy - oy.to(torch.float32)
@@ -156,24 +228,21 @@ def soft_pcf_plain(qmap: torch.Tensor, params: torch.Tensor,
         dy = (px * s + py * c) * radius_texels
         tx = fx + dx
         ty = (fy if outer else fy_rel) + dy
-        rows = 16.0 if outer else 8.0
+        nrows = 16.0 if outer else 8.0
         row0 = 0 if outer else oy
         x0 = torch.floor(tx)
         y0 = torch.floor(ty)
         for ky in (0.0, 1.0):
             wyf = y0 + ky
-            in_y = (wyf >= 0.0) & (wyf < rows)
+            in_y = (wyf >= 0.0) & (wyf < nrows)
             wy = _tent(wyf, ty)
             # window row (a tap outside the window reads row 0 for nothing)
             wr = torch.where(in_y, wyf, zero).long() + row0
-            mrow = torch.clamp(qy0 + (wr >> 3), max=nb - 1) * 8 + (wr & 7)
             for kx in (0.0, 1.0):
                 wxf = x0 + kx
                 inside = in_y & (wxf >= 0.0) & (wxf < 16.0)
                 wc = torch.where(inside, wxf, zero).long()
-                mcol = torch.clamp(qx0 + (wc >> 3), max=nb - 1) * 8 \
-                    + (wc & 7)
-                texel = table[base + mrow * S + mcol]
+                texel = table[corner + wr * P + wc]
                 w = wy * _tent(wxf, tx)
                 acc = acc + torch.where(inside & (dq <= texel), w, zero)
     return acc * (1.0 / N_SAMPLE)
@@ -182,14 +251,15 @@ def soft_pcf_plain(qmap: torch.Tensor, params: torch.Tensor,
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
 _u64 = ctypes.c_ulonglong
 LIBRARY = KernelLibrary("pcf.cu", "crychic_pcf", {
-    "crychic_soft_pcf": ([_vp, _vp, _ci, _ci, _ci, ctypes.c_float, _vp,
+    "crychic_soft_pcf": ([_vp, _vp, _ci, _ci, _ci, _ci, ctypes.c_float, _vp,
                           _vp], _ci),
     "crychic_soft_pcf_error": ([_ci], ctypes.c_char_p),
     "crychic_soft_pcf_cache_fills": ([], _ci),
-    "crychic_soft_pcf_texture": ([_vp, _ci, _ci, ctypes.POINTER(_u64),
+    "crychic_soft_pcf_limits": ([ctypes.POINTER(_ci)], _ci),
+    "crychic_soft_pcf_texture": ([_vp, _ci, _ci, _ci, ctypes.POINTER(_u64),
                                   ctypes.POINTER(_ci)], _ci),
     "crychic_soft_pcf_texture_destroy": ([_u64], _ci),
-    "crychic_soft_pcf_owned": ([_u64, _ci, _vp, _vp, _ci, _ci, _ci,
+    "crychic_soft_pcf_owned": ([_u64, _ci, _vp, _vp, _ci, _ci, _ci, _ci,
                                 ctypes.c_float, _vp, _vp], _ci),
 })
 
@@ -201,15 +271,32 @@ def _check(lib, rc: int, what: str):
                            + lib.crychic_soft_pcf_error(rc).decode())
 
 
+def texture_limits(device) -> dict:
+    """The CUDA device's texture alignments (bytes) and its limits for a
+    pitch-linear 2D texture (width and height in texels, pitch in bytes),
+    as the kernel reads them. A buffer with C * (S + 8) rows above
+    max_height (or S + 8 above max_width, 2 * P above max_pitch) takes
+    the kernel's scalar path."""
+    lib = LIBRARY.load()
+    out = (_ci * 5)()
+    with torch.cuda.device(device):
+        _check(lib, lib.crychic_soft_pcf_limits(out), "texture limits")
+    return dict(zip(("pitch_align", "base_align", "max_width", "max_height",
+                     "max_pitch"), out))
+
+
 def make_texture(qmap: torch.Tensor):
-    """A texture object over the CUDA map qmap that the caller owns and
-    destroys (destroy_texture): (handle, has_tex); has_tex 0 (handle 0)
-    where the card cannot texture the map. Raises where CUDA refuses."""
+    """A texture object over the CUDA window-ready buffer qmap that the
+    caller owns and destroys (destroy_texture): (handle, has_tex); has_tex
+    0 (handle 0) past the card's texture limits. Raises where the buffer's
+    pitch or address is off the card's texture alignment, or CUDA
+    refuses."""
+    S = map_size(qmap)
     lib = LIBRARY.load()
     tex, has_tex = _u64(0), _ci(0)
     with torch.cuda.device(qmap.device):
-        rc = lib.crychic_soft_pcf_texture(qmap.data_ptr(), qmap.shape[0],
-                                          qmap.shape[1], ctypes.byref(tex),
+        rc = lib.crychic_soft_pcf_texture(qmap.data_ptr(), qmap.shape[0], S,
+                                          qmap.shape[2], ctypes.byref(tex),
                                           ctypes.byref(has_tex))
     _check(lib, rc, "soft PCF texture object")
     return tex.value, has_tex.value
@@ -222,7 +309,7 @@ def destroy_texture(tex: int):
 
 
 class OwnedMaps:
-    """The quantized maps of one compiled frame and their texture
+    """The window-ready buffers of one compiled frame and their texture
     objects. The k-th quantize_map of a frame run inside owned_maps(self)
     writes into buffer k, made (with its texture object, on the card) the
     first time, which must be the eager frame that precedes the capture:
@@ -237,22 +324,24 @@ class OwnedMaps:
         self._next = 0
 
     def take(self, q: torch.Tensor) -> torch.Tensor:
-        """The int16 bits q (int32 or int16) in the frame's next buffer."""
+        """The (C, S, S) int16 bits q (int32 or int16) written into the
+        frame's next window-ready buffer (_write_windows)."""
         k = self._next
         self._next += 1
+        C, S, _ = q.shape
         if k == len(self._maps):
             if q.is_cuda and torch.cuda.is_current_stream_capturing():
                 raise RuntimeError(
                     "a compiled frame met a shadow map during its capture "
                     "that its eager frame did not make")
-            buf = torch.empty(q.shape, dtype=torch.int16, device=q.device)
+            buf = _new_window_buffer(C, S, q.device)
             tex, has_tex = make_texture(buf) if q.is_cuda else (0, 0)
             self._maps.append((buf, tex, has_tex))
         buf = self._maps[k][0]
-        if buf.shape != q.shape or buf.device != q.device:
+        if buf.shape != window_shape(C, S) or buf.device != q.device:
             raise RuntimeError(f"the frame's shadow map {k} changed shape: "
                                f"{tuple(q.shape)} vs {tuple(buf.shape)}")
-        return buf.copy_(q)
+        return _write_windows(buf, q)
 
     def texture(self, qmap: torch.Tensor):
         """(handle, has_tex) of an owned buffer, or None."""
@@ -287,29 +376,31 @@ def owned_maps(maps: OwnedMaps):
 def soft_pcf(qmap: torch.Tensor, params: torch.Tensor,
              radius_texels: float) -> torch.Tensor:
     """The kernel's wrapper: (M,) f32 lit factors of the (6, M)
-    receiver-cascade parameters against the (C, S, S) int16-bit map. CPU
-    tensors take soft_pcf_plain; CUDA tensors launch the kernel of
-    csrc/pcf.cu on the current stream, or raise. The kernel reads the map
-    through a texture object where the map's address and its 2*S-byte
-    rows meet the card's texture alignment (S a multiple of 16 on the
-    H100); a map that does not (S = 520, say) launches without one, and
-    every receiver takes the kernel's scalar path, with the same result.
-    Inside owned_maps the map must be one of the compiled frame's buffers,
-    read through its own texture object; outside it, a CUDA graph capture
-    raises (an object of the cache cannot outlive the cache's reset)."""
+    receiver-cascade parameters against the window-ready buffer of
+    quantize_map (map_size raises on any other map). CPU tensors take
+    soft_pcf_plain; CUDA tensors launch the kernel of csrc/pcf.cu on the
+    current stream, or raise. The kernel reads the buffer through one
+    texture object, every receiver with one gather per tap; the buffer's
+    2*P-byte pitch and its address must meet the card's texture
+    alignment, or the launch raises. Only a buffer past the card's
+    pitch-linear texture limits (texture_limits) takes the kernel's
+    scalar path, with the same result: on the H100, C * (S + 8) > 65,000
+    rows, which four cascades reach from S = 16,248. Inside owned_maps
+    the map must be one of the compiled frame's buffers, read through its
+    own texture object; outside it, a CUDA graph capture raises (an
+    object of the cache cannot outlive the cache's reset)."""
     if not 0.0 <= radius_texels <= MAX_RADIUS_TEXELS:
         raise ValueError(f"radius {radius_texels} texels: the window bounds "
                          f"hold up to {MAX_RADIUS_TEXELS}")
+    if params.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"soft_pcf: unsupported device {params.device}")
+    size = map_size(qmap)
+    if qmap.device != params.device:
+        raise ValueError(f"the map is on {qmap.device}, the receivers on "
+                         f"{params.device}")
     if params.device.type == "cpu":
         return soft_pcf_plain(qmap, params, radius_texels)
-    if params.device.type != "cuda":
-        raise ValueError(f"soft_pcf: unsupported device {params.device}")
     global LAUNCHES
-    if (qmap.dtype != torch.int16 or qmap.dim() != 3
-            or qmap.shape[1] != qmap.shape[2] or qmap.shape[1] % 8
-            or not qmap.is_contiguous() or qmap.device != params.device):
-        raise ValueError("the map must be a contiguous (C, S, S) int16 "
-                         f"tensor with S a multiple of 8 on {params.device}")
     if (params.dtype != torch.float32 or params.dim() != 2
             or params.shape[0] != PARAMS or not params.is_contiguous()):
         raise ValueError(f"params must be a contiguous ({PARAMS}, M) float32 "
@@ -326,8 +417,8 @@ def soft_pcf(qmap: torch.Tensor, params: torch.Tensor,
                            "owned_maps); the texture cache cannot be "
                            "captured")
     lib = LIBRARY.load()
-    args = (qmap.data_ptr(), params.data_ptr(), m, qmap.shape[0],
-            qmap.shape[1], float(radius_texels), out.data_ptr())
+    args = (qmap.data_ptr(), params.data_ptr(), m, qmap.shape[0], size,
+            qmap.shape[2], float(radius_texels), out.data_ptr())
     with torch.cuda.device(params.device):
         stream = torch.cuda.current_stream(params.device).cuda_stream
         if owned is None:

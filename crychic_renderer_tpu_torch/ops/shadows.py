@@ -14,9 +14,11 @@ comparison tap. The port evaluates that tap from 16-bit-quantized 2x2 quad
 rows, as the JAX package does: the u16 quantization changes pixels, so it
 is carried over. ``pcf_radius_texels`` (2.5) restores the intended soft
 disk; its 16 taps run in the CUDA kernel of ``ops.pcf`` (plain PyTorch on
-the CPU) over the same 16-bit depths. The cascade-parity table split, the
-superwindow tables and the gather spread masks of the JAX package only
-move gather indices and are left out.
+the CPU) over the same 16-bit depths, in one window-ready buffer that
+holds every receiver's superwindow as a 16x16 rectangle
+(``ops.pcf.quantize_map``). The cascade-parity table split, the
+per-receiver superwindow tables and the gather spread masks of the JAX
+package only move gather indices and are left out.
 
 Deferred-path quirk replicated: the blend condition
 ``abs(distance - radius[j] < 5.0f)`` (DeferredShading.hlsl:60) casts the
@@ -51,7 +53,7 @@ def _quad_rows_from_u16(qi: torch.Tensor) -> torch.Tensor:
 def quad_maps_u16(shadow_maps: torch.Tensor) -> torch.Tensor:
     """(C, S, S) f32 depth -> (C*(S+2)^2, 2) quad rows of 16-bit UNORM
     depth (round(clip(d, 0, 1) * 65535)). Maps that are the int16 bits of
-    ops.pcf.quantize_map already (the band frame's u16-packed atlas) are
+    ops.pcf.quantize_bits already (the band frame's u16-packed atlas) are
     read as they are, as the JAX package's quad_from_packed reads
     them."""
     if shadow_maps.dtype == torch.int16:

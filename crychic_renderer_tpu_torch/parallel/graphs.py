@@ -10,10 +10,10 @@ runs the frame once eagerly, captures it in CUDA's global capture mode on
 its own copies of the constants and replays it; every other call copies
 the constants in and replays. It returns a clone of the frame (and
 clones of the overflow flags in ``stats``); the launch counts the
-capture took are added per replay; K6 reads the maps and texture objects
-of the frame's ``ops/pcf.OwnedMaps``, made in the eager frame, never the
-eager texture cache; ``release()`` frees everything after a
-synchronize. A host sync left in the frame makes the capture raise, and
+capture took are added per replay; K6 reads the window-ready map
+buffers and texture objects of the frame's ``ops/pcf.OwnedMaps``, made
+in the eager frame, never the eager texture cache; ``release()`` frees
+everything after a synchronize. A host sync left in the frame makes the capture raise, and
 nothing falls back to the eager frame.
 
 Its mode follows the band group's backend:

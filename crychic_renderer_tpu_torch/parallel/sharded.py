@@ -362,8 +362,8 @@ def _band_shadow_maps(scene: fr.DeviceScene, consts: fr.FrameConstants,
 
     ``packed``: the rank quantizes and packs its own stripes before the
     gather (pack_stripes, half the bytes) and the maps come back as the
-    (C, S, S) int16 bits the PCF reads (ops.pcf.quantize_map); else f32
-    depths. Quantization is per texel, so it commutes with the
+    (C, S, S) int16 bits that ops.pcf.quantize_map takes as they are;
+    else f32 depths. Quantization is per texel, so it commutes with the
     reassembly and the PCF sees the same bits either way.
 
     With cfg.use_pallas False (the JAX package's XLA branch) each cascade

@@ -11,10 +11,11 @@
   weights from the same parameters; the kernel keeps the plain version's
   order and rounds each operation on its own, so it is expected to be
   equal, and the bound leaves room for the order of the sums. Also on
-  receivers near every edge and corner of the map (the gathered
-  footprints and the scalar path of the last block), on NaN, infinite
-  and huge parameters, and on maps the card cannot texture (S = 520, an
-  unaligned address: every receiver on the scalar path).
+  receivers near every edge and corner of the map (windows on the last
+  block read the window-ready buffer's padding) at S = 136, 256, 520 and
+  2048, on NaN, infinite and huge parameters, on a buffer of many
+  cascades past the card's texture height (the scalar path), and an
+  address off the texture alignment raises.
 - Frames on the card against the port's CPU path at 240x135 (at most
   0.5% of pixels above 0.02): the forward Blinn-Phong frame with shadows,
   the fence scene's alpha layer, the soft disk on 520^2 maps, and config
@@ -446,11 +447,11 @@ def _edge_params(device, S=256, n=20001, seed=3):
 
 @pytest.mark.cuda
 def test_pcf_kernel_map_edges(cuda):
-    """K6 on receivers near every edge and corner of the map: both the
-    gathered footprints (window inside the map) and the scalar path (the
-    window reaches the last 8-texel block) agree with plain."""
+    """K6 on receivers near every edge and corner of the map, windows
+    inside it and on its last 8-texel block (read from the buffer's
+    padding), all gathered through the texture: equal to plain."""
     qmap, params = _edge_params(cuda)
-    nb = qmap.shape[1] // 8
+    nb = pcf.map_size(qmap) // 8
     q = torch.clamp((torch.floor(params[:2]) - 3).long() >> 3, 0, nb - 1)
     last = float((q == nb - 1).any(dim=0).float().mean())
     assert 0.2 < last < 0.8, last
@@ -506,11 +507,15 @@ def test_cuda_inputs_never_reach_the_plain_versions(cuda, monkeypatch):
 
 @pytest.mark.cuda
 def test_pcf_kernel_untexturable_maps(cuda):
-    """K6 on maps the card cannot texture: S = 520 (1,040-byte rows, off
-    the H100's 32-byte texture pitch alignment) and an S = 256 map at an
-    address off the texture alignment. Each launches with no texture
-    object, every receiver on the scalar path: within 1e-5 of plain."""
+    """Maps the card could not texture before the window-ready buffer: S
+    = 520 (1,040-byte rows, off the H100's 32-byte texture pitch
+    alignment) now has a texture object (544-texel pitch) and agrees with
+    plain; a buffer at an address off the texture alignment raises, and
+    nothing is launched."""
     for qmap, params in (_pcf_inputs(cuda, S=520), _edge_params(cuda, S=520)):
+        tex, has_tex = pcf.make_texture(qmap)
+        assert has_tex == 1
+        pcf.destroy_texture(tex)
         before = pcf.LAUNCHES
         got = pcf.soft_pcf(qmap, params, 2.5)
         torch.cuda.synchronize()
@@ -522,10 +527,62 @@ def test_pcf_kernel_untexturable_maps(cuda):
     shifted = buf[1:].view(qmap.shape)
     shifted.copy_(qmap)
     assert shifted.data_ptr() % 512 != 0 and shifted.is_contiguous()
-    got = pcf.soft_pcf(shifted, params, 2.5)
+    before = pcf.LAUNCHES
+    with pytest.raises(RuntimeError, match="misaligned"):
+        pcf.soft_pcf(shifted, params, 2.5)
+    assert pcf.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [136, 520, 2048])
+def test_pcf_kernel_window_ready_sizes(cuda, S):
+    """K6 at S = 136, 520 and 2048 on receivers near every edge and
+    corner: the buffer is within the texture limits, so every receiver is
+    gathered; within 1e-5 of plain."""
+    qmap, params = _edge_params(cuda, S=S)
+    lim = pcf.texture_limits(cuda)
+    assert qmap.shape[0] * qmap.shape[1] <= lim["max_height"]
+    assert (2 * qmap.shape[2]) % lim["pitch_align"] == 0
+    got = pcf.soft_pcf(qmap, params, 2.5)
     torch.cuda.synchronize()
     ref = pcf.soft_pcf_plain(qmap, params, 2.5)
     assert float((got - ref).abs().max()) <= 1e-5
+    assert 0.05 < float(((ref > 0) & (ref < 1)).float().mean())
+
+
+@pytest.mark.cuda
+def test_pcf_kernel_past_texture_limits(cuda):
+    """A buffer of one cascade more than the card's pitch-linear texture
+    height holds at S = 136 (65,000 rows on an H100 hold 451 cascades of
+    144 rows) gets no texture object and takes the scalar path, within
+    1e-5 of plain, eagerly and through an owned buffer; 451 cascades are
+    textured."""
+    S = 136
+    lim = pcf.texture_limits(cuda)
+    fit = lim["max_height"] // (S + pcf.WINDOW_PAD)
+    rng = np.random.default_rng(11)
+    for n, textured in ((fit + 1, 0), (fit, 1)):
+        maps = torch.from_numpy(rng.uniform(0.3, 0.7, (n, S, S))
+                                .astype(np.float32)).to(cuda)
+        m = 20001
+        theta = rng.uniform(0, 2 * np.pi, m)
+        params = torch.from_numpy(np.stack([
+            rng.uniform(-8.5, S + 7.5, m), rng.uniform(-8.5, S + 7.5, m),
+            rng.uniform(0.3, 0.7, m) * 65535.0 - 0.5, np.cos(theta),
+            np.sin(theta), rng.integers(0, n, m)]).astype(np.float32)).to(
+                cuda)
+        owned = pcf.OwnedMaps()
+        with pcf.owned_maps(owned):
+            qmap = pcf.quantize_map(maps)
+            got_owned = pcf.soft_pcf(qmap, params, 2.5)
+        assert owned.texture(qmap)[1] == textured
+        got = pcf.soft_pcf(qmap, params, 2.5)
+        torch.cuda.synchronize()
+        owned.release()
+        ref = pcf.soft_pcf_plain(qmap, params, 2.5)
+        assert float((got - ref).abs().max()) <= 1e-5
+        assert torch.equal(got, got_owned)
+        assert 0.1 < float(((ref > 0) & (ref < 1)).float().mean())
 
 
 @pytest.mark.cuda
@@ -535,7 +592,7 @@ def test_frame_on_card_matches_cpu(cuda, case):
     0.5% of pixels above 0.02): config 4 forward with Blinn-Phong and
     shadows (K1, K2 and the quad), the fence scene with the synthetic
     wire grid (the alpha peel and punch), and config 4 with the soft disk
-    on 520^2 maps (K6 without a texture object)."""
+    on 520^2 maps (K6 on their 544-texel-pitch window-ready buffer)."""
     from crychic_renderer_tpu_torch.app import renderer as tren
     from crychic_renderer_tpu_torch.models import scenes_baseline as sb
 
@@ -821,7 +878,7 @@ def test_k6_texture_outlives_a_cache_reset(cuda):
         rng.uniform(0, 64, 64), rng.uniform(0, 64, 64),
         rng.uniform(0, 65535, 64), np.ones(64), np.zeros(64),
         np.zeros(64)]).astype(np.float32)).to(cuda)
-    maps = [torch.zeros((1, 64, 64), dtype=torch.int16, device=cuda)
+    maps = [pcf.quantize_map(torch.zeros((1, 64, 64), device=cuda))
             for _ in range(70)]
     for m in maps:
         pcf.soft_pcf(m, params, 2.5)

@@ -115,7 +115,7 @@ def test_quantized_map_is_the_jax_u16_depth():
     maps = _maps(1)
     maps[0, :4] = 1.5  # clipped
     maps[1, :4] = -0.25
-    got = pcf.quantize_map(_t(maps)).numpy().view(np.uint16)
+    got = pcf.quantize_map(_t(maps)).numpy().view(np.uint16)[:, :S, :S]
     packed = np.asarray(jshadows.pack_depth_rows_u16(jnp.asarray(maps)))
     np.testing.assert_array_equal(got[..., 0::2], packed & 0xFFFF)
     np.testing.assert_array_equal(got[..., 1::2], packed >> 16)
@@ -126,7 +126,9 @@ def _k6_interpret(params, qmap, layout):
     mode on the port's parameters, with the windows in K6's block-quad
     layout (texel f = q*64 + (wy%8)*8 + wx%8, q = (wy//8)*2 + wx//8) or in
     the row-major layout f = wy*16 + wx that superwindow_maps_u16 builds
-    now and the probe's main() hands K6; two texels per u32 lane."""
+    now and the probe's main() hands K6; two texels per u32 lane. The
+    windows are cut from the port's window-ready buffer at the kernel's
+    address, rows 8*qy0 + wy and columns 8*qx0 + wx."""
     spec = importlib.util.spec_from_file_location(
         "pcf_probe", os.path.join(REPO, "experiments", "pcf_probe.py"))
     probe = importlib.util.module_from_spec(spec)
@@ -139,8 +141,8 @@ def _k6_interpret(params, qmap, layout):
     qx0 = np.clip((np.floor(cx).astype(np.int64) - 3) >> 3, 0, nb - 1)
     qy0 = np.clip((np.floor(cy).astype(np.int64) - 3) >> 3, 0, nb - 1)
     w = np.arange(16)
-    rows = np.minimum(qy0[:, None] + w // 8, nb - 1) * 8 + w % 8
-    cols = np.minimum(qx0[:, None] + w // 8, nb - 1) * 8 + w % 8
+    rows = qy0[:, None] * 8 + w
+    cols = qx0[:, None] * 8 + w
     win = q[casc[:, None, None], rows[:, :, None],
             cols[:, None, :]].astype(np.uint32)  # (M, 16, 16) row-major
     f = np.arange(256)
