@@ -240,6 +240,21 @@ soft PCF kernel (csrc/pcf.cu). Phases, each printed as it ends:
    1e-5; torch.equal printed). The K6 entries of the kernels line carry
    these errors.
 
+28. the full-size frame and the app tools' options: config 4 at its
+   published 1920x1080 with 2048^2 cascades, with the zero-radius PCF and
+   with the soft disk (K1, K2 and K6 at full size), on the card against
+   the port's CPU path on the same scene and frame constants (<= 0.5% of
+   pixels > 0.02; the share, max and mean |diff| and the seconds of each;
+   tests/test_torch_fullsize.py holds the CPU path against the JAX
+   package at this size); ``app.run.main`` with ``--config 4 --frames 3
+   --orbit --stats``: one capture for the whole run (the turned camera
+   reaches each replay through the packed constants), the last frame
+   torch.equal to render_frame at the turned camera, and the --stats line
+   parsed; ``app.compare.main`` with ``--parity --small --configs 4
+   --json-out``: exit code 0 and the file equal to the printed report.
+   The launches of each are counted; the card's name and power limit head
+   the phase's lines.
+
 Renderer.render replays a CUDA graph: a Renderer's first render, and the
 first after its cfg is replaced, runs one eager frame before it captures
 the graph, so a run's launch counts hold one more launch of each of its
@@ -257,7 +272,9 @@ for K6 460 per receiver-cascade) and, last, the device line. Any
 failed phase raises, so the script exits non-zero and prints no result;
 so does a machine without CUDA, and a directory without the repository.
 """
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import shutil
@@ -309,7 +326,8 @@ FRAME_RUNS = ["config4", "soft", "soft_fast", "sharded", "profiler",
                   f"p24_{cell}_{turn}_{i}" for cell in P24_CELLS
                   for i, turn in enumerate(P24_TURNS)] + [
                   "p25_gloo", "p25_nccl", "p26_xla", "p26_xla_soft",
-                  "p26_no_statics", "p26_band"]
+                  "p26_no_statics", "p26_band", "p28_zero", "p28_soft",
+                  "p28_run", "p28_compare"]
 ZERO = dict(ids=0, depth=0, band_ids=0, band_depth=0, field_ids=0,
             field_depth=0, pcf=0)
 PIX_BOUND = 0.005
@@ -745,6 +763,12 @@ def main():
     t9 = time.perf_counter()
     phase(f"[27] phase 27 took {t9 - t8:.1f} s; the script "
           f"{t9 - t_script:.1f} s, kernel builds included")
+
+    # 28: the full-size frame against the CPU path; run and compare
+    full_size_runs(dev, frame_ms, launches, smi)
+    t10 = time.perf_counter()
+    phase(f"[28] phase 28 took {t10 - t9:.1f} s; the script "
+          f"{t10 - t_script:.1f} s, kernel builds included")
 
     kernels.sort(key=lambda k: k["name"])
     for k in kernels:
@@ -1530,6 +1554,84 @@ def pcf_edge_runs(card):
               f"torch.equal to soft_pcf_plain {torch.equal(f_k, f_p)}, "
               f"max |err| {err}")
     return out
+
+
+def full_size_runs(dev, frame_ms, launches, card):
+    """Phase 28 (see the module doc)."""
+    from crychic_renderer_tpu_torch.app import compare, run
+    from crychic_renderer_tpu_torch.models.scenes_baseline import CONFIGS
+
+    phase(f"[28] card: {card}")
+    scene, cfg, lights = CONFIGS[4]()
+    for name, options, per_frame in (
+            ("zero", {}, dict(ids=2, depth=2)),
+            ("soft", dict(pcf_radius_texels=SOFT),
+             dict(ids=2, depth=2, pcf=2))):
+        t0 = time.perf_counter()
+        # the card's first render: its eager frame and a replay
+        (frac, diff), launches[f"p28_{name}"] = counted(
+            lambda: frame_vs_cpu(dev, scene, dataclasses.replace(
+                cfg, **options), lights), per_frame, f"p28 {name}")
+        secs = time.perf_counter() - t0
+        frame_ms[f"p28_{name}"] = dict(frac=frac, max=float(diff.max()),
+                                       mean=float(diff.mean()), s=secs)
+        phase(f"[28] config 4 {name} {cfg.width}x{cfg.height} on the card "
+              f"vs the CPU path: {frac:.4%} of pixels >0.02 (max "
+              f"{diff.max():.3g}, mean {diff.mean():.3g}); {secs:.1f} s; "
+              f"launches {launches[f'p28_{name}']}")
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "p28")
+    os.makedirs(root, exist_ok=True)
+    frames = 3
+    argv = ["--config", "4", "--frames", str(frames), "--orbit", "--stats",
+            "--out", os.path.join(root, "orbit.png")]
+    buf = io.StringIO()
+    c0 = captures()
+    with contextlib.redirect_stdout(buf):
+        # 1 + frames renders: the first captures (one eager frame more)
+        (r, img), launches["p28_run"] = counted(
+            lambda: run.main(argv), dict(ids=1 + frames, depth=1 + frames),
+            "run --orbit --stats", per_capture=dict(ids=1, depth=1))
+    n_captures = captures() - c0
+    assert n_captures == 1, f"run --orbit captured {n_captures} graphs"
+    stats = json.loads(buf.getvalue().splitlines()[-1])
+    assert list(stats) == ["ms_per_frame", "fps", "config", "capacity",
+                           "pair_capacity", "shadow_pair_capacity"], stats
+    turned = not np.array_equal(r.camera.view, r._default_camera().view)
+    want = eager_render(r, (frames - 1) / 60.0)
+    assert turned and torch.equal(img, want), (
+        "run --orbit: the last frame is not render_frame at the turned "
+        "camera")
+    phase(f"[28] app.run.main({' '.join(argv[:-2])}): one capture, the "
+          f"last frame torch.equal to render_frame at the turned camera "
+          f"(0.05 rad x {frames}); stats line {json.dumps(stats)}; "
+          f"launches {launches['p28_run']}")
+    del r, img, want
+
+    path = os.path.join(root, "parity.json")
+    argv = ["--parity", "--small", "--configs", "4", "--json-out", path]
+    buf = io.StringIO()
+
+    def parity_main():
+        with contextlib.redirect_stdout(buf):
+            try:
+                compare.main(argv)
+            except SystemExit as e:
+                return e.code
+        return None
+
+    code, launches["p28_compare"] = counted(
+        parity_main, dict(ids=2, depth=2), "compare --parity --json-out")
+    printed = json.loads(buf.getvalue().splitlines()[-1])
+    with open(path) as f:
+        written = json.load(f)
+    assert code == 0 and printed["ok"], f"compare exited {code}: {printed}"
+    assert written == printed, "compare --json-out: the file differs"
+    frame_ms["p28_compare"] = printed
+    phase(f"[28] app.compare.main({' '.join(argv[:-1])} PATH): exit code "
+          f"0, the file equal to the printed report {json.dumps(printed)}; "
+          f"launches {launches['p28_compare']}")
 
 
 DEVICE_STAGES = ("resolve_gbuffer", "ssao", "lighting")

@@ -18,9 +18,14 @@ independent of the kernels, at the card's resolution.
 
 Usage::
 
-    python -m crychic_renderer_tpu_torch.app.compare --configs 4 \
+    python -m crychic_renderer_tpu_torch.app.compare --configs 1 2 3 4 5 \
         --out-dir goldens [--small] [--check goldens] [--device cuda]
-    python -m crychic_renderer_tpu_torch.app.compare --parity --small
+    python -m crychic_renderer_tpu_torch.app.compare --parity --small \
+        [--json-out PARITY.json]
+
+``--configs`` defaults to 1 2 3 4 5, as in the JAX tool. ``--json-out``
+also writes the ``--parity`` report to a file (``indent=1``), as the JAX
+tool does; the exit code stays nonzero when a config misses the bound.
 
 Configs 1 and 4 build from code alone; configs 2, 3 and 5 load
 Models/skull.txt and Models/car.txt from scenes_baseline.REF_MODELS, and
@@ -122,7 +127,7 @@ def parity(configs, small: bool, device) -> dict:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--configs", type=int, nargs="+", default=[4])
+    ap.add_argument("--configs", type=int, nargs="+", default=[1, 2, 3, 4, 5])
     ap.add_argument("--out-dir", type=str, default="crychic_goldens")
     ap.add_argument("--small", action="store_true")
     ap.add_argument("--device", type=str, default="cuda")
@@ -130,11 +135,18 @@ def main(argv=None):
                     help="dir of stored goldens (.npy) to diff against")
     ap.add_argument("--parity", action="store_true",
                     help="compare the card's frames with the CPU path's")
+    ap.add_argument("--json-out", type=str, default=None,
+                    help="also write the --parity report JSON to this path "
+                    "(the exit code is nonzero when a config misses the "
+                    "bound)")
     args = ap.parse_args(argv)
 
     if args.parity:
         report = parity(args.configs, args.small, args.device)
         print(json.dumps(report))
+        if args.json_out:
+            with open(args.json_out, "w") as f:
+                json.dump(report, f, indent=1)
         raise SystemExit(0 if report["ok"] else 1)
 
     from .renderer import Renderer, write_png

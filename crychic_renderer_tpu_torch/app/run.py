@@ -4,16 +4,34 @@ Usage::
 
     python -m crychic_renderer_tpu_torch.app.run --config 4 --device cuda \
         --frames 10 --out frame.png [--small] [--fast] [--soft-pcf] \
-        [--profile]
+        [--orbit] [--stats] [--profile]
 
 Renders N frames of a BASELINE config on the given device and writes the
 last one as PNG. Prints the median ms per frame (host clock around each
-frame, ending in a device synchronize). With --profile (on the card) it
-then renders 3 more frames under torch.profiler (CUDA activity only) and
-prints one JSON line: the card, the median ms/frame, device time and
-device launches per frame (kernels and copies), the busy share (device
-time / median frame time) and the 8 kernels that take the most device
-time per frame, with their launches per frame.
+frame, ending in a device synchronize). The options are the JAX
+package's (``crychic_renderer_tpu.app.run``), with ``--device`` for its
+``--backend``:
+
+- ``--small``: 1/4 of the width and height, shadow maps of
+  max(S // 4, 128), half the pair capacities (the Renderer then sizes
+  them from the scene, as the JAX one does);
+- ``--orbit``: the camera turns 0.05 rad about y before each timed
+  frame; on the card each frame is a replay of the one captured graph,
+  which reads the moved camera from the packed constants;
+- ``--stats``: after the timed frames, ``check_capacity(0.0)`` (raises
+  on overflow), then one JSON line: ms_per_frame, fps, config, capacity
+  (the counts of capacity_requirements), pair_capacity and
+  shadow_pair_capacity.
+
+With --profile (on the card) it then renders 3 more frames under
+torch.profiler (CUDA activity only) and prints one JSON line: the card,
+the median ms/frame, device time and device launches per frame (kernels
+and copies), the busy share (device time / median frame time) and the 8
+kernels that take the most device time per frame, with their launches
+per frame. That line comes last, after the --stats line.
+
+``main`` returns the Renderer and the last frame (an (H, W, 4) tensor on
+the device).
 """
 from __future__ import annotations
 
@@ -66,7 +84,11 @@ def main(argv=None):
     ap.add_argument("--frames", type=int, default=3)
     ap.add_argument("--out", type=str, default="crychic_frame.png")
     ap.add_argument("--small", action="store_true",
-                    help="render at 1/8 resolution (quick CPU runs)")
+                    help="render at 1/4 resolution (quick CPU runs)")
+    ap.add_argument("--stats", action="store_true",
+                    help="check the capacities and print a JSON line")
+    ap.add_argument("--orbit", action="store_true",
+                    help="orbit the camera across frames (demo/stability)")
     ap.add_argument("--fast", action="store_true",
                     help="performance preset: half-res shadow factor, "
                          "quarter-res SSAO, trilinear texturing")
@@ -90,8 +112,10 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, pcf_radius_texels=2.5)
     if args.small:
         cfg = dataclasses.replace(
-            cfg, width=cfg.width // 8, height=cfg.height // 8,
-            shadow_map_size=max(cfg.shadow_map_size // 8, 128))
+            cfg, width=cfg.width // 4, height=cfg.height // 4,
+            shadow_map_size=max(cfg.shadow_map_size // 4, 128),
+            pair_capacity=cfg.pair_capacity // 2,
+            shadow_pair_capacity=cfg.shadow_pair_capacity // 2)
 
     print(f"config {args.config}: {cfg.width}x{cfg.height} on {device}, "
           f"tris={scene.opaque.num_triangles}")
@@ -109,6 +133,8 @@ def main(argv=None):
     sync()
     times = []
     for i in range(args.frames):
+        if args.orbit:
+            r.camera.rotate_y(0.05)
         t0 = time.perf_counter()
         img = r.render(i / 60.0)
         sync()
@@ -118,9 +144,20 @@ def main(argv=None):
     print(f"ms/frame: {ms:.3f} (median of {args.frames})")
     write_png(args.out, np.clip(img.cpu().numpy(), 0.0, 1.0))
     print(f"wrote {args.out}")
+    if args.stats:
+        req = r.check_capacity(0.0)  # raises on overflow
+        # the counts by name, as the JAX package's jitted dict returns them
+        print(json.dumps({"ms_per_frame": ms, "fps": 1000.0 / ms,
+                          "config": args.config,
+                          "capacity": {k: int(v)
+                                       for k, v in sorted(req.items())},
+                          "pair_capacity": r.cfg.pair_capacity,
+                          "shadow_pair_capacity":
+                              r.cfg.shadow_pair_capacity}))
     if args.profile:
         profile_frames(r, ms, dict(config=args.config, fast=args.fast,
                                    soft_pcf=args.soft_pcf))
+    return r, img
 
 
 if __name__ == "__main__":

@@ -1,0 +1,239 @@
+"""The port does all that the JAX package does: every name of the JAX
+package has a counterpart in the port, or a reason it has none.
+
+Read from source with ``ast``; neither package is imported. For every
+module of ``crychic_renderer_tpu/`` and for the three
+``experiments/*_probe.py`` files that reach ``pl.pallas_call``, each
+top-level function, class and constant, every method of every class and
+every ``argparse`` option must be defined in the mirrored module of
+``crychic_renderer_tpu_torch/`` (MODULES maps the modules whose
+counterpart has another path; a name the port module imports, as
+``from .pcf import N_SAMPLE``, counts), or stand in COUNTERPARTS, which
+names the port's file and symbol that does the same work elsewhere
+(checked to exist), or in LEFT_OUT with its reason. No entry of either
+mapping may be stale.
+"""
+import ast
+import os
+import re
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+JAX_PKG = os.path.join(REPO, "crychic_renderer_tpu")
+PORT = os.path.join(REPO, "crychic_renderer_tpu_torch")
+PROBES = ("pcf_probe.py", "fma_kernel_probe.py", "bin_decomp_probe.py")
+
+# JAX module (relative to the repo) -> the port's module (relative to the
+# port's package), where the path differs
+MODULES = {
+    "crychic_renderer_tpu/ops/raster_pallas.py": "ops/raster.py",
+    "experiments/pcf_probe.py": "ops/pcf.py",
+    "experiments/fma_kernel_probe.py": "experiments/fma_kernel_probe.py",
+    "experiments/bin_decomp_probe.py": "experiments/bin_decomp_probe.py",
+}
+
+# (JAX module, name) -> "port file:symbol" doing that work in another
+# module or under another name
+COUNTERPARTS = {
+    ("crychic_renderer_tpu/ops/raster_pallas.py", "SUBPIXEL"):
+        "ops/rasterizer.py:SUBPIXEL",
+    ("crychic_renderer_tpu/ops/raster_pallas.py", "snap_xy"):
+        "ops/rasterizer.py:snap_xy",
+    ("crychic_renderer_tpu/ops/shadows.py", "compiled_poisson_radius_uv"):
+        "ops/shadows.py:pcf_single_tap",
+    ("crychic_renderer_tpu/ops/shadows.py", "_cmp_sample_bilinear"):
+        "ops/shadows.py:pcf_single_tap",
+    ("crychic_renderer_tpu/ops/shadows.py", "poisson_pcf_windowed"):
+        "ops/pcf.py:soft_pcf_plain",
+    ("crychic_renderer_tpu/ops/shadows.py", "pack_depth_rows_u16"):
+        "parallel/sharded.py:pack_stripes",
+    # K6's probe: the kernel, its launch, its block of receivers, its
+    # timer and its run on 1920x1080 receivers over 2048^2 maps
+    ("experiments/pcf_probe.py", "make_kernel"):
+        "csrc/pcf.cu:soft_pcf_kernel",
+    ("experiments/pcf_probe.py", "run_kernel"): "ops/pcf.py:soft_pcf",
+    ("experiments/pcf_probe.py", "_PCF_GROUP"): "csrc/pcf.cu:THREADS",
+    ("experiments/pcf_probe.py", "t"):
+        "experiments/kernel_ab_probe.py:device_ms",
+    ("experiments/pcf_probe.py", "main"):
+        "experiments/kernel_ab_probe.py:main",
+    ("experiments/pcf_probe.py", "H"):
+        "experiments/kernel_ab_probe.py:pcf_inputs",
+    ("experiments/pcf_probe.py", "W"):
+        "experiments/kernel_ab_probe.py:pcf_inputs",
+    ("experiments/pcf_probe.py", "S"):
+        "experiments/kernel_ab_probe.py:pcf_inputs",
+    ("experiments/fma_kernel_probe.py", "_fma_kernel"):
+        "csrc/raster.cu:raster_tiles_field_kernel",
+    ("experiments/fma_kernel_probe.py", "TILE_W"): "ops/raster.py:TILE_W",
+    ("experiments/fma_kernel_probe.py", "TRI_BLOCK"):
+        "ops/raster.py:TRI_BLOCK",
+    ("experiments/bin_decomp_probe.py", "timeit"):
+        "experiments/__init__.py:time_ms",
+    ("experiments/bin_decomp_probe.py", "scalar_timeit"):
+        "experiments/__init__.py:time_ms",
+}
+
+_SUPERWINDOW = ("a superwindow / parity-table layout of the TPU's gathers; "
+                "it does not change the image (ROADMAP.md section 1)")
+_PYTREE = "JAX pytree registration; torch containers need none"
+_RASTER = "the Pallas kernel and its launch: csrc/raster.cu, ops/raster.py"
+
+# (JAX module, name) -> why the port has no counterpart; a module's name
+# None leaves the whole module out
+LEFT_OUT = {
+    ("crychic_renderer_tpu/native/__init__.py", None):
+        "the native C++ helpers; the port's numpy paths replace them",
+    ("crychic_renderer_tpu/ops/shadows.py", "superwindow_maps"):
+        _SUPERWINDOW,
+    ("crychic_renderer_tpu/ops/shadows.py", "superwindow_maps_u16"):
+        _SUPERWINDOW,
+    ("crychic_renderer_tpu/ops/shadows.py", "superwindow_from_packed"):
+        _SUPERWINDOW,
+    ("crychic_renderer_tpu/ops/shadows.py", "block_shadow_maps"):
+        _SUPERWINDOW,
+    ("crychic_renderer_tpu/ops/shadows.py", "quad_from_packed"):
+        _SUPERWINDOW,
+    ("crychic_renderer_tpu/ops/shadows.py", "_unpack_u16_window"):
+        _SUPERWINDOW,
+    ("crychic_renderer_tpu/ops/shadows.py", "poisson_pcf"):
+        "an unused reference PCF",
+    ("crychic_renderer_tpu/ops/shadows.py", "grid_pcf"):
+        "an unused reference PCF",
+    ("crychic_renderer_tpu/passes/frame.py", "DeviceDraw.tree_flatten"):
+        _PYTREE,
+    ("crychic_renderer_tpu/passes/frame.py", "DeviceDraw.tree_unflatten"):
+        _PYTREE,
+    ("crychic_renderer_tpu/passes/frame.py", "DeviceScene.tree_flatten"):
+        _PYTREE,
+    ("crychic_renderer_tpu/passes/frame.py", "DeviceScene.tree_unflatten"):
+        _PYTREE,
+    ("crychic_renderer_tpu/passes/frame.py", "FrameConstants.tree_flatten"):
+        _PYTREE,
+    ("crychic_renderer_tpu/passes/frame.py",
+     "FrameConstants.tree_unflatten"): _PYTREE,
+    ("crychic_renderer_tpu/passes/frame.py", "LightConfig"):
+        "nothing uses it",
+    ("crychic_renderer_tpu/passes/frame.py", "SHADOW_TILE_H"):
+        "the port's own tile constants (SHADE_TILE_H, XLA_TILE_H)",
+    ("crychic_renderer_tpu/passes/frame.py", "_DEAD_SPREAD"):
+        "a gather spread layout of the TPU",
+    ("crychic_renderer_tpu/ops/raster_pallas.py", "_raster_kernel"):
+        _RASTER,
+    ("crychic_renderer_tpu/ops/raster_pallas.py", "rasterize_pallas"):
+        _RASTER,
+    ("crychic_renderer_tpu/ops/raster_pallas.py", "TILES_PER_PROG"):
+        _RASTER,
+    ("crychic_renderer_tpu/ops/raster_pallas.py", "ID_NONE"): _RASTER,
+    ("crychic_renderer_tpu/ops/ssao.py", "pack_random_texture"):
+        "the TPU's u32 packing of the random texture; nothing on the frame "
+        "path calls it",
+    ("crychic_renderer_tpu/io/dds.py", "_decode_bc1_numpy"):
+        "the numpy path is the port's decode_bc1",
+    ("crychic_renderer_tpu/io/dds.py", "_decode_bc2_numpy"):
+        "the numpy path is the port's decode_bc2",
+    ("crychic_renderer_tpu/io/dds.py", "_decode_bc3_numpy"):
+        "the numpy path is the port's decode_bc3",
+    ("crychic_renderer_tpu/app/run.py", "--backend"):
+        "JAX's platform switch; the port's --device",
+    ("crychic_renderer_tpu/app/viewer.py", "--backend"):
+        "JAX's platform switch; the port's --device",
+}
+
+
+def names(path: str, imported: bool = False) -> set:
+    """The top-level functions, classes and constants of a Python file (and
+    the names it imports from modules, with `imported`), its classes'
+    methods as "Class.method", and its argparse options ("--name")."""
+    tree = ast.parse(open(path).read())
+    out = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            out.add(node.name)
+        if isinstance(node, ast.ClassDef):
+            out |= {f"{node.name}.{b.name}" for b in node.body
+                    if isinstance(b, (ast.FunctionDef,
+                                      ast.AsyncFunctionDef))}
+        elif isinstance(node, ast.Assign):
+            out |= {n.id for t in node.targets for n in ast.walk(t)
+                    if isinstance(n, ast.Name)}
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target,
+                                                            ast.Name):
+            out.add(node.target.id)
+        elif imported and isinstance(node, ast.ImportFrom):
+            out |= {a.asname or a.name for a in node.names}
+    for n in ast.walk(tree):
+        if (isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute)
+                and n.func.attr == "add_argument"):
+            out |= {a.value for a in n.args if isinstance(a, ast.Constant)
+                    and str(a.value).startswith("--")}
+    return out
+
+
+def jax_modules() -> list:
+    """The JAX package's modules and the three probes, relative to the
+    repo."""
+    mods = []
+    for d, _, files in os.walk(JAX_PKG):
+        mods += [os.path.relpath(os.path.join(d, f), REPO) for f in files
+                 if f.endswith(".py")]
+    return sorted(mods) + [f"experiments/{p}" for p in PROBES]
+
+
+def port_module(mod: str) -> str:
+    return MODULES.get(mod, os.path.relpath(mod, "crychic_renderer_tpu"))
+
+
+def symbol_exists(target: str) -> bool:
+    """"file:symbol" of the port: a name of a Python file (names()), or a
+    word of a CUDA source."""
+    path, sym = target.split(":")
+    full = os.path.join(PORT, path)
+    if not os.path.isfile(full):
+        return False
+    if path.endswith(".py"):
+        return sym in names(full, imported=True)
+    return re.search(rf"\b{re.escape(sym)}\b", open(full).read()) is not None
+
+
+@pytest.mark.parametrize("mod", jax_modules())
+def test_every_name_has_a_counterpart(mod):
+    if (mod, None) in LEFT_OUT:
+        return
+    port = os.path.join(PORT, port_module(mod))
+    assert os.path.isfile(port), f"{mod}: no port module {port_module(mod)}"
+    have = names(port, imported=True)
+    missing = sorted(n for n in names(os.path.join(REPO, mod)) - have
+                     if (mod, n) not in COUNTERPARTS
+                     and (mod, n) not in LEFT_OUT)
+    assert not missing, (f"{mod}: no counterpart in {port_module(mod)}, "
+                         f"COUNTERPARTS or LEFT_OUT for {missing}")
+
+
+def test_counterparts_exist_and_are_needed():
+    for (mod, name), target in COUNTERPARTS.items():
+        assert symbol_exists(target), f"{mod} {name}: {target} is missing"
+        assert name in names(os.path.join(REPO, mod)), (mod, name)
+        assert name not in names(os.path.join(PORT, port_module(mod)),
+                                 imported=True), (
+            f"{mod} {name}: the mirrored module has it; drop the entry")
+
+
+def test_left_out_entries_are_needed():
+    mods = set(jax_modules())
+    for mod, name in LEFT_OUT:
+        assert mod in mods, mod
+        if name is None:
+            assert not os.path.exists(os.path.join(PORT, port_module(mod)))
+            continue
+        assert name in names(os.path.join(REPO, mod)), (mod, name)
+        assert name not in names(os.path.join(PORT, port_module(mod)),
+                                 imported=True), (
+            f"{mod} {name}: the port has it; drop the entry")
+
+
+def test_only_the_platform_switch_is_a_left_out_option():
+    options = {name for _, name in LEFT_OUT if name and name.startswith("--")}
+    assert options == {"--backend"}
