@@ -255,6 +255,36 @@ soft PCF kernel (csrc/pcf.cu). Phases, each printed as it ends:
    The launches of each are counted; the card's name and power limit head
    the phase's lines.
 
+29. the JAX system's last entry points on the port: (a)
+   ``graft_entry.entry("cuda")`` (the cascade scene at 256x128 on the
+   pure-tensor raster, render_frame eager: no hand-kernel launch) against
+   ``entry("cpu")``'s frame (<= 0.5% of pixels > 0.02); (b)
+   ``graft_entry.dryrun_multichip(..., cpu_check=True)`` on 4 gloo ranks
+   sharing the card (its three legs: the 128x1080 pure-tensor band frame,
+   the 256x72 K3 band frame and 2 x 2 replica groups, each against
+   render_frame in the parent, < 1e-3 of pixels > 0.02, and against
+   render_frame on the CPU from the same leaves, <= 0.5%: K3 at these
+   shapes against its plain version), then on 1 NCCL rank (NCCL puts one
+   rank on a card: legs 1 and 2); the parent's K1/K2 launches (its
+   kernel-path single frames) and the ranks' K3 launches (eager frame +
+   replay of each run's band graph) counted; (c)
+   ``experiments.fast_quality`` on configs 4 and 5 at 1920x1080 (config
+   5 from the synthetic set where the reference's files are absent):
+   PSNR, SSIM and the share of pixels moved > 2%, fast preset against
+   parity, and the config-5 pair written under build/; (d)
+   ``experiments.aniso_quality`` (configs 1 and 5 at 1/4 size, four
+   probe schedules against the 8-probe reference; each reference frame
+   also against the CPU path, <= 0.5%; config 1's rows stay out of the
+   record: its WoodCrate01.dds is not in the repository, so every
+   schedule filters a white 1x1 alike); (e) ``experiments.make_gallery``
+   at full size (the seven images under build/); each frame of (c)-(e)
+   holds its raster launches (K1, and K2 with shadows) on its own inputs
+   against rasterize_plain (torch.equal), uncounted; each of (c)-(e)
+   with its launches counted (each Renderer's first render: an eager
+   frame and a replay of its graph, one K1 each and one K2 each with
+   shadows) and its captures; (f) the phase's seconds. The card's name
+   and power limit head the phase's lines.
+
 Renderer.render replays a CUDA graph: a Renderer's first render, and the
 first after its cfg is replaced, runs one eager frame before it captures
 the graph, so a run's launch counts hold one more launch of each of its
@@ -327,7 +357,9 @@ FRAME_RUNS = ["config4", "soft", "soft_fast", "sharded", "profiler",
                   for i, turn in enumerate(P24_TURNS)] + [
                   "p25_gloo", "p25_nccl", "p26_xla", "p26_xla_soft",
                   "p26_no_statics", "p26_band", "p28_zero", "p28_soft",
-                  "p28_run", "p28_compare"]
+                  "p28_run", "p28_compare", "p29_entry", "p29_dryrun_gloo",
+                  "p29_dryrun_nccl", "p29_fast_quality",
+                  "p29_aniso_quality", "p29_gallery"]
 ZERO = dict(ids=0, depth=0, band_ids=0, band_depth=0, field_ids=0,
             field_depth=0, pcf=0)
 PIX_BOUND = 0.005
@@ -769,6 +801,12 @@ def main():
     t10 = time.perf_counter()
     phase(f"[28] phase 28 took {t10 - t9:.1f} s; the script "
           f"{t10 - t_script:.1f} s, kernel builds included")
+
+    # 29: graft_entry, the quality probes and the gallery
+    entry_point_runs(dev, frame_ms, launches, smi)
+    t11 = time.perf_counter()
+    phase(f"[29] phase 29 took {t11 - t10:.1f} s; the script "
+          f"{t11 - t_script:.1f} s, kernel builds included")
 
     kernels.sort(key=lambda k: k["name"])
     for k in kernels:
@@ -1632,6 +1670,167 @@ def full_size_runs(dev, frame_ms, launches, card):
     phase(f"[28] app.compare.main({' '.join(argv[:-1])} PATH): exit code "
           f"0, the file equal to the printed report {json.dumps(printed)}; "
           f"launches {launches['p28_compare']}")
+
+
+def uncounted(fn):
+    """fn() with the launches it makes taken back out of the counts: a
+    kernel held against its plain version is no launch of the path."""
+    from crychic_renderer_tpu_torch.ops import pcf, raster
+
+    torch.cuda.synchronize()
+    by_variant, total, k6 = (dict(raster.LAUNCHES_BY_VARIANT),
+                             raster.LAUNCHES, pcf.LAUNCHES)
+    try:
+        return fn()
+    finally:
+        torch.cuda.synchronize()
+        raster.LAUNCHES_BY_VARIANT.update(by_variant)
+        raster.LAUNCHES, pcf.LAUNCHES = total, k6
+
+
+@contextlib.contextmanager
+def held_renderers(checks, cpu_frame):
+    """Inside the block, every app.renderer.Renderer a script builds holds
+    each frame it renders: its raster launches (K1, and K2 with shadows)
+    on that frame's inputs against rasterize_plain (torch.equal), and,
+    where cpu_frame(cfg), the frame against the port's CPU path built the
+    same way (<= PIX_BOUND), both uncounted. Appends one note per frame
+    to `checks`."""
+    from crychic_renderer_tpu_torch.app import renderer as ren
+
+    base = ren.Renderer
+
+    class Held(base):
+        def __init__(self, scene, cfg, **kw):
+            super().__init__(scene, cfg, **kw)
+            self._built = scene, kw
+
+        def render_np(self, total_time=0.0):
+            img = super().render_np(total_time)
+            cfg = self.cfg
+            view = f" {cfg.debug_view}" if cfg.debug_view else ""
+            note = (f"{cfg.width}x{cfg.height}{view}: " + uncounted(
+                lambda: frame_raster_vs_plain(self, total_time)))
+            if cpu_frame(cfg):
+                scene, kw = self._built
+                ref = base(scene, cfg, **dict(kw, device="cpu")).render_np(
+                    total_time)
+                diff = np.abs(img - ref).max(axis=-1)
+                frac = float((diff > 0.02).mean())
+                assert frac <= PIX_BOUND, (
+                    f"{note}: {frac:.4%} of pixels > 0.02 from the CPU path")
+                note += (f"; the frame vs the CPU path {frac:.4%} of pixels "
+                         f"> 0.02 (max {diff.max():.3g})")
+            checks.append(note)
+            return img
+
+    ren.Renderer = Held
+    try:
+        yield
+    finally:
+        ren.Renderer = base
+
+
+def entry_point_runs(dev, frame_ms, launches, card):
+    """Phase 29 (see the module doc)."""
+    from crychic_renderer_tpu_torch import graft_entry
+    from crychic_renderer_tpu_torch.experiments import (
+        aniso_quality, fast_quality, make_gallery)
+
+    phase(f"[29] card: {card}")
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "p29")
+    os.makedirs(root, exist_ok=True)
+    result = {}
+
+    # (a) entry on the card against the CPU path
+    t0 = time.perf_counter()
+    fn, args = graft_entry.entry("cuda")
+    img, launches["p29_entry"] = counted(lambda: fn(*args), {}, "entry")
+    fn_cpu, args_cpu = graft_entry.entry("cpu")
+    img, ref = img.cpu().numpy(), fn_cpu(*args_cpu).numpy()
+    diff = np.abs(img - ref).max(axis=-1)
+    frac = float((diff > 0.02).mean())
+    assert img.shape == (128, 256, 4) and np.isfinite(img).all()
+    assert frac <= PIX_BOUND, f"entry: {frac:.4%} of pixels > 0.02"
+    result["entry"] = dict(frac=frac, max=float(diff.max()),
+                           s=time.perf_counter() - t0)
+    phase(f"[29] graft_entry.entry('cuda') {img.shape[1]}x{img.shape[0]} "
+          f"(use_pallas=False) vs entry('cpu'): {frac:.4%} of pixels > "
+          f"0.02 (max {diff.max():.3g}); launches {launches['p29_entry']}")
+
+    # (b) the dryrun: 4 gloo ranks sharing the card, then 1 NCCL rank,
+    # each leg also against the CPU path; the parent renders each kernel
+    # leg's single frame on the card (K1, K2), each rank an eager frame
+    # and a replay per kernel leg (K3)
+    for n, backend, legs, singles in ((4, "gloo", 2, 3), (1, "nccl", 1, 1)):
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out, parent = counted(
+                lambda: graft_entry.dryrun_multichip(n, backend, "cuda",
+                                                     cpu_check=True),
+                dict(ids=singles, depth=singles), f"dryrun {backend}")
+        want = dict(ZERO, band_ids=2 * legs * n, band_depth=2 * legs * n)
+        assert out.pop("launches") == want, (backend, want)
+        key = f"p29_dryrun_{backend}"
+        launches[key] = {k: parent[k] + want[k] for k in ZERO}
+        secs = time.perf_counter() - t0
+        result[key] = dict(out, s=secs)
+        for line in buf.getvalue().splitlines():
+            phase(f"[29] {backend}: {line}")
+        phase(f"[29] dryrun_multichip({n}, '{backend}', 'cuda', cpu_check="
+              f"True): {secs:.1f} s with spawn; launches (the parent's and "
+              f"the ranks') {launches[key]}")
+
+    # (c)-(e): the scripts, each Renderer's first render an eager frame
+    # and a replay (K1, and K2 with shadows), each frame's raster held
+    # against plain, aniso_quality's references also against the CPU
+    # path; (configs, captures)
+    def aniso_ref(cfg):
+        return cfg.aniso_probes == 0 and not cfg.dual_mip_rows
+
+    scripts = (
+        ("fast_quality", lambda: fast_quality.main(
+            ["--configs", "4", "5", "--gallery",
+             os.path.join(root, "gallery")]), dict(ids=8, depth=8), 4,
+         None),
+        ("aniso_quality", lambda: aniso_quality.main([]),
+         dict(ids=20, depth=10), 10, aniso_ref),
+        ("gallery", lambda: make_gallery.main(
+            ["--out", os.path.join(root, "gallery")]),
+         dict(ids=14, depth=8), 7, None))
+    for name, run, want, renders, cpu_frame in scripts:
+        t0 = time.perf_counter()
+        c0 = captures()
+        buf = io.StringIO()
+        checks = []
+        with contextlib.redirect_stdout(buf), held_renderers(
+                checks, cpu_frame or (lambda cfg: False)):
+            rows, launches[f"p29_{name}"] = counted(run, want, name)
+        n_captures = captures() - c0
+        assert n_captures == renders, f"{name}: {n_captures} captures"
+        secs = time.perf_counter() - t0
+        for line in buf.getvalue().splitlines():
+            phase(f"[29] {name}: {line}")
+        for note in checks:
+            phase(f"[29] {name}: {note}")
+        result[name] = dict(rows=rows, s=secs, checks=checks)
+        phase(f"[29] {name}: {secs:.1f} s, {n_captures} captures, launches "
+              f"{launches[f'p29_{name}']}")
+    for c, row in result["fast_quality"]["rows"].items():
+        assert 0.0 < row["ssim"] < 1.0 and np.isfinite(row["psnr"]), row
+    for c, rows in result["aniso_quality"]["rows"].items():
+        for psnr, f5, f2 in rows.values():
+            assert np.isfinite(psnr) and 0.0 <= f5 <= f2 <= 1.0, (c, rows)
+    # config 1's crate texture (WoodCrate01.dds) is not in the repository:
+    # every schedule filters a white 1x1 to the same image, so its rows
+    # measure nothing and stay out of the record
+    result["aniso_quality"]["rows"] = {
+        5: result["aniso_quality"]["rows"][5]}
+    written = sorted(os.listdir(os.path.join(root, "gallery")))
+    assert len(written) == 9, written  # the pair and the seven views
+    frame_ms["p29"] = dict(result, card=card)
 
 
 DEVICE_STAGES = ("resolve_gbuffer", "ssao", "lighting")

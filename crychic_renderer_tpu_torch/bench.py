@@ -51,6 +51,8 @@ N_FRAMES = 20
 ROUNDS = 5
 SMALL_FRAMES = 2
 SMALL_ROUNDS = 2
+# the BASELINE configs built from the reference's Models/ and Textures/
+LOADS_FILES = (2, 3, 5)
 
 
 def card(device: torch.device) -> str:
@@ -94,6 +96,14 @@ def assets(small: bool):
                         sky_cubemap_path=paths["sky_cube"]), "synthetic")
         finally:
             sb.REF_MODELS = models
+
+
+def renderer_files(config: int, kw: dict) -> dict:
+    """The keywords of assets() that BASELINE `config`'s Renderer takes:
+    config 5 its textures and sky cube, configs 2 and 3 their textures
+    (their sky stays procedural); configs 1 and 4 load no file."""
+    return {k: v for k, v in kw.items()
+            if config == 5 or (config in LOADS_FILES and k == "asset_dir")}
 
 
 def shrink(cfg):

@@ -50,13 +50,13 @@ def main(argv=None):
                 cfg = cfg.fast_preset()
             if args.small:
                 cfg = bench.shrink(cfg)
-            files = {k: v for k, v in kw.items()
-                     if c == 5 or (c in (2, 3) and k == "asset_dir")}
-            r = Renderer(scene, cfg, lights=lights, device=device, **files)
+            r = Renderer(scene, cfg, lights=lights, device=device,
+                         **bench.renderer_files(c, kw))
             (ms,), launches = bench.frame_rounds(r, n, 1)
             line = dict(config=c, fast=fast, ms_per_frame=ms, frames=n,
                         size=f"{cfg.width}x{cfg.height}",
-                        assets=source if c in (2, 3, 5) else "built in",
+                        assets=(source if c in bench.LOADS_FILES
+                                else "built in"),
                         kernel_launches=launches)
             print(json.dumps(line), flush=True)
             del r

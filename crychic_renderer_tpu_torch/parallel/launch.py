@@ -10,10 +10,11 @@ caller's torch intra-op threads (``torch.get_num_threads()``) out among
 themselves.
 
 The backend and the device are the caller's choice (both required, no
-default), and nothing here changes them: ``nccl`` runs one rank per card
-(``device=f"cuda:{rank}"`` is the caller's to arrange), ``gloo`` serves
-several ranks on one card (NCCL refuses two ranks on one GPU) and CPU
-tensors.
+default): ``nccl`` runs one rank per card (a CUDA device without an index
+puts rank r on ``cuda:r``), ``gloo`` serves several ranks on one card
+(NCCL refuses two ranks on one GPU) and CPU tensors. A rank's card is
+chosen once, in the rank before ``fn`` runs, and made its current
+device, so ``fn`` given the caller's ``"cuda"`` allocates there.
 
 ``frame_worker`` is the rank body of sharded frames rendered from host
 leaves: the tests run it on CPU ranks, ``chip_smoke.py`` on ranks that
@@ -48,8 +49,10 @@ def _rank_main(rank: int, n: int, backend: str, store_path: str, device,
             fn, args = pickle.load(f)
         device = torch.device(device)
         if device.type == "cuda":
+            if device.index is None and backend == "nccl":
+                device = torch.device("cuda", rank)  # one rank per card
             if device.index is not None:
-                torch.cuda.set_device(device)
+                torch.cuda.set_device(device)  # where "cuda" allocates
         else:
             # n ranks share the caller's intra-op threads
             torch.set_num_threads(max(1, threads // n))
