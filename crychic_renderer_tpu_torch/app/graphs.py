@@ -177,7 +177,13 @@ class CompiledFrame:
     """fn(scene, *inputs) captured into a CUDA graph (see the module doc).
     After a capture: ``capture_ms`` (host time of the capture alone),
     ``pool_bytes``, ``launches`` (per replay: the raster kernel's count by
-    variant and the soft PCF's)."""
+    variant and the soft PCF's).
+
+    A traced Renderer's fn (app/profiler.FrameTrace) queues its marks and
+    counts only while it is being captured, so the eager frame before a
+    capture records nothing and the graph holds the trace's frame
+    counter: the start mark advances it once per replay, and every
+    replay writes one row of the trace."""
 
     def __init__(self, fn, device):
         self.fn = fn

@@ -35,6 +35,17 @@ its graph's). With a Renderer's tile capacities the ``resolve_gbuffer``,
 frame does; the JAX profiler's ``ssao`` stage does not hand its
 ``ssao_pass`` the coverage, so there it times the dense occlusion.
 
+``FrameTrace`` traces the frames the user runs, from inside them: a
+Renderer built with ``trace=True`` records, for every ``render()``, the
+host time of its four parts, the device time of each stage inside the
+compiled frame's own replay, and the counts its capacities bound. Stage
+times come from marks that the frame's graph records itself (one
+one-thread kernel of ``csrc/frame_trace.cu`` per mark, writing the
+card's ``%globaltimer``), so they are the stages' shares of the real
+replay, where ``profile_frame`` times each stage alone in a graph of its
+own. Rows stay in memory, on the device for the marks and counts, until
+``rows()`` reads them after the last frame.
+
 Usage::
 
     python -m crychic_renderer_tpu_torch.app.profiler --config 4 \
@@ -43,14 +54,20 @@ Usage::
 from __future__ import annotations
 
 import argparse
+import contextlib
+import ctypes
 import dataclasses
 import json
+import statistics
 import time
+import warnings
 
+import numpy as np
 import torch
 
 from ..ops import clipping, pcf, raster
 from ..ops import rasterizer as rz
+from ..ops.build import KernelLibrary
 from ..passes import frame as fr
 from . import graphs
 
@@ -165,6 +182,220 @@ def profile_frame(renderer, total_time: float = 0.0, reps: int = 5) -> dict:
     report["TOTAL_fused"] = _time(lambda: renderer.render(total_time), reps,
                                   dev)
     return report
+
+
+# -- the frame trace ---------------------------------------------------------
+
+RING_FRAMES = 4096  # frames the trace keeps (a 51 s window at 40 ms: ~1,300)
+# Renderer.render's parts, in order: the rebind check, the camera
+# matrices and the cascade fit; the frustum culling; BoltAnim's pairs, the
+# pack and the pinned upload; CompiledFrame.__call__ (the static copy,
+# the replay, the launch tally and the output's clone)
+HOST_PARTS = ("constants", "cull", "upload", "launch")
+# the counts the frame's capacities bound (capacity_requirements' keys),
+# and the cfg field of each capacity
+TRACE_COUNTS = {"main_pairs": "pair_capacity",
+                "shadow_pairs": "shadow_pair_capacity",
+                "shade_tiles": "shade_tile_capacity",
+                "ssao_tiles": "ssao_tile_capacity"}
+SPAN_PREFIX = "crychic.render."  # the host parts' profiler ranges
+# the marks' ring: column 0 the frame, 1 the start mark, 2 + k the end
+# mark of fr.FRAME_STAGES[k] (csrc/frame_trace.cu)
+_MARK_COLS = 2 + len(fr.FRAME_STAGES)
+
+_vp, _ci = ctypes.c_void_p, ctypes.c_int
+LIBRARY = KernelLibrary("frame_trace.cu", "crychic_frame_trace", {
+    "crychic_frame_mark": ([_vp, _vp, _vp, _ci, _ci, _ci, _ci, _vp], _ci),
+    "crychic_frame_trace_error": ([_ci], ctypes.c_char_p),
+})
+
+
+@dataclasses.dataclass
+class FrameRow:
+    """One traced frame. host_ns: perf_counter_ns at render()'s start and
+    at the end of each of HOST_PARTS; stage_ms: the device ms of each
+    stage the frame ran, between its mark and the one before, in frame
+    order (host ms on the CPU); counts: TRACE_COUNTS' counts the frame
+    made. A frame whose marks the ring no longer holds has no stages
+    and no counts."""
+    frame: int
+    host_ns: tuple
+    stage_ms: dict
+    counts: dict
+
+    @property
+    def host_ms(self) -> dict:
+        t = self.host_ns
+        return {p: (t[k + 1] - t[k]) / 1e6 for k, p in enumerate(HOST_PARTS)}
+
+
+class FrameTrace:
+    """The frame trace of one Renderer (see the module doc).
+
+    Device side, all in the compiled frame: ``mark(name)`` is
+    render_frame's hook. On the card it queues a mark kernel while the
+    frame is being captured and does nothing otherwise, so the graph
+    holds the marks and the eager frame before the capture records
+    nothing; the start mark advances ``counter``, a device int64 that
+    counts replays, and each mark writes the card's clock into the
+    frame's row of ``marks`` (csrc/frame_trace.cu). ``write_counts(stats)``
+    copies the frame's counts into its row of ``counts`` with tensor ops
+    (no host read). On the CPU, where the frame runs eagerly, the same
+    hook writes ``time.perf_counter_ns()`` into the same rows.
+
+    Host side: ``begin_frame()``, ``part(name)`` around each of
+    HOST_PARTS in order and ``end_frame()`` record render()'s spans, and,
+    while a profiler records, each as a ``torch.profiler.record_function``
+    range named SPAN_PREFIX + part, on the profiler's clock beside the
+    kernels. Frame n of the Renderer (its n-th render() since the trace
+    began) is the n-th replay, so its host spans and its device row share
+    the index.
+
+    Rows are kept for the last RING_FRAMES frames and read by ``rows()``
+    once the caller has stopped issuing frames."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.ring_frames = R = RING_FRAMES
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=torch.int64, device=self.device)
+
+        self.marks = zeros(R, _MARK_COLS)
+        self.counts = zeros(R, len(TRACE_COUNTS))
+        self.counter = zeros(1)  # frames the device has started
+        self.row = zeros(1)  # the ring row of the frame in progress
+        self._absent = torch.full((1,), -1, dtype=torch.int64,
+                                  device=self.device)
+        self.host = np.zeros((R, 1 + len(HOST_PARTS)), np.int64)
+        self.frames = 0  # render() calls traced: the next frame's index
+        if self.device.type == "cuda":
+            # the first launch of the mark kernel outside any capture, on
+            # scratch tensors: the library loads now, not in the graph
+            self._launch(zeros(1), zeros(1), zeros(1, _MARK_COLS), 1, 1,
+                         True)
+
+    # -- device side ------------------------------------------------------
+    def _launch(self, counter, row, ring, rows: int, col: int, start: bool):
+        lib = LIBRARY.load()
+        with torch.cuda.device(self.device):
+            stream = torch.cuda.current_stream(self.device).cuda_stream
+            rc = lib.crychic_frame_mark(
+                counter.data_ptr(), row.data_ptr(), ring.data_ptr(), rows,
+                ring.shape[1], col, int(start), stream)
+        if rc != 0:
+            raise RuntimeError("frame mark launch failed: "
+                               + lib.crychic_frame_trace_error(rc).decode())
+
+    def _recording(self) -> bool:
+        """Whether the frame now issued is one the trace records: on the
+        card only the capture (the graph's replays run it), on the CPU
+        every eager frame."""
+        return (self.device.type != "cuda"
+                or torch.cuda.is_current_stream_capturing())
+
+    def mark(self, name: str):
+        """render_frame's hook: "start", or the stage that just ended."""
+        if not self._recording():
+            return
+        start = name == "start"
+        col = 1 if start else 2 + fr.FRAME_STAGES.index(name)
+        if self.device.type == "cuda":
+            self._launch(self.counter, self.row, self.marks,
+                         self.ring_frames, col, start)
+            return
+        if start:
+            f = int(self.counter[0])
+            self.counter[0] = f + 1
+            self.row[0] = r = f % self.ring_frames
+            self.marks[r] = 0
+            self.marks[r, 0] = f
+        self.marks[int(self.row[0]), col] = time.perf_counter_ns()
+
+    def write_counts(self, stats: dict):
+        """Copy the frame's counts (render_frame's stats with the hook
+        set; -1 for a count the frame does not make) into its row."""
+        if not self._recording():
+            return
+        vals = torch.cat([stats[k].to(torch.int64).reshape(1)
+                          if k in stats else self._absent
+                          for k in TRACE_COUNTS])
+        self.counts.index_copy_(0, self.row, vals[None])
+
+    # -- host side --------------------------------------------------------
+    def begin_frame(self):
+        self.host[self.frames % self.ring_frames, 0] = time.perf_counter_ns()
+
+    @contextlib.contextmanager
+    def part(self, name: str):
+        """One of HOST_PARTS, then its end time; while a profiler records,
+        also a profiler range (made only then: a range costs ~15 us of
+        host time, the check ~0.3 us)."""
+        if torch._C._autograd._profiler_enabled():
+            with torch.profiler.record_function(SPAN_PREFIX + name):
+                yield
+        else:
+            yield
+        self.host[self.frames % self.ring_frames,
+                  1 + HOST_PARTS.index(name)] = time.perf_counter_ns()
+
+    def end_frame(self):
+        self.frames += 1
+
+    def rows(self, since: int = 0) -> list:
+        """FrameRow of every frame from `since` to the last, after the
+        card has finished them (this waits for it). Where the ring has
+        wrapped past `since`, the last RING_FRAMES frames, with a
+        warning that says how many were lost."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        marks = self.marks.cpu().numpy()
+        counts = self.counts.cpu().numpy()
+        n, R = self.frames, self.ring_frames
+        first = max(since, n - R, 0)
+        if first > since:
+            warnings.warn(f"the frame trace's ring holds the last {R} "
+                          f"frames: frames {since} to {first - 1} are lost",
+                          stacklevel=2)
+        out = []
+        for f in range(first, n):
+            r = f % R
+            stage_ms, made = {}, {}
+            if marks[r, 0] == f and marks[r, 1]:
+                t = marks[r, 1]
+                for k, name in enumerate(fr.FRAME_STAGES):
+                    end = marks[r, 2 + k]
+                    if end:
+                        stage_ms[name] = float(end - t) / 1e6
+                        t = end
+                made = {k: int(v) for k, v in zip(TRACE_COUNTS, counts[r])
+                        if v >= 0}
+            out.append(FrameRow(f, tuple(int(v) for v in self.host[r]),
+                                stage_ms, made))
+        return out
+
+
+def trace_summary(rows: list, cfg) -> dict:
+    """The frames' means and medians: host_ms, the mean ms of each host
+    part; replay_ms, the median ms of each stage; occupancy, 100 x the
+    median of count / capacity (cfg's) of each count the frames made."""
+    def median(values):
+        return statistics.median(values) if values else None
+
+    replay = {s: median([r.stage_ms[s] for r in rows if s in r.stage_ms])
+              for s in fr.FRAME_STAGES}
+    occ = {}
+    for k, cap in TRACE_COUNTS.items():
+        c = getattr(cfg, cap)
+        if c:
+            occ[k] = median([100.0 * r.counts[k] / c for r in rows
+                             if k in r.counts])
+    return {
+        "frames": len(rows),
+        "host_ms": {p: statistics.fmean(r.host_ms[p] for r in rows)
+                    if rows else None for p in HOST_PARTS},
+        "replay_ms": {k: v for k, v in replay.items() if v is not None},
+        "occupancy": {k: v for k, v in occ.items() if v is not None}}
 
 
 def main(argv=None):

@@ -26,6 +26,11 @@ cfg names.
 Capacity overflows are flagged on the device and OR-ed across frames
 inside the frame; ``check_overflow`` reads them when the caller chooses
 to wait.
+``Renderer(..., trace=True)`` traces every frame from inside
+(``app/profiler.FrameTrace``, read through ``self.trace.rows()``): its
+host parts in ``render()``, its stages' device time inside the compiled
+frame's replay and its counts; with ``trace=False``, the default, the
+frame and its graph are those of an untraced build.
 """
 from __future__ import annotations
 
@@ -283,12 +288,16 @@ _OVERFLOWS = {
 
 class Renderer:
     """Owns the device scene; produces frames on `device` (the card unless
-    the caller asks for the CPU)."""
+    the caller asks for the CPU). With trace=True every frame is traced
+    (``trace``, an app/profiler.FrameTrace): rebind_frame_fn binds the
+    trace's marks and counts into the frame, and render() records its
+    host parts."""
 
     def __init__(self, scene: Scene, cfg: RenderConfig,
                  camera: Camera = None, asset_dir=DEFAULT_ASSET_DIR,
                  lights=None, auto_capacity: bool = True,
-                 sky_cubemap_path: str = None, device="cuda"):
+                 sky_cubemap_path: str = None, device="cuda",
+                 trace: bool = False):
         self.device = resolve_device(device)
         if sky_cubemap_path and cfg.procedural_sky:
             # a file-loaded sky is sampled from its cube, not evaluated
@@ -313,6 +322,11 @@ class Renderer:
                                          device=self.device)
                           for k in _OVERFLOWS}
         self._frame_fn = None
+        self.trace = None
+        if trace:
+            from .profiler import FrameTrace
+
+            self.trace = FrameTrace(self.device)
         self.rebind_frame_fn()
 
     def capacity_requirements(self, total_time: float = 0.0) -> dict:
@@ -392,7 +406,10 @@ class Renderer:
         now), on the CPU eagerly. The JAX Renderer must be rebound after
         an outside change of self.cfg; this one's render() rebinds
         itself when self.cfg differs from the bound cfg, and its graph
-        captures anew when a device-scene leaf is not the bound tensor."""
+        captures anew when a device-scene leaf is not the bound tensor.
+        A traced Renderer's frame also hands render_frame the trace's
+        mark hook and writes the frame's counts into the trace
+        (FrameTrace.mark, write_counts), so the graph holds them."""
         cfg = self.cfg
         n_op = self.scene.opaque.num_instances
         n_sh = self.scene.shadow.num_instances
@@ -400,14 +417,18 @@ class Renderer:
                 if self.scene.alpha is not None else 0)
         unpack = self._unpack_frame_constants
         flags = self._overflow
+        trace = self.trace
+        hook = {} if trace is None else dict(mark=trace.mark)
 
         def frame_packed(scene, packed):
             consts = unpack(packed, n_op, n_sh, n_al)
             stats = {}
-            img = fr.render_frame(scene, consts, cfg, stats)
+            img = fr.render_frame(scene, consts, cfg, stats, **hook)
             for k, flag in flags.items():
                 if k in stats:
                     flag |= stats[k]
+            if trace is not None:
+                trace.write_counts(stats)
             return img
 
         self.close()
@@ -542,13 +563,17 @@ class Renderer:
     def frame_constants_np(self, total_time: float = 0.0) -> dict:
         """Per-frame constants as HOST numpy leaves, keyed by the
         FrameConstants field names."""
+        c = self._view_constants(total_time)
+        c.update(self._visibilities())
+        return c
+
+    def _view_constants(self, total_time: float) -> dict:
+        """frame_constants_np's camera matrices, cascade fit and time."""
         cam = self.camera
         view = cam.view
         proj = cam.proj
         ct = casc.fit_cascades(cam, self.light_dir0, self.cfg.shadow_map_size)
         return dict(
-            alpha_visibility=(self._visibility(self.scene.alpha)
-                              if self.scene.alpha is not None else None),
             view=view.astype(np.float32),
             proj=proj.astype(np.float32),
             view_proj=(view @ proj).astype(np.float32),
@@ -556,9 +581,16 @@ class Renderer:
             eye_pos=cam.position.astype(np.float32),
             cascade_view_projs=ct.view_projs.astype(np.float32),
             shadow_transforms=ct.shadow_transforms,
+            total_time=np.float32(total_time),
+        )
+
+    def _visibilities(self) -> dict:
+        """frame_constants_np's culling masks."""
+        return dict(
+            alpha_visibility=(self._visibility(self.scene.alpha)
+                              if self.scene.alpha is not None else None),
             opaque_visibility=self._visibility(self.scene.opaque),
             shadow_visibility=self._visibility(self.scene.shadow),
-            total_time=np.float32(total_time),
         )
 
     def frame_constants(self, total_time: float = 0.0) -> fr.FrameConstants:
@@ -642,13 +674,35 @@ class Renderer:
         as one replay of its CUDA graph (captured at the first call,
         after one eager frame), and the image is a clone of the graph's
         output, so frames queue back to back until something reads one.
-        A cfg replaced since the last bind is bound first."""
+        A cfg replaced since the last bind is bound first. A traced
+        Renderer records the four parts of this call (HOST_PARTS of
+        app/profiler.py) as the frame's host spans."""
+        if self.trace is not None:
+            return self._render_traced(total_time)
         if self.cfg != self._bound_cfg:
             self.rebind_frame_fn()
         self._animate_materials(total_time)
         packed = fr.upload(self._pack_frame_constants(
             self.frame_constants_np(total_time)), self.device)
         return self._frame_fn(self.device_scene, packed)
+
+    def _render_traced(self, total_time: float) -> torch.Tensor:
+        """render() in its four parts, each a span of the trace."""
+        trace = self.trace
+        trace.begin_frame()
+        with trace.part("constants"):
+            if self.cfg != self._bound_cfg:
+                self.rebind_frame_fn()
+            c = self._view_constants(total_time)
+        with trace.part("cull"):
+            c.update(self._visibilities())
+        with trace.part("upload"):
+            self._animate_materials(total_time)
+            packed = fr.upload(self._pack_frame_constants(c), self.device)
+        with trace.part("launch"):
+            img = self._frame_fn(self.device_scene, packed)
+        trace.end_frame()
+        return img
 
     def render_np(self, total_time: float = 0.0) -> np.ndarray:
         img = self.render(total_time).cpu().numpy()

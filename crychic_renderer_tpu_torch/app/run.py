@@ -23,12 +23,18 @@ package's (``crychic_renderer_tpu.app.run``), with ``--device`` for its
   (the counts of capacity_requirements), pair_capacity and
   shadow_pair_capacity.
 
-With --profile (on the card) it then renders 3 more frames under
-torch.profiler (CUDA activity only) and prints one JSON line: the card,
-the median ms/frame, device time and device launches per frame (kernels
-and copies), the busy share (device time / median frame time) and the 8
-kernels that take the most device time per frame, with their launches
-per frame. That line comes last, after the --stats line.
+With --profile the Renderer traces its frames (``trace=True``,
+app/profiler.FrameTrace), and after the timed frames it renders 3 more
+under torch.profiler and prints one JSON line: the card, the median
+ms/frame of the timed frames, and over the 3 frames the trace's
+``replay_ms`` (each stage's median ms inside the frame's replay, from
+the marks the graph records; host ms on the CPU), ``host_ms`` (the mean
+ms of each part of render(): constants, cull, upload, launch) and
+``occupancy`` (100 x the median count over its capacity: the pairs of
+both rasters, the tiles of the compacted resolve and SSAO), then the 8
+kernels that take the most device time per frame (on the CPU the ops by
+their own CPU time), with their launches per frame. That line comes
+last, after the --stats line.
 
 ``main`` returns the Renderer and the last frame (an (H, W, 4) tensor on
 the device).
@@ -47,31 +53,41 @@ import torch
 
 
 def profile_frames(r, frame_ms, opts, frames=3, top=8):
-    """Render `frames` frames under torch.profiler and print the JSON line
-    of the module docstring."""
+    """Render `frames` frames of the traced Renderer r under
+    torch.profiler and print the JSON line of the module docstring."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    from .profiler import trace_summary
+
+    cuda = r.device.type == "cuda"
+    first = r.trace.frames
+    with profile(activities=[ProfilerActivity.CUDA if cuda
+                             else ProfilerActivity.CPU]) as prof:
         for i in range(frames):
             r.render(i / 60.0)
-        torch.cuda.synchronize()
+        if cuda:
+            torch.cuda.synchronize()
     r.check_overflow()
+    traced = trace_summary(r.trace.rows(since=first), r.cfg)
+    want = (torch.autograd.DeviceType.CUDA if cuda
+            else torch.autograd.DeviceType.CPU)
     ms_by_name = collections.Counter()
     n_by_name = collections.Counter()
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            ms_by_name[e.name] += e.time_range.elapsed_us() / 1000.0
+        if e.device_type == want:
+            us = e.time_range.elapsed_us() if cuda else e.self_cpu_time_total
+            ms_by_name[e.name] += us / 1000.0
             n_by_name[e.name] += 1
-    device_ms = sum(ms_by_name.values()) / frames
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    card = "cpu"
+    if cuda:
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True, timeout=60).stdout.strip().splitlines()[0]
     print(json.dumps({
-        "card": smi, **opts, "frame_ms": frame_ms,
-        "device_ms_per_frame": device_ms,
-        "device_launches_per_frame": sum(n_by_name.values()) / frames,
-        "busy_share": device_ms / frame_ms,
+        "card": card, **opts, "frame_ms": frame_ms,
+        "replay_ms": traced["replay_ms"], "host_ms": traced["host_ms"],
+        "occupancy": traced["occupancy"],
         "top": [{"name": name[:80], "ms_per_frame": ms / frames,
                  "launches_per_frame": n_by_name[name] / frames}
                 for name, ms in ms_by_name.most_common(top)]}))
@@ -96,11 +112,9 @@ def main(argv=None):
                     help="the 2.5-texel soft Poisson PCF disk "
                          "(pcf_radius_texels=2.5)")
     ap.add_argument("--profile", action="store_true",
-                    help="device profile of 3 more frames (card only)")
+                    help="trace the frames; profile 3 more")
     args = ap.parse_args(argv)
     device = torch.device(args.device)
-    if args.profile and device.type != "cuda":
-        ap.error("--profile reads device time: run it with --device cuda")
 
     from ..models.scenes_baseline import CONFIGS
     from .renderer import Renderer, write_png
@@ -120,7 +134,8 @@ def main(argv=None):
     print(f"config {args.config}: {cfg.width}x{cfg.height} on {device}, "
           f"tris={scene.opaque.num_triangles}")
     t0 = time.perf_counter()
-    r = Renderer(scene, cfg, lights=lights, device=device)
+    r = Renderer(scene, cfg, lights=lights, device=device,
+                 trace=args.profile)
     print(f"scene build: {time.perf_counter() - t0:.2f} s, "
           f"pair_capacity={r.cfg.pair_capacity} "
           f"shadow_pair_capacity={r.cfg.shadow_pair_capacity}")

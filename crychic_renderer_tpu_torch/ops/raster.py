@@ -133,10 +133,12 @@ def build_records(tris: rz.ScreenTris, bins: rz.Bins, ntx: int,
 
 def binned_records(tris: rz.ScreenTris, width: int, height: int,
                    pair_capacity: int, xrange=None, row_stride=None,
-                   tile_row_offset: int = None, num_tile_rows: int = None):
+                   tile_row_offset: int = None, num_tile_rows: int = None,
+                   occupancy: dict = None):
     """Bin + record build: the raster kernel's inputs, for the full screen
     or one band (``row_stride`` or ``tile_row_offset``/``num_tile_rows``,
-    see rz.bin_triangles).
+    see rz.bin_triangles). occupancy (optional dict) receives "pairs",
+    the pairs the binning expanded (Bins.total, a 0-d int32 tensor).
 
     Returns (records (P, 16) f32, starts (keys,) i32, counts (keys,) i32,
     overflowed () bool)."""
@@ -145,6 +147,8 @@ def binned_records(tris: rz.ScreenTris, width: int, height: int,
     bins = rz.bin_triangles(tris, width, height, pair_capacity,
                             ty_lo=tile_row_offset, num_rows=num_tile_rows,
                             row_stride=row_stride)
+    if occupancy is not None:
+        occupancy["pairs"] = bins.total
     row_unperm = None
     if row_stride is not None:
         row_unperm = (row_stride[0], -(-nty // row_stride[0]))
@@ -174,7 +178,7 @@ def band_grid(width: int, height: int, row_stride=None,
 def rasterize(tris: rz.ScreenTris, width: int, height: int,
               pair_capacity: int, with_ids: bool = True, xrange=None,
               row_stride=None, tile_row_offset: int = None,
-              num_tile_rows: int = None):
+              num_tile_rows: int = None, occupancy: dict = None):
     """Full pipeline: bin + record build + raster (kernel on CUDA).
 
     Band modes: ``row_stride=(n_dev, owner)`` rasterizes the owner's
@@ -185,10 +189,11 @@ def rasterize(tris: rz.ScreenTris, width: int, height: int,
     full-screen raster's bit for bit.
 
     Returns (depth f32, tid i32 or None, overflowed () bool — True when
-    pairs beyond pair_capacity were dropped); (H, W) for the full screen."""
+    pairs beyond pair_capacity were dropped); (H, W) for the full screen.
+    occupancy (optional dict) receives "pairs" (binned_records)."""
     records, starts, counts, overflowed = binned_records(
         tris, width, height, pair_capacity, xrange, row_stride,
-        tile_row_offset, num_tile_rows)
+        tile_row_offset, num_tile_rows, occupancy)
     tile_offset, rows = band_grid(width, height, row_stride,
                                   tile_row_offset, num_tile_rows)
     depth, tid = raster_tiles(records, starts, counts, width, rows,

@@ -59,6 +59,7 @@ class Bins(NamedTuple):
     sorted_tile: torch.Tensor  # (P,) int32 tile id per sorted pair
     num_valid: torch.Tensor  # () int32 total valid pairs
     overflowed: torch.Tensor  # () bool — pair capacity exceeded
+    total: torch.Tensor  # () int32 pairs expanded, past the capacity too
 
 
 def viewport_transform(clip: torch.Tensor, width: int, height: int):
@@ -255,7 +256,7 @@ def bin_triangles(tris: ScreenTris, width: int, height: int,
     return Bins(order=order, starts=starts, counts=hist,
                 sorted_tile=sorted_tile,
                 num_valid=torch.clamp(total, max=pair_capacity),
-                overflowed=total > pair_capacity)
+                overflowed=total > pair_capacity, total=total)
 
 
 # ---------------------------------------------------------------------------
@@ -486,14 +487,17 @@ def rasterize_binned(tris: ScreenTris, bins: Bins, width: int, height: int,
 
 def binned_raster(tris: ScreenTris, width: int, height: int,
                   pair_capacity: int, bin_cap: int, with_ids: bool = True,
-                  row_stride=None):
+                  row_stride=None, occupancy: dict = None):
     """bin_triangles on XLA_TILE_H-row tiles + rasterize_binned, the
     frame's use_pallas=False raster (full screen, or one owner's
     interleaved rows). Returns (depth, tid or None, pairs_overflowed () bool
     — pairs past pair_capacity were dropped, tiles_overflowed () bool — a
-    tile's run outran bin_cap and was truncated)."""
+    tile's run outran bin_cap and was truncated). occupancy (optional
+    dict) receives "pairs", the binning's total (Bins.total)."""
     bins = bin_triangles(tris, width, height, pair_capacity,
                          tile_h=XLA_TILE_H, row_stride=row_stride)
+    if occupancy is not None:
+        occupancy["pairs"] = bins.total
     depth, tid = rasterize_binned(tris, bins, width, height, bin_cap,
                                   with_ids=with_ids, row_stride=row_stride)
     return depth, tid, bins.overflowed, (bins.counts > bin_cap).any()

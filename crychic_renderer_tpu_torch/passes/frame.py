@@ -481,17 +481,19 @@ def shadow_atlas_tris(scene: DeviceScene, shadow_visibility,
 
 def render_shadow_atlas(scene: DeviceScene, shadow_visibility,
                         vps: torch.Tensor, cfg: RenderConfig,
-                        stats: dict = None) -> torch.Tensor:
+                        stats: dict = None,
+                        occupancy: dict = None) -> torch.Tensor:
     """The cascades rasterized in ONE launch into a horizontal (S, k*S)
     atlas, then split to (k, S, S). The D3D12 reference records k
     sequential depth passes (DrawSceneToShadowMap, CRYCHIC.cpp:2479).
-    stats (optional dict) receives "shadow_overflowed"."""
+    stats (optional dict) receives "shadow_overflowed"; occupancy
+    (optional dict) "pairs", the atlas binning's pairs (raster.rasterize)."""
     S = cfg.shadow_map_size
     k = vps.shape[0]
     tris, xrange = shadow_atlas_tris(scene, shadow_visibility, vps, cfg)
     depth, _, overflowed = raster.rasterize(
         tris, k * S, S, cfg.shadow_pair_capacity, with_ids=False,
-        xrange=xrange)
+        xrange=xrange, occupancy=occupancy)
     if stats is not None:
         stats["shadow_overflowed"] = overflowed
     return torch.stack([depth[:, c * S:(c + 1) * S] for c in range(k)])
@@ -499,13 +501,15 @@ def render_shadow_atlas(scene: DeviceScene, shadow_visibility,
 
 def render_one_shadow_map(scene: DeviceScene, shadow_visibility, vp,
                           cfg: RenderConfig, tri_world=None,
-                          stats: dict = None) -> torch.Tensor:
+                          stats: dict = None,
+                          occupancy: dict = None) -> torch.Tensor:
     """One cascade's depth-only render in its own S x S viewport -> (S, S)
     f32, with the shadow PSO's depth bias (_shadow_bias): the raster
     kernel's launch with cfg.use_pallas, else the pure-tensor binned
     raster at cfg.shadow_bin_cap. stats (optional dict) receives
     "shadow_overflowed" and, on the pure-tensor path,
-    "shadow_bin_overflowed" (0-d bool tensors)."""
+    "shadow_bin_overflowed" (0-d bool tensors); occupancy (optional
+    dict) "pairs", the binning's pairs."""
     S = cfg.shadow_map_size
     if tri_world is None:
         tri_world = shadow_tri_world(scene.shadow, shadow_visibility)
@@ -514,37 +518,49 @@ def render_one_shadow_map(scene: DeviceScene, shadow_visibility, vp,
     stats = {} if stats is None else stats
     if cfg.use_pallas:
         depth, _, stats["shadow_overflowed"] = raster.rasterize(
-            tris, S, S, cfg.shadow_pair_capacity, with_ids=False)
+            tris, S, S, cfg.shadow_pair_capacity, with_ids=False,
+            occupancy=occupancy)
     else:
         depth, _, stats["shadow_overflowed"], \
             stats["shadow_bin_overflowed"] = rz.binned_raster(
                 tris, S, S, cfg.shadow_pair_capacity, cfg.shadow_bin_cap,
-                with_ids=False)
+                with_ids=False, occupancy=occupancy)
     return depth
 
 
 def render_shadow_maps(scene: DeviceScene, consts: FrameConstants,
-                       cfg: RenderConfig, stats: dict = None) -> torch.Tensor:
+                       cfg: RenderConfig, stats: dict = None,
+                       occupancy: dict = None) -> torch.Tensor:
     """The cascades' depth-only renders -> (C, S, S) f32: with
     cfg.use_pallas the atlas's one raster launch (render_shadow_atlas),
     else each cascade in its own viewport through the pure-tensor raster
     (render_one_shadow_map), the world-space table shared. stats
-    (optional dict) receives the flags OR-ed over the cascades."""
+    (optional dict) receives the flags OR-ed over the cascades;
+    occupancy (optional dict) "shadow_pairs", the pairs binned, summed
+    over the cascades (what shadow_pair_capacity bounds)."""
     vps = consts.cascade_view_projs
+    # each raster's "pairs", with occupancy only
+    pairs = [None if occupancy is None else {}
+             for _ in range(1 if cfg.use_pallas else vps.shape[0])]
     if cfg.use_pallas:
-        return render_shadow_atlas(scene, consts.shadow_visibility, vps,
-                                   cfg, stats)
-    tri_world = shadow_tri_world(scene.shadow, consts.shadow_visibility)
-    maps, flags = [], []
-    for c in range(vps.shape[0]):
-        flags.append({})
-        maps.append(render_one_shadow_map(scene, consts.shadow_visibility,
-                                          vps[c], cfg, tri_world,
-                                          flags[-1]))
-    if stats is not None:
-        for k in flags[0]:
-            stats[k] = torch.stack([f[k] for f in flags]).any()
-    return torch.stack(maps)
+        maps = render_shadow_atlas(scene, consts.shadow_visibility, vps,
+                                   cfg, stats, pairs[0])
+    else:
+        tri_world = shadow_tri_world(scene.shadow, consts.shadow_visibility)
+        flags = [{} for _ in pairs]
+        maps = [render_one_shadow_map(scene, consts.shadow_visibility,
+                                      vps[c], cfg, tri_world, flags[c],
+                                      pairs[c])
+                for c in range(vps.shape[0])]
+        if stats is not None:
+            for k in flags[0]:
+                stats[k] = torch.stack([f[k] for f in flags]).any()
+        maps = torch.stack(maps)
+    if occupancy is not None:
+        occupancy["shadow_pairs"] = (
+            pairs[0]["pairs"] if len(pairs) == 1
+            else torch.stack([p["pairs"] for p in pairs]).sum())
+    return maps
 
 
 # ---------------------------------------------------------------------------
@@ -733,23 +749,26 @@ def _compact(tv: torch.Tensor, capacity: int):
     host read (a fixed-size buffer, a cumsum and one scatter).
 
     tv: (NT,) bool, the tiles the pass must evaluate; capacity: CB, the
-    slots (capped at NT). Returns (kept, inv, over):
+    slots (capped at NT). Returns (kept, inv, over, needed):
     - kept (CB,) int64: slot -> tile, in tile order; unused slots hold NT,
       the row the caller appends to its tile table as the sentinel;
     - inv (NT,) int64: tile -> slot; CB, the row the caller appends to
       the slots' results as the fill, for the tiles not evaluated, those
       past the capacity included (the JAX package's drop);
-    - over: 0-d bool, more tiles than slots (Renderer.check_overflow)."""
+    - over: 0-d bool, more tiles than slots (Renderer.check_overflow);
+    - needed: 0-d int64, the tiles to evaluate (a view of the running
+      count, no kernel of its own)."""
     NT = tv.shape[0]
     CB = min(int(capacity), NT)
     dev = tv.device
-    pos = torch.cumsum(tv.to(torch.int64), 0) - 1
+    running = torch.cumsum(tv.to(torch.int64), 0)
+    pos = running - 1
     # slot CB of the buffer takes every dropped write and is cut off
     slot = torch.clamp(torch.where(tv, pos, CB), max=CB)
     kept = torch.full((CB + 1,), NT, dtype=torch.int64, device=dev)
     kept.scatter_(0, slot, torch.arange(NT, dtype=torch.int64, device=dev))
     inv = torch.where(tv & (pos < CB), pos, CB)
-    return kept[:CB], inv, pos[-1] >= CB
+    return kept[:CB], inv, pos[-1] >= CB, running[-1]
 
 
 def _slot_pixels(kept: torch.Tensor, nty: int, ntx: int, tile_h: int,
@@ -766,20 +785,22 @@ def _slot_pixels(kept: torch.Tensor, nty: int, ntx: int, tile_h: int,
 
 
 def _resolve_compacted(scene: DeviceScene, consts: FrameConstants,
-                       cfg: RenderConfig, rec, tid, row_offset: int = 0):
+                       cfg: RenderConfig, rec, tid, row_offset: int = 0,
+                       occupancy: dict = None):
     """Tile-compacted resolve: _resolve_core runs only on the (8, 128)
     tiles that hold a covered pixel, cfg.shade_tile_capacity slots of
     them; the other tiles take the clear values (_G_CLEAR), which the
     dense resolve gives every uncovered pixel. The same math on the same
     values, so the G-buffer equals the dense one. Expanded back with one
     gather of the packed 16 channels and one transpose.
-    Returns (g, over) (see _compact)."""
+    Returns (g, over) (see _compact); occupancy (optional dict) receives
+    "shade_tiles", _compact's needed."""
     H, W = tid.shape
     TH, TW = SHADE_TILE_H, SHADE_TILE_W
     tiles, nty, ntx = _tiles(tid, TH, TW, -1)
     tiles = tiles[..., 0]  # (NT, LANES)
-    kept, inv, over = _compact((tiles >= 0).any(dim=1),
-                               cfg.shade_tile_capacity)
+    kept, inv, over, needed = _compact((tiles >= 0).any(dim=1),
+                                       cfg.shade_tile_capacity)
     tid_c = torch.cat([tiles, torch.full_like(tiles[:1], -1)])[kept]
     x, y = _slot_pixels(kept, nty, ntx, TH, TW)
     px = x.to(torch.float32) + 0.5
@@ -797,6 +818,8 @@ def _resolve_compacted(scene: DeviceScene, consts: FrameConstants,
         full[n] = out[..., o:o + k]
         o += k
     full["valid"] = tid >= 0
+    if occupancy is not None:
+        occupancy["shade_tiles"] = needed
     return full, over
 
 
@@ -804,7 +827,8 @@ def resolve_gbuffer(scene: DeviceScene, consts: FrameConstants,
                     cfg: RenderConfig, tris: rz.ScreenTris,
                     depth: torch.Tensor, tid: torch.Tensor,
                     tri_attr: torch.Tensor, row_offset: int = 0,
-                    out_rows: int = None, stats: dict = None):
+                    out_rows: int = None, stats: dict = None,
+                    occupancy: dict = None):
     """Gather the winning triangle's vertex data per pixel and build the
     G-buffer (GeometryPass.hlsl PS + GBuffer.hlsl encode, fused with the
     DrawNormals.hlsl view-space-normal output).
@@ -815,7 +839,9 @@ def resolve_gbuffer(scene: DeviceScene, consts: FrameConstants,
 
     cfg.shade_tile_capacity selects the tile-compacted resolve
     (_resolve_compacted, the same G-buffer); stats (optional dict) then
-    receives "shade_tiles_overflowed", a 0-d bool tensor.
+    receives "shade_tiles_overflowed", a 0-d bool tensor, and occupancy
+    (optional dict) "shade_tiles", the tiles with a covered pixel (0-d
+    int64), what shade_tile_capacity bounds.
 
     Band rendering (parallel.sharded, always dense): depth/tid are rows
     starting at global pixel row ``row_offset`` (barycentrics are
@@ -828,7 +854,7 @@ def resolve_gbuffer(scene: DeviceScene, consts: FrameConstants,
     rec = _build_resolve_records(tris, tri_attr)
     if cfg.shade_tile_capacity:
         g, over = _resolve_compacted(scene, consts, cfg, rec, tid,
-                                     row_offset)
+                                     row_offset, occupancy)
         if stats is not None:
             stats["shade_tiles_overflowed"] = over
     else:
@@ -897,7 +923,7 @@ def _ssao_tile_occupancy(valid_half: torch.Tensor, nty: int,
 
 def _ssao_occlusion_compacted(scene: DeviceScene, consts: FrameConstants,
                               cfg: RenderConfig, n_half, d_half, depth,
-                              valid):
+                              valid, occupancy: dict = None):
     """Tile-compacted SSAO occlusion: the 14 taps run only on the (8, 32)
     half-res tiles within the blurs' and the upsample's reach of a covered
     pixel (_ssao_tile_occupancy), cfg.ssao_tile_capacity slots of them;
@@ -911,15 +937,16 @@ def _ssao_occlusion_compacted(scene: DeviceScene, consts: FrameConstants,
     surface_eps and every tap occludes nothing. The per-pixel uv comes
     from the slot table; on the CPU the result equals the dense
     occlusion (the JAX package bounds it at 1e-5, as XLA folds the dense
-    uv as a constant). Returns ((h, w) access, over) (see _compact)."""
+    uv as a constant). Returns ((h, w) access, over) (see _compact);
+    occupancy (optional dict) receives "ssao_tiles", _compact's needed."""
     TH, TW = SSAO_TILE_H, SSAO_TILE_W
     h, w = d_half.shape
     k = cfg.ssao_scale
     nty, ntx = -(-h // TH), -(-w // TW)
     # half-res validity: any covered full-res pixel in the k x k block
     vh = valid[:h * k, :w * k].reshape(h, k, w, k).any(dim=3).any(dim=1)
-    kept, inv, over = _compact(_ssao_tile_occupancy(vh, nty, ntx),
-                               cfg.ssao_tile_capacity)
+    kept, inv, over, needed = _compact(_ssao_tile_occupancy(vh, nty, ntx),
+                                       cfg.ssao_tile_capacity)
     # ONE packed (depth, normal, random field) tile table + the fill row:
     # depth 1, normal (0, 0, 1), field 0
     stack = torch.cat([_tiles(d_half, TH, TW, 1.0)[0],
@@ -937,6 +964,8 @@ def _ssao_occlusion_compacted(scene: DeviceScene, consts: FrameConstants,
         scene.ssao_offsets, random_field=sel[..., 4:7], tap_depth=depth,
         pixel_uv=(U, V))  # (CB, LANES)
     accp = torch.cat([acc, torch.ones_like(acc[:1])])
+    if occupancy is not None:
+        occupancy["ssao_tiles"] = needed
     return _untile(accp[inv][..., None], nty, ntx, TH, TW, h, w)[..., 0], \
         over
 
@@ -944,7 +973,7 @@ def _ssao_occlusion_compacted(scene: DeviceScene, consts: FrameConstants,
 def ssao_pass(scene: DeviceScene, consts: FrameConstants, cfg: RenderConfig,
               normal_v: torch.Tensor, depth: torch.Tensor,
               valid: torch.Tensor = None,
-              stats: dict = None) -> torch.Tensor:
+              stats: dict = None, occupancy: dict = None) -> torch.Tensor:
     """Half-res occlusion + N two-pass bilateral blurs -> (h, w) access.
     The 14 taps sample the full-res depth (Ssao.hlsl binds the full depth
     buffer with the linear border-white gsamDepthMap).
@@ -952,11 +981,13 @@ def ssao_pass(scene: DeviceScene, consts: FrameConstants, cfg: RenderConfig,
     valid: optional (H, W) full-res coverage (tid >= 0). With it and
     cfg.ssao_tile_capacity, the occlusion is tile-compacted
     (_ssao_occlusion_compacted) and stats (optional dict) receives
-    "ssao_tiles_overflowed", a 0-d bool tensor; the blurs stay dense."""
+    "ssao_tiles_overflowed", a 0-d bool tensor, occupancy (optional dict)
+    "ssao_tiles", the tiles evaluated (0-d int64), what
+    ssao_tile_capacity bounds; the blurs stay dense."""
     n_half, d_half = ssao_inputs_half(cfg, normal_v, depth)
     if cfg.ssao_tile_capacity and valid is not None:
-        access, over = _ssao_occlusion_compacted(scene, consts, cfg, n_half,
-                                                 d_half, depth, valid)
+        access, over = _ssao_occlusion_compacted(
+            scene, consts, cfg, n_half, d_half, depth, valid, occupancy)
         if stats is not None:
             stats["ssao_tiles_overflowed"] = over
     else:
@@ -993,8 +1024,8 @@ def _pcf_factor_compacted(cfg: RenderConfig, pos_w, valid, sf_fn):
     stack, nty, ntx = _tiles(
         torch.cat([pos_w, valid[..., None].to(pos_w.dtype)], dim=-1),
         TH, TW, 0.0)  # (NT, LANES, 4)
-    kept, inv, _ = _compact(stack[..., 3].amax(dim=1) > 0.5,
-                            cfg.shade_tile_capacity)
+    kept, inv, _, _ = _compact(stack[..., 3].amax(dim=1) > 0.5,
+                               cfg.shade_tile_capacity)
     sel = torch.cat([stack, torch.zeros_like(stack[:1])])[kept]
     f = sf_fn(sel[..., :3], sel[..., 3] < 0.5)  # (CB, LANES)
     fp = torch.cat([f, torch.ones_like(f[:1])])
@@ -1453,8 +1484,14 @@ def capacity_requirements(scene: DeviceScene, consts: FrameConstants,
 # Full frame
 # ---------------------------------------------------------------------------
 
+# render_frame's stages in frame order, the names its mark hook is called
+# with after each (app/profiler.profile_frame's keys)
+FRAME_STAGES = ("raster_main", "alpha_merge_main", "resolve_gbuffer",
+                "shadow_maps_x4", "alpha_merge_shadow", "ssao", "lighting")
+
 def render_frame(scene: DeviceScene, consts: FrameConstants,
-                 cfg: RenderConfig, stats: dict = None) -> torch.Tensor:
+                 cfg: RenderConfig, stats: dict = None,
+                 mark=None) -> torch.Tensor:
     """One full frame -> (H, W, 4) float32 linear color (see module doc).
 
     cfg.use_pallas selects the rasters: the CUDA kernels of ops.raster
@@ -1468,49 +1505,86 @@ def render_frame(scene: DeviceScene, consts: FrameConstants,
     "shadow_overflowed", on the pure-tensor path "main_bin_overflowed"
     and "shadow_bin_overflowed", "shade_tiles_overflowed",
     "ssao_tiles_overflowed"), read by nobody here, so the frame never
-    waits on the device."""
+    waits on the device.
+
+    mark (optional), the frame trace's hook (app/profiler.FrameTrace
+    .mark): called with "start" before the frame's first op and with
+    each stage's name (FRAME_STAGES, app/profiler.profile_frame's keys)
+    after its last: "raster_main" (the main view's vertex stage, clip,
+    binning, records and raster), "alpha_merge_main" (with the alpha
+    layer), "resolve_gbuffer", "shadow_maps_x4" (the atlas's binning,
+    records and raster), "alpha_merge_shadow" (with the alpha layer),
+    "ssao" (occlusion and blurs) and "lighting" (the SSAO upsample, the
+    lighting pass and the debug overlay); a stage the cfg turns off is
+    not marked. With mark, stats also receives the counts the capacities
+    bound, under capacity_requirements' keys, as device tensors:
+    "main_pairs" and "shadow_pairs" (the pairs binned), and with the
+    compacted passes "shade_tiles" and "ssao_tiles" (the tiles they
+    evaluate). Without mark the frame is the same ops as with it, less
+    the marks and the counts' bookkeeping."""
     H, W = cfg.height, cfg.width
     dev = consts.view_proj.device
     stats = {} if stats is None else stats
+    occ = main_occ = None  # the counts' dicts, with mark only
+    if mark is not None:
+        occ, main_occ = stats, {}
+        mark("start")
 
     # vertex stage + near-plane clip + main rasterization (one visibility
     # buffer feeds the normal/depth, G-buffer and lighting passes)
     tris, tri_attr = main_view_tris(scene, consts, cfg)
     if cfg.use_pallas:
         depth, tid, stats["main_overflowed"] = raster.rasterize(
-            tris, W, H, cfg.pair_capacity)
+            tris, W, H, cfg.pair_capacity, occupancy=main_occ)
     else:
         depth, tid, stats["main_overflowed"], \
             stats["main_bin_overflowed"] = rz.binned_raster(
-                tris, W, H, cfg.pair_capacity, cfg.bin_cap)
+                tris, W, H, cfg.pair_capacity, cfg.bin_cap,
+                occupancy=main_occ)
+    if mark is not None:
+        occ["main_pairs"] = main_occ["pairs"]
+        mark("raster_main")
 
     alpha_on = alpha_enabled(scene, cfg)
     if alpha_on:
         depth, tid, tris, tri_attr = alpha_merge_main(
             scene, consts, cfg, depth, tid, tris, tri_attr)
+        if mark is not None:
+            mark("alpha_merge_main")
 
     g = resolve_gbuffer(scene, consts, cfg, tris, depth, tid, tri_attr,
-                        stats=stats)
+                        stats=stats, occupancy=occ)
+    if mark is not None:
+        mark("resolve_gbuffer")
 
     if cfg.shadows_enabled:
-        shadow_maps = render_shadow_maps(scene, consts, cfg, stats)
+        shadow_maps = render_shadow_maps(scene, consts, cfg, stats, occ)
+        if mark is not None:
+            mark("shadow_maps_x4")
         if alpha_on:
             shadow_maps = alpha_merge_shadow(scene, consts, cfg,
                                              shadow_maps)
+            if mark is not None:
+                mark("alpha_merge_shadow")
     else:
         shadow_maps = torch.ones((cfg.num_cascades, 2, 2),
                                  dtype=torch.float32, device=dev)
 
     if cfg.ssao_enabled:
         access_half = ssao_pass(scene, consts, cfg, g["normal_v"], depth,
-                                valid=tid >= 0, stats=stats)
+                                valid=tid >= 0, stats=stats, occupancy=occ)
+        if mark is not None:
+            mark("ssao")
         ambient_access = _upsample_bilinear(access_half, H, W)
     else:
         ambient_access = torch.ones((H, W), dtype=torch.float32, device=dev)
 
     img = lighting_pass(scene, consts, cfg, g, shadow_maps, ambient_access,
                         depth)
-    return apply_debug_overlay(consts, cfg, img, shadow_maps, g["pos_w"])
+    img = apply_debug_overlay(consts, cfg, img, shadow_maps, g["pos_w"])
+    if mark is not None:
+        mark("lighting")
+    return img
 
 
 def apply_debug_overlay(consts: FrameConstants, cfg: RenderConfig,
