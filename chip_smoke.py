@@ -11,8 +11,9 @@ them: the raster kernel (csrc/raster.cu) of both raster launches and the
 soft PCF kernel (csrc/pcf.cu). Phases, each printed as it ends:
 
 1. the card's name and power limit (nvidia-smi);
-2. both kernels built from the checkout's sources, one nvcc each, started
-   together, and their build times;
+2. the kernels built from the checkout's sources (raster, soft PCF and
+   resolve libraries), one nvcc each, started together, and their build
+   times;
 3. the Renderer at 1080p, with the capacities it sized (the atlas pair
    count is what the atlas binning expands; the tile capacities of the
    compacted passes beside their grids), and which of config 4's
@@ -284,6 +285,16 @@ soft PCF kernel (csrc/pcf.cu). Phases, each printed as it ends:
    frame and a replay of its graph, one K1 each and one K2 each with
    shadows) and its captures; (f) the phase's seconds. The card's name
    and power limit head the phase's lines.
+30. the G-buffer resolve kernel (K7, csrc/resolve.cu) on config 4's and
+   config 5's 1080p inputs (config 5 from the phase-20 files), each at
+   its compacted frame's tile table: the whole resolve_gbuffer through
+   K7 against resolve_gbuffer_plain, every plane torch.equal; the
+   kernel's ms (CUDA events around 20 back-to-back launches) and device
+   ms (torch.profiler), the plain version's ms and the whole stage's
+   run eagerly (the records, the tile table and K7: ~20 launches, so
+   the host's launch time) beside the bound; then 1 + 5
+   frames through Renderer.render, one K7 launch per frame and one per
+   replay of the graph (app/graphs.CompiledFrame.launches).
 
 Renderer.render replays a CUDA graph: a Renderer's first render, and the
 first after its cfg is replaced, runs one eager frame before it captures
@@ -298,7 +309,8 @@ operations the function needs on this run's inputs over 33.5 T/s, the
 rate with every operation rounded on its own, as the kernels are built
 (-fmad=false): for the raster kernel the warp-level reject's test of
 every (record, warp) pair and the pixel tests of the pairs it keeps,
-for K6 460 per receiver-cascade) and, last, the device line. Any
+for K6 460 per receiver-cascade, for K7 about 1,050 per covered pixel of
+a resolved tile) and, last, the device line. Any
 failed phase raises, so the script exits non-zero and prints no result;
 so does a machine without CUDA, and a directory without the repository.
 """
@@ -392,6 +404,14 @@ RASTER_WARP_OPS = {False: 4 * (16 + 8) + 128 * (8 + 6),
 OLD_RASTER_OPS = {False: 4 * (128 + 8) + 1024 * (8 + 6),
                   True: 4 * (128 + 8) + 1024 * (8 + 6) + 128 * 2}
 OLD_F32_OPS_S = 67e12
+# K7's f32 operations per covered pixel of a resolved tile with the
+# frame's sampler (8x anisotropy, 2 probes on dual-mip rows), counted from
+# csrc/resolve.cu: 3 x 39 for the weights at the pixel and its two
+# neighbours, 79 for the interpolation and the uv derivatives, 26 for the
+# footprint, 364 per probe (4 bilinear quads of 70, the addressing, the
+# blend and the sums), 9 for the normalisation of the sums, 92 for the
+# material, the TBN transform and the view-space normal
+K7_OPS_PER_PIXEL = 3 * 39 + 79 + 26 + 2 * 364 + 9 + 92
 # K6's scalar path on config 4's 1080p receivers at S = 520 before the
 # window-ready map (every receiver: its 1,040-byte rows had no texture),
 # device ms on an NVIDIA H100 80GB HBM3 at 700.00 W, quoted in phase 19
@@ -476,7 +496,7 @@ def main():
         raise SystemExit("chip_smoke: no CUDA device; nothing was run")
     from crychic_renderer_tpu_torch.app.renderer import Renderer
     from crychic_renderer_tpu_torch.models.scenes_baseline import CONFIGS
-    from crychic_renderer_tpu_torch.ops import build, pcf, raster
+    from crychic_renderer_tpu_torch.ops import build, pcf, raster, resolve
     from crychic_renderer_tpu_torch.ops import rasterizer as rz
     from crychic_renderer_tpu_torch.ops import shading, shadows
     from crychic_renderer_tpu_torch.passes import frame as fr
@@ -494,7 +514,7 @@ def main():
     print(smi, flush=True)
 
     # 2. the kernels, built from the checkout, one nvcc each, in parallel
-    libs = (raster.LIBRARY, pcf.LIBRARY)
+    libs = (raster.LIBRARY, pcf.LIBRARY, resolve.LIBRARY)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         for f in [pool.submit(lib.load, True) for lib in libs]:
@@ -808,6 +828,12 @@ def main():
     phase(f"[29] phase 29 took {t11 - t10:.1f} s; the script "
           f"{t11 - t_script:.1f} s, kernel builds included")
 
+    # 30: K7, the G-buffer resolve kernel, against its plain version
+    kernels.extend(resolve_kernel_runs(dev, assets, launches, smi))
+    t12 = time.perf_counter()
+    phase(f"[30] phase 30 took {t12 - t11:.1f} s; the script "
+          f"{t12 - t_script:.1f} s, kernel builds included")
+
     kernels.sort(key=lambda k: k["name"])
     for k in kernels:
         variant = k.pop("variant")
@@ -820,6 +846,90 @@ def main():
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def resolve_kernel_runs(dev, assets, launches, card):
+    """Phase 30 (see the module doc). Returns the kernels-line entries of
+    K7 on config 4's and config 5's inputs."""
+    from crychic_renderer_tpu_torch.app.renderer import Renderer
+    from crychic_renderer_tpu_torch.models import scenes_baseline as sb
+    from crychic_renderer_tpu_torch.ops import raster, resolve
+    from crychic_renderer_tpu_torch.passes import frame as fr
+
+    phase(f"[30] card: {card}")
+    entries = []
+    for name, kw in (("config4", {}), ("config5", assets)):
+        scene, cfg, lights = sb.CONFIGS[int(name[-1])]()
+        r = Renderer(scene, cfg, lights=lights, device=dev, **kw)
+        cfg = r.cfg
+        consts = r.frame_constants(0.0)
+        tris, attr = fr.main_view_tris(r.device_scene, consts, cfg)
+        depth, tid, _ = raster.rasterize(tris, cfg.width, cfg.height,
+                                         cfg.pair_capacity)
+        args = (r.device_scene, consts, cfg, tris, depth, tid, attr)
+        g, calls = capture_calls(resolve, "resolve",
+                                 lambda: fr.resolve_gbuffer(*args))
+        want = fr.resolve_gbuffer_plain(*args)
+        for k in want:
+            assert torch.equal(g[k], want[k]), f"{name}: K7's {k} differs"
+
+        # the kernel alone, on the inputs the frame hands it
+        assert len(calls) == 1, f"{name}: {len(calls)} K7 calls"
+        inv, cb = calls[0][4], calls[0][5]
+        H, W = tid.shape
+
+        def k7():
+            return resolve.resolve(*calls[0])
+
+        assert torch.equal(
+            k7(), torch.cat([want[n] for n in fr._G_CLEAR], dim=-1)), name
+        ms = cuda_ms(k7, 2 * DECOMP_REPS)
+        dev_ms = device_ms(k7, 2 * DECOMP_REPS, "resolve_kernel")
+        plain_ms = cuda_ms(lambda: fr.resolve_gbuffer_plain(*args), 5)
+        eager_ms = cuda_ms(lambda: fr.resolve_gbuffer(*args), 2 * DECOMP_REPS)
+
+        # the bound: tid, the tile table and the G-buffer, the records of
+        # the triangles the resolved tiles show; the pool rows (mostly L2
+        # hits) are left out
+        tiles, _, _ = fr._tiles(tid, fr.SHADE_TILE_H, fr.SHADE_TILE_W, -1)
+        tiles = tiles[..., 0]
+        shown = tiles[(inv < cb)[:, None] & (tiles >= 0)]
+        covered = int(shown.numel())
+        n_tris = int(torch.unique(shown).numel())
+        nbytes = (tid.numel() * 4 + inv.numel() * 8
+                  + H * W * resolve.CHANNELS * 4
+                  + n_tris * resolve.RECORD_FLOATS * 4)
+        keys, note = bound(nbytes, covered * K7_OPS_PER_PIXEL)
+
+        # frames through Renderer.render: one K7 launch per frame
+        frames = 5
+        resolve.reset_launches()
+        for i in range(frames + 1):
+            r.render(i / 60.0)
+        torch.cuda.synchronize()
+        per_replay = r.compiled_frame.launches[2]
+        assert per_replay == 1 and resolve.LAUNCHES == frames + 2, \
+            (per_replay, resolve.LAUNCHES)
+        launches[f"p30_{name}"] = {"resolve": resolve.LAUNCHES}
+        entries.append(dict(
+            name=f"K7 resolve {name} {W}x{H}", variant="resolve",
+            runs=[f"p30_{name}"], kernel_ms=ms, device_ms=dev_ms,
+            plain_ms=plain_ms, stage_eager_ms=eager_ms, **keys,
+            device_share_of_bound=keys["bound_ms"] / dev_ms,
+            covered_pixels=covered, triangles=n_tris, bytes=nbytes,
+            launches_per_replay=per_replay))
+        phase(f"[30] K7 {name} {W}x{H}, {cb} of {inv.shape[0]} tiles "
+              f"resolved, {covered} covered pixels of {n_tris} triangles: "
+              f"every plane torch.equal to resolve_gbuffer_plain; kernel "
+              f"{ms:.4f} ms, device {dev_ms:.4f} ms ({note}: "
+              f"{100.0 * keys['bound_ms'] / dev_ms:.1f}%), plain version "
+              f"{plain_ms:.3f} ms, the whole stage run eagerly "
+              f"{eager_ms:.4f} ms; 1 + "
+              f"{frames} frames: {resolve.LAUNCHES} K7 launches, "
+              f"{per_replay} per replay")
+        r.close()
+        del r
+    return entries
 
 
 def band_launches(name, variant, n, tris, W, H, cap, xrange, full):
@@ -1924,23 +2034,29 @@ def stage_device_ms(scene, consts, cfg, reps=3):
     return out
 
 
+def capture_calls(module, name, fn):
+    """fn() with module.<name> recording the arguments of each call: the
+    kernel inputs the frame builds. Returns (fn's result, the calls)."""
+    calls = []
+    real = getattr(module, name)
+
+    def recording(*args):
+        calls.append(args)
+        return real(*args)
+
+    setattr(module, name, recording)
+    try:
+        return fn(), calls
+    finally:
+        setattr(module, name, real)
+
+
 def capture_soft_pcf(fn):
     """fn() with ops.pcf.soft_pcf recording its (qmap, params, radius):
     the K6 inputs the frame builds. Returns (fn's result, the calls)."""
     from crychic_renderer_tpu_torch.ops import pcf
 
-    calls = []
-    real = pcf.soft_pcf
-
-    def recording(qmap, params, radius):
-        calls.append((qmap, params, radius))
-        return real(qmap, params, radius)
-
-    pcf.soft_pcf = recording
-    try:
-        return fn(), calls
-    finally:
-        pcf.soft_pcf = real
+    return capture_calls(pcf, "soft_pcf", fn)
 
 
 def no_sync_passes(r, consts):
@@ -2533,7 +2649,7 @@ def band_graph_runs(r, consts, band_cfg, dev, frame_ms, launches, p22,
                 total[key] += out["launches"][key]
             if compiled:
                 assert out["graph"]["launches"] == (
-                    {"band_ids": 1, "band_depth": 1}, want["pcf"] // n), \
+                    {"band_ids": 1, "band_depth": 1}, want["pcf"] // n, 1), \
                     (rank, k, out["graph"]["launches"])
     launches["p25_gloo"] = total
 

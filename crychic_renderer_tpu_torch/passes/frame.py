@@ -29,11 +29,12 @@ settings, single-mip pool, cubemap sky, debug views). With
 ``ops.raster``; with it False the frame takes the JAX package's pure-XLA
 path, the binned tensor raster of ``ops.rasterizer`` on 32-row tiles
 truncated at ``bin_cap``, per cascade for the shadow maps. The soft PCF
-goes through ``ops.pcf`` (CUDA kernels on the card); the rest is tensor
-code. A draw without static corner tables (``strip_draw_statics``, or a
-scene built without ``attach_draw_statics``) renders through the
-per-vertex stage (``vertex_stage``, ``build_tri_attrs``) with the same
-records. With
+goes through ``ops.pcf`` and the G-buffer resolve through ``ops.resolve``
+(CUDA kernels on the card, their plain PyTorch versions on the CPU); the
+rest is tensor code. A draw without static corner tables
+(``strip_draw_statics``, or a scene built without
+``attach_draw_statics``) renders through the per-vertex stage
+(``vertex_stage``, ``build_tri_attrs``) with the same records. With
 ``cfg.shade_tile_capacity`` and ``cfg.ssao_tile_capacity`` set (the
 Renderer sizes both) the resolve, the SSAO occlusion and the cascade PCF
 factor are tile-compacted as in the JAX package: their per-pixel work
@@ -53,7 +54,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import RenderConfig
-from ..ops import clipping, raster, sampling, shading, shadows
+from ..ops import clipping, raster, resolve, sampling, shading, shadows
 from ..ops import rasterizer as rz
 from ..ops import ssao as ssao_ops
 from ..ops.consts import device_constant
@@ -581,18 +582,24 @@ def _mat_select(table: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _build_resolve_records(tris: rz.ScreenTris, tri_attr: torch.Tensor):
+def _build_resolve_records(tris: rz.ScreenTris, tri_attr: torch.Tensor,
+                           width: int = 43):
     """The per-TRIANGLE resolve record table (T, 43): screen xy + 1/w + 3
-    vertices' attrs + material in ONE row, so a pixel pays one gather."""
+    vertices' attrs + material in ONE row, so a pixel pays one gather.
+    A larger width pads each row with zeros (K7 reads rows of
+    ops.resolve.RECORD_FLOATS as float4)."""
     a = tri_attr[:, :, 4:]  # (T, 3, 12): posW3 nrm3 tan3 uv2 mat1
-    return torch.cat([
+    cols = [
         tris.xy.reshape(-1, 6), tris.inv_w,             # 0:9
         a[:, 0, 0:3], a[:, 1, 0:3], a[:, 2, 0:3],       # 9:18 posW
         a[:, 0, 3:6], a[:, 1, 3:6], a[:, 2, 3:6],       # 18:27 nrm
         a[:, 0, 6:9], a[:, 1, 6:9], a[:, 2, 6:9],       # 27:36 tan
         a[:, 0, 9:11], a[:, 1, 9:11], a[:, 2, 9:11],    # 36:42 uv
         a[:, 0, 11:12],                                 # 42 material
-    ], dim=-1)
+    ]
+    if width > 43:
+        cols.append(torch.zeros_like(a[:, 0, :1]).expand(-1, width - 43))
+    return torch.cat(cols, dim=-1)
 
 
 def _resolve_core(scene: DeviceScene, consts: FrameConstants,
@@ -848,7 +855,50 @@ def resolve_gbuffer(scene: DeviceScene, consts: FrameConstants,
     evaluated there, so band pixels equal the full frame's), and
     ``out_rows`` trims the halo row the band carries below itself off
     every output. The uv derivatives are per-primitive, so the halo row
-    changes no pixel."""
+    changes no pixel.
+
+    CUDA tensors go through the kernel K7 (ops/resolve.py), which writes
+    the same G-buffer bit for bit; the planes are then views into its
+    (rows, W, 16) buffer. CPU tensors take resolve_gbuffer_plain."""
+    if not tid.is_cuda:
+        return resolve_gbuffer_plain(scene, consts, cfg, tris, depth, tid,
+                                     tri_attr, row_offset, out_rows, stats,
+                                     occupancy)
+    tid = tid.contiguous()  # the pure-tensor raster's is a cropped view
+    H, W = tid.shape
+    rows = H if out_rows is None else out_rows
+    rec = _build_resolve_records(tris, tri_attr, resolve.RECORD_FLOATS)
+    inv, capacity = None, 0
+    if cfg.shade_tile_capacity:
+        tiles, _, _ = _tiles(tid, SHADE_TILE_H, SHADE_TILE_W, -1)
+        _, inv, over, needed = _compact((tiles[..., 0] >= 0).any(dim=1),
+                                        cfg.shade_tile_capacity)
+        capacity = min(int(cfg.shade_tile_capacity), inv.shape[0])
+        if stats is not None:
+            stats["shade_tiles_overflowed"] = over
+        if occupancy is not None:
+            occupancy["shade_tiles"] = needed
+    out = resolve.resolve(
+        rec, tid, rows, row_offset, inv, capacity, scene.pair_data,
+        scene.n_big_pairs, scene.mat_albedo, scene.mat_roughness,
+        scene.mat_metalness, scene.mat_pair, consts.view, cfg.anisotropy,
+        cfg.aniso_probes)
+    g, o = {}, 0
+    for n, clear in _G_CLEAR.items():
+        g[n] = out[..., o:o + len(clear)]
+        o += len(clear)
+    g["valid"] = tid[:rows] >= 0
+    return g
+
+
+def resolve_gbuffer_plain(scene: DeviceScene, consts: FrameConstants,
+                          cfg: RenderConfig, tris: rz.ScreenTris,
+                          depth: torch.Tensor, tid: torch.Tensor,
+                          tri_attr: torch.Tensor, row_offset: int = 0,
+                          out_rows: int = None, stats: dict = None,
+                          occupancy: dict = None):
+    """resolve_gbuffer's plain version (PyTorch ops on any device): the
+    CPU's path, and what the card tests hold K7 against."""
     H, W = depth.shape
     dev = depth.device
     rec = _build_resolve_records(tris, tri_attr)

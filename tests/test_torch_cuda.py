@@ -59,7 +59,7 @@ import numpy as np
 import pytest
 import torch
 
-from crychic_renderer_tpu_torch.ops import pcf, raster
+from crychic_renderer_tpu_torch.ops import pcf, raster, resolve
 from crychic_renderer_tpu_torch.ops import rasterizer as rz
 from torch_threads import cap_torch_threads
 
@@ -804,17 +804,21 @@ def test_replay_launch_tally(cuda):
     r = Renderer(scene, cfg, lights=lights, device=cuda)
     raster.reset_launches()
     pcf.reset_launches()
+    resolve.reset_launches()
     r.render(0.0)
     torch.cuda.synchronize()
     assert (raster.LAUNCHES_BY_VARIANT["ids"],
-            raster.LAUNCHES_BY_VARIANT["depth"], pcf.LAUNCHES) == (2, 2, 2)
-    assert r.compiled_frame.launches == ({"ids": 1, "depth": 1}, 1)
+            raster.LAUNCHES_BY_VARIANT["depth"], pcf.LAUNCHES,
+            resolve.LAUNCHES) == (2, 2, 2, 2)
+    assert r.compiled_frame.launches == ({"ids": 1, "depth": 1}, 1, 1)
     raster.reset_launches()
     pcf.reset_launches()
+    resolve.reset_launches()
     for i in range(3):
         r.render(i / 60.0)
     torch.cuda.synchronize()
     assert raster.LAUNCHES == 6 and pcf.LAUNCHES == 3
+    assert resolve.LAUNCHES == 3
     assert raster.LAUNCHES_BY_VARIANT["ids"] == 3
     r.check_overflow()
     pool = r.compiled_frame.pool_bytes
@@ -928,7 +932,7 @@ def test_compiled_band_frame_gloo_replay_equals_eager(cuda):
             assert np.array_equal(graph["img"], eager["img"])
             assert graph["graph"]["graphs"] == eager["gathers"] + 1
             per = {"band_ids": 1, "band_depth": 1}
-            assert graph["graph"]["launches"] == (per, 1 if k else 0)
+            assert graph["graph"]["launches"] == (per, 1 if k else 0, 1)
             n = graph["frames"] + 1
             assert graph["launches"]["band_ids"] == n
             assert graph["launches"]["pcf"] == (n if k else 0)
