@@ -198,6 +198,14 @@ TRACE_COUNTS = {"main_pairs": "pair_capacity",
                 "shadow_pairs": "shadow_pair_capacity",
                 "shade_tiles": "shade_tile_capacity",
                 "ssao_tiles": "ssao_tile_capacity"}
+# the alpha layer's counts, made by frames with the layer: the widest
+# light-space extent of the layer over the cascades in texels (its
+# capacity the punch window, fr.alpha_window), and per peel of the main
+# view the pixels it found a fragment in that stay unresolved after it
+# (render_frame's "alpha_unresolved"), for the first TRACE_PEELS peels
+TRACE_PEELS = 8
+ALPHA_COUNTS = ("alpha_window",) + tuple(f"alpha_unresolved.{p}"
+                                         for p in range(TRACE_PEELS))
 SPAN_PREFIX = "crychic.render."  # the host parts' profiler ranges
 # the marks' ring: column 0 the frame, 1 the start mark, 2 + k the end
 # mark of fr.FRAME_STAGES[k] (csrc/frame_trace.cu)
@@ -215,9 +223,9 @@ class FrameRow:
     """One traced frame. host_ns: perf_counter_ns at render()'s start and
     at the end of each of HOST_PARTS; stage_ms: the device ms of each
     stage the frame ran, between its mark and the one before, in frame
-    order (host ms on the CPU); counts: TRACE_COUNTS' counts the frame
-    made. A frame whose marks the ring no longer holds has no stages
-    and no counts."""
+    order (host ms on the CPU); counts: TRACE_COUNTS' and ALPHA_COUNTS'
+    counts the frame made. A frame whose marks the ring no longer holds
+    has no stages and no counts."""
     frame: int
     host_ns: tuple
     stage_ms: dict
@@ -262,10 +270,10 @@ class FrameTrace:
             return torch.zeros(shape, dtype=torch.int64, device=self.device)
 
         self.marks = zeros(R, _MARK_COLS)
-        self.counts = zeros(R, len(TRACE_COUNTS))
+        self.counts = zeros(R, len(TRACE_COUNTS) + len(ALPHA_COUNTS))
         self.counter = zeros(1)  # frames the device has started
         self.row = zeros(1)  # the ring row of the frame in progress
-        self._absent = torch.full((1,), -1, dtype=torch.int64,
+        self._absent = torch.full((TRACE_PEELS,), -1, dtype=torch.int64,
                                   device=self.device)
         self.host = np.zeros((R, 1 + len(HOST_PARTS)), np.int64)
         self.frames = 0  # render() calls traced: the next frame's index
@@ -317,9 +325,15 @@ class FrameTrace:
         set; -1 for a count the frame does not make) into its row."""
         if not self._recording():
             return
+        one = self._absent[:1]
+        peels = stats.get("alpha_unresolved")
+        peels = (self._absent if peels is None else torch.cat(
+            [peels[:TRACE_PEELS].to(torch.int64),
+             self._absent[peels.shape[0]:]]))
         vals = torch.cat([stats[k].to(torch.int64).reshape(1)
-                          if k in stats else self._absent
-                          for k in TRACE_COUNTS])
+                          if k in stats else one
+                          for k in (*TRACE_COUNTS, ALPHA_COUNTS[0])]
+                         + [peels])
         self.counts.index_copy_(0, self.row, vals[None])
 
     # -- host side --------------------------------------------------------
@@ -368,8 +382,8 @@ class FrameTrace:
                     if end:
                         stage_ms[name] = float(end - t) / 1e6
                         t = end
-                made = {k: int(v) for k, v in zip(TRACE_COUNTS, counts[r])
-                        if v >= 0}
+                made = {k: int(v) for k, v in zip(
+                    (*TRACE_COUNTS, *ALPHA_COUNTS), counts[r]) if v >= 0}
             out.append(FrameRow(f, tuple(int(v) for v in self.host[r]),
                                 stage_ms, made))
         return out
@@ -378,7 +392,9 @@ class FrameTrace:
 def trace_summary(rows: list, cfg) -> dict:
     """The frames' means and medians: host_ms, the mean ms of each host
     part; replay_ms, the median ms of each stage; occupancy, 100 x the
-    median of count / capacity (cfg's) of each count the frames made."""
+    median of count / capacity (cfg's) of each count the frames made,
+    alpha_window's over the punch window; with the alpha layer,
+    alpha_unresolved, the median count of each peel."""
     def median(values):
         return statistics.median(values) if values else None
 
@@ -390,12 +406,20 @@ def trace_summary(rows: list, cfg) -> dict:
         if c:
             occ[k] = median([100.0 * r.counts[k] / c for r in rows
                              if k in r.counts])
-    return {
+    occ["alpha_window"] = median([
+        100.0 * r.counts["alpha_window"] / fr.alpha_window(cfg)
+        for r in rows if "alpha_window" in r.counts])
+    peels = [median([r.counts[k] for r in rows if k in r.counts])
+             for k in ALPHA_COUNTS[1:]]
+    out = {
         "frames": len(rows),
         "host_ms": {p: statistics.fmean(r.host_ms[p] for r in rows)
                     if rows else None for p in HOST_PARTS},
         "replay_ms": {k: v for k, v in replay.items() if v is not None},
         "occupancy": {k: v for k, v in occ.items() if v is not None}}
+    if peels[0] is not None:
+        out["alpha_unresolved"] = [v for v in peels if v is not None]
+    return out
 
 
 def main(argv=None):

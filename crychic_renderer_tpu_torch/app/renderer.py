@@ -283,6 +283,10 @@ _OVERFLOWS = {
                            "a tile were dropped",
     "shadow_bin_overflowed": "shadow tile overflow: triangles past "
                              "shadow_bin_cap in a tile were dropped",
+    "alpha_window_overflowed": "alpha shadow window overflow: the alpha "
+                               "layer's light-space extent in a cascade "
+                               "passed alpha_shadow_window; its shadow "
+                               "holes past the window were lost",
 }
 
 
@@ -535,9 +539,11 @@ class Renderer:
 
     def check_overflow(self):
         """Raise if any frame since the last call outran a sized capacity:
-        dropped raster pairs, or had more tiles to shade than a compacted
-        pass's slots. This is the one place that waits for the device;
-        render() itself never does."""
+        dropped raster pairs, had more tiles to shade than a compacted
+        pass's slots, or had an alpha layer wider in light space than the
+        shadow punch's window (cfg.alpha_shadow_window, which the
+        Renderer does not size). This is the one place that waits for the
+        device; render() itself never does."""
         flags = torch.stack(list(self._overflow.values())).tolist()
         for v in self._overflow.values():
             v.zero_()
@@ -550,7 +556,8 @@ class Renderer:
                 f"{cfg.shadow_pair_capacity}, shade_tile_capacity "
                 f"{cfg.shade_tile_capacity}, ssao_tile_capacity "
                 f"{cfg.ssao_tile_capacity}, bin_cap {cfg.bin_cap}, "
-                f"shadow_bin_cap {cfg.shadow_bin_cap})")
+                f"shadow_bin_cap {cfg.shadow_bin_cap}, alpha_shadow_window "
+                f"{cfg.alpha_shadow_window})")
 
     def _default_camera(self):
         cam = Camera()

@@ -1214,7 +1214,7 @@ def alpha_view_tris(scene: DeviceScene, consts: FrameConstants,
 
 
 def _alpha_peel(tris: rz.ScreenTris, uv_tri, mat_tri, scene: DeviceScene,
-                px, py, n_peels: int, clip_thr: float):
+                px, py, n_peels: int, clip_thr: float, unresolved=None):
     """Dense small-N rasterization of alpha-tested triangles with depth
     peeling: per pixel, the nearest fragment whose sampled alpha passes
     clip(a - thr).
@@ -1235,6 +1235,10 @@ def _alpha_peel(tris: rz.ScreenTris, uv_tri, mat_tri, scene: DeviceScene,
 
     tris: (T,) screen triangles; uv_tri: (T, 3, 2); mat_tri: (T,).
     px/py: pixel-center coordinate grids (broadcastable to the output).
+    unresolved (optional list) receives, after each peel, the pixels
+    that peel found a fragment in and that are still unresolved (its
+    fragment failed the clip), 0-d int64: a pixel the last peel counts
+    may hold a passing fragment behind it that is dropped.
     Returns (z, idx): idx -1 where no passing fragment."""
     A, B, C, area2, top_left = rz._edge_coeffs(tris.xy)
     inv_a2 = 1.0 / torch.where(area2 == 0, torch.ones_like(area2), area2)
@@ -1312,27 +1316,36 @@ def _alpha_peel(tris: rz.ScreenTris, uv_tri, mat_tri, scene: DeviceScene,
         res_id = torch.where(take, ib, res_id)
         resolved = resolved | take
         zfloor = torch.where(ib >= 0, zb, inf)
+        if unresolved is not None:
+            unresolved.append(((ib >= 0) & ~resolved).sum())
     return res_z, res_id
 
 
 def alpha_merge_main(scene: DeviceScene, consts: FrameConstants,
                      cfg: RenderConfig, depth, tid, tris, tri_attr,
-                     row_offset: int = 0):
+                     row_offset: int = 0, occupancy: dict = None):
     """Rasterize the AlphaTested layer and merge it into the opaque
     visibility buffer; the layer's triangle records are APPENDED to the
     screen-triangle and attribute tables, so resolve_gbuffer shades its
     winners through the same path (tid indexes the concatenated table).
 
     row_offset: first GLOBAL pixel row of `depth` (band rendering: the
-    peel evaluates at global rows, so bands equal the full frame)."""
+    peel evaluates at global rows, so bands equal the full frame).
+    occupancy (optional dict) receives "alpha_unresolved", (alpha_peels,)
+    int64: per peel, the pixels it found a fragment in that are still
+    unresolved after it (_alpha_peel's unresolved)."""
     H, W = depth.shape
     dev = depth.device
     a_tris, a_attr = alpha_view_tris(scene, consts, cfg)
     px = (torch.arange(W, dtype=torch.float32, device=dev) + 0.5)[None, :]
     py = (float(row_offset) + torch.arange(H, dtype=torch.float32,
                                            device=dev) + 0.5)[:, None]
+    unresolved = None if occupancy is None else []
     az, aid = _alpha_peel(a_tris, a_attr[:, :, 13:15], a_attr[:, 0, 15],
-                          scene, px, py, cfg.alpha_peels, cfg.alpha_clip)
+                          scene, px, py, cfg.alpha_peels, cfg.alpha_clip,
+                          unresolved)
+    if occupancy is not None:
+        occupancy["alpha_unresolved"] = torch.stack(unresolved)
     t_base = tris.xy.shape[0]
     win = (aid >= 0) & (az < depth)
     depth = torch.where(win, az, depth)
@@ -1357,35 +1370,78 @@ def alpha_shadow_geom(scene: DeviceScene, consts: FrameConstants):
             mat[tri_idx[:, 0]])
 
 
-def alpha_punch_window(scene: DeviceScene, cfg: RenderConfig, tri_world,
-                       uv_tri, mat_tri, vp):
-    """One cascade's punch data: depth-peel the alpha triangles inside a
-    statically sized window placed over the layer's light-space bounding
-    box. Returns (az (Wn, Wn), aid (Wn, Wn) int32, oy, ox) with the
-    window's origin as 0-d int64 tensors (no host read). The shadow map
-    is not read, so this can run on another rank than the merge
-    (parallel.sharded distributes the cascades)."""
+def alpha_window(cfg: RenderConfig) -> int:
+    """The punch window's side in texels: cfg.alpha_shadow_window, at
+    most the map."""
+    return min(cfg.alpha_shadow_window, cfg.shadow_map_size)
+
+
+def _alpha_light_tris(cfg: RenderConfig, tri_world, vp) -> rz.ScreenTris:
+    """The alpha triangles in one cascade's S x S map, with the shadow
+    PSO's depth bias."""
     S = cfg.shadow_map_size
-    Wn = min(cfg.alpha_shadow_window, S)
-    t = rz.setup_tri_verts(shading.rowmat(tri_world, vp), None, S, S)
-    t = _shadow_bias(t)
-    vx = torch.where(t.valid[:, None, None], t.xy,
-                     torch.full_like(t.xy, float("inf")))
+    return _shadow_bias(rz.setup_tri_verts(shading.rowmat(tri_world, vp),
+                                           None, S, S))
 
-    def origin(lo):
-        # floor(min) - 1 clamped to the map in float: equal to the JAX
-        # package's int32 clip for any finite min, and defined when no
-        # triangle is valid (min = inf; every id is -1 then)
-        return torch.clamp(torch.floor(lo) - 1.0, 0.0, float(S - Wn)).long()
 
-    ox = origin(vx[..., 0].min())
-    oy = origin(vx[..., 1].min())
+def _alpha_light_corner(t: rz.ScreenTris, high: bool = False):
+    """(2,): the low (or high) corner of the map-space bounding box of
+    the valid triangles' vertices; +inf (-inf) where none is valid."""
+    fill = torch.full_like(t.xy, float("-inf") if high else float("inf"))
+    v = torch.where(t.valid[:, None, None], t.xy, fill)
+    return v.amax((0, 1)) if high else v.amin((0, 1))
+
+
+def _window_start(lo, S: int):
+    """The first texel row or column a punch window may start at: floor
+    of the box's low corner less one, clamped to the map (in float: the
+    JAX package's int32 clip for any finite corner, and defined for the
+    +inf of an empty box)."""
+    return torch.clamp(torch.floor(lo) - 1.0, 0.0, float(S))
+
+
+def _window_extent(t: rz.ScreenTris, S: int):
+    """The side of the smallest punch window that holds every texel the
+    valid triangles can cover, 0-d int64: from the window's first texel
+    (_window_start) to the box's high corner rounded up, clamped to the
+    map, the larger of the two axes (0 with no valid triangle). A window
+    of at least this side clips nothing of the layer; a smaller one
+    drops the layer's fragments past its far edge."""
+    last = torch.clamp(torch.ceil(_alpha_light_corner(t, high=True)), 0.0,
+                       float(S))
+    first = _window_start(_alpha_light_corner(t), S)
+    return torch.clamp(last - first, min=0.0).amax().long()
+
+
+def _punch_window(scene: DeviceScene, cfg: RenderConfig, t, uv_tri,
+                  mat_tri):
+    """alpha_punch_window on the cascade's set-up triangles."""
+    S = cfg.shadow_map_size
+    Wn = alpha_window(cfg)
+    lo = _alpha_light_corner(t)
+    oy, ox = (torch.clamp(_window_start(lo[k], S), max=float(S - Wn)).long()
+              for k in (1, 0))
     ramp = torch.arange(Wn, dtype=torch.float32, device=t.xy.device)
     px = (ox.to(torch.float32) + ramp + 0.5)[None, :]
     py = (oy.to(torch.float32) + ramp + 0.5)[:, None]
     az, aid = _alpha_peel(t, uv_tri, mat_tri, scene, px, py,
                           cfg.alpha_peels, cfg.alpha_clip)
     return az, aid, oy, ox
+
+
+def alpha_punch_window(scene: DeviceScene, cfg: RenderConfig, tri_world,
+                       uv_tri, mat_tri, vp):
+    """One cascade's punch data: depth-peel the alpha triangles inside a
+    statically sized window (alpha_window(cfg) texels a side) placed at
+    the layer's light-space bounding box's low corner. Returns (az
+    (Wn, Wn), aid (Wn, Wn) int32, oy, ox) with the window's origin as 0-d
+    int64 tensors (no host read). Where the box is wider than the window
+    (_window_extent), the layer's fragments past it are not punched:
+    alpha_merge_shadow flags that. The shadow map is not read, so this
+    can run on another rank than the merge (parallel.sharded distributes
+    the cascades)."""
+    return _punch_window(scene, cfg, _alpha_light_tris(cfg, tri_world, vp),
+                         uv_tri, mat_tri)
 
 
 def alpha_apply_punch(shadow_map, az, aid, oy, ox):
@@ -1402,17 +1458,33 @@ def alpha_apply_punch(shadow_map, az, aid, oy, ox):
 
 
 def alpha_merge_shadow(scene: DeviceScene, consts: FrameConstants,
-                       cfg: RenderConfig, shadow_maps):
+                       cfg: RenderConfig, shadow_maps, stats: dict = None,
+                       occupancy: dict = None):
     """Punch the AlphaTested casters into the cascade shadow maps
     (Shadows.hlsl ALPHA_TEST PS, :49-65): per cascade, depth-peel the
     alpha triangles inside a statically sized window over the layer's
-    light-space bounding box and min-merge the passing fragments."""
+    light-space bounding box and min-merge the passing fragments.
+
+    stats (optional dict) receives "alpha_window_overflowed", a 0-d bool
+    tensor: the layer's box in some cascade is wider than the window, so
+    shadow holes past it were lost; occupancy (optional dict)
+    "alpha_window", the widest _window_extent over the cascades (0-d
+    int64), what alpha_window(cfg) bounds."""
     tri_world, uv_tri, mat_tri = alpha_shadow_geom(scene, consts)
-    return torch.stack([
-        alpha_apply_punch(shadow_maps[c], *alpha_punch_window(
-            scene, cfg, tri_world, uv_tri, mat_tri,
-            consts.cascade_view_projs[c]))
-        for c in range(shadow_maps.shape[0])])
+    maps, extents = [], []
+    for c in range(shadow_maps.shape[0]):
+        t = _alpha_light_tris(cfg, tri_world, consts.cascade_view_projs[c])
+        maps.append(alpha_apply_punch(
+            shadow_maps[c], *_punch_window(scene, cfg, t, uv_tri, mat_tri)))
+        if stats is not None or occupancy is not None:
+            extents.append(_window_extent(t, cfg.shadow_map_size))
+    if extents:
+        widest = torch.stack(extents).amax()
+        if stats is not None:
+            stats["alpha_window_overflowed"] = widest > alpha_window(cfg)
+        if occupancy is not None:
+            occupancy["alpha_window"] = widest
+    return torch.stack(maps)
 
 
 def alpha_enabled(scene: DeviceScene, cfg: RenderConfig) -> bool:
@@ -1484,8 +1556,12 @@ def capacity_requirements(scene: DeviceScene, consts: FrameConstants,
     layer's triangle boxes touch (the alpha layer sets tid >= 0 where no
     opaque box reaches: a fence over the sky); ssao_tiles the (8k, 32k)
     full-res tiles, the SSAO tiles, that the same boxes touch, grown by
-    _SSAO_DILATE_TILES, as the JAX package counts them. Returns 0-d int
-    tensors."""
+    _SSAO_DILATE_TILES, as the JAX package counts them. With the alpha
+    layer and shadows on, alpha_window is the widest light-space extent
+    of the layer over the cascades (_window_extent), which
+    alpha_window(cfg) must reach, else the punch drops the layer's
+    shadow holes past the window (the frame flags it; the port's
+    capacities do not grow it). Returns 0-d int tensors."""
     tris, _ = main_view_tris(scene, consts, cfg)
     th = raster.TILE_H if cfg.use_pallas else rz.XLA_TILE_H
     main_pairs, main_max_tile = _pairs_and_max_tile(tris, cfg.width,
@@ -1524,10 +1600,15 @@ def capacity_requirements(scene: DeviceScene, consts: FrameConstants,
                 pairs, top = _pairs_and_max_tile(t, S, S, rz.XLA_TILE_H)
                 shadow_pairs = shadow_pairs + pairs
                 shadow_max_tile = torch.maximum(shadow_max_tile, top)
-    return dict(main_pairs=main_pairs, shadow_pairs=shadow_pairs,
-                main_max_tile=main_max_tile,
-                shadow_max_tile=shadow_max_tile,
-                shade_tiles=shade_tiles, ssao_tiles=ssao_tiles)
+    req = dict(main_pairs=main_pairs, shadow_pairs=shadow_pairs,
+               main_max_tile=main_max_tile, shadow_max_tile=shadow_max_tile,
+               shade_tiles=shade_tiles, ssao_tiles=ssao_tiles)
+    if cfg.shadows_enabled and alpha_enabled(scene, cfg):
+        tri_world = shadow_tri_world(scene.alpha, consts.alpha_visibility)
+        req["alpha_window"] = torch.stack([_window_extent(
+            _alpha_light_tris(cfg, tri_world, consts.cascade_view_projs[c]),
+            cfg.shadow_map_size) for c in range(cfg.num_cascades)]).amax()
+    return req
 
 
 # ---------------------------------------------------------------------------
@@ -1554,7 +1635,8 @@ def render_frame(scene: DeviceScene, consts: FrameConstants,
     overflow flags as 0-d bool tensors ("main_overflowed",
     "shadow_overflowed", on the pure-tensor path "main_bin_overflowed"
     and "shadow_bin_overflowed", "shade_tiles_overflowed",
-    "ssao_tiles_overflowed"), read by nobody here, so the frame never
+    "ssao_tiles_overflowed", with the alpha layer's shadow punch
+    "alpha_window_overflowed"), read by nobody here, so the frame never
     waits on the device.
 
     mark (optional), the frame trace's hook (app/profiler.FrameTrace
@@ -1570,8 +1652,9 @@ def render_frame(scene: DeviceScene, consts: FrameConstants,
     bound, under capacity_requirements' keys, as device tensors:
     "main_pairs" and "shadow_pairs" (the pairs binned), and with the
     compacted passes "shade_tiles" and "ssao_tiles" (the tiles they
-    evaluate). Without mark the frame is the same ops as with it, less
-    the marks and the counts' bookkeeping."""
+    evaluate); with the alpha layer "alpha_unresolved" (alpha_merge_main)
+    and "alpha_window" (alpha_merge_shadow). Without mark the frame is
+    the same ops as with it, less the marks and the counts' bookkeeping."""
     H, W = cfg.height, cfg.width
     dev = consts.view_proj.device
     stats = {} if stats is None else stats
@@ -1598,7 +1681,7 @@ def render_frame(scene: DeviceScene, consts: FrameConstants,
     alpha_on = alpha_enabled(scene, cfg)
     if alpha_on:
         depth, tid, tris, tri_attr = alpha_merge_main(
-            scene, consts, cfg, depth, tid, tris, tri_attr)
+            scene, consts, cfg, depth, tid, tris, tri_attr, occupancy=occ)
         if mark is not None:
             mark("alpha_merge_main")
 
@@ -1613,7 +1696,7 @@ def render_frame(scene: DeviceScene, consts: FrameConstants,
             mark("shadow_maps_x4")
         if alpha_on:
             shadow_maps = alpha_merge_shadow(scene, consts, cfg,
-                                             shadow_maps)
+                                             shadow_maps, stats, occ)
             if mark is not None:
                 mark("alpha_merge_shadow")
     else:

@@ -118,6 +118,39 @@ def test_fence_shadow_punch(fence):
     assert int((aid >= 0).sum()) < int((solid >= 0).sum())
 
 
+def test_punch_window_short_of_the_layer_is_flagged(fence):
+    """At fence_scene's own size (512^2 maps), a punch window one texel
+    short of the layer's widest light-space extent sets the frame's
+    alpha_window_overflowed flag and a window of the extent leaves it
+    clear; the flag reaches check_overflow, which names the window."""
+    scene, cfg, lights = tsb.fence_scene()
+    r = tren.Renderer(scene, cfg, lights=lights, device="cpu")
+    extent = r.capacity_requirements(0.0)["alpha_window"]
+    assert 0 < extent <= cfg.alpha_shadow_window < cfg.shadow_map_size
+    s, c = r.device_scene, r.frame_constants(0.0)
+    maps = torch.ones((cfg.num_cascades, cfg.shadow_map_size,
+                       cfg.shadow_map_size))
+    for window, flagged in ((extent - 1, True), (extent, False)):
+        stats, occ = {}, {}
+        fr.alpha_merge_shadow(s, c, dataclasses.replace(
+            r.cfg, alpha_shadow_window=window), maps, stats, occ)
+        assert bool(stats["alpha_window_overflowed"]) == flagged, window
+        assert int(occ["alpha_window"]) == extent
+    rt = fence["rt"]
+    small = rt.capacity_requirements(0.0)["alpha_window"]
+    saved = rt.cfg
+    try:
+        rt.cfg = dataclasses.replace(saved, alpha_shadow_window=small - 1)
+        rt.render(0.0)
+        with pytest.raises(RuntimeError, match="alpha_shadow_window"):
+            rt.check_overflow()
+        rt.cfg = dataclasses.replace(saved, alpha_shadow_window=small)
+        rt.render(0.0)
+        rt.check_overflow()
+    finally:
+        rt.cfg = saved
+
+
 def test_profile_frame_alpha_stages(fence):
     """profile_frame reports the alpha merge as its own stages, after the
     stages whose outputs they merge into; the chained stages give

@@ -120,9 +120,12 @@ def test_one_row_per_frame_in_stage_order(name):
         assert list(row.stage_ms) == want
         assert all(v >= 0.0 for v in row.stage_ms.values()), row.stage_ms
         assert all(v >= 0.0 for v in row.host_ms.values()), row.host_ms
-        # the fence's cfg turns SSAO off
-        assert set(row.counts) == set(profiler.TRACE_COUNTS) - (
-            {"ssao_tiles"} if name == "fence" else set())
+        # the fence's cfg turns SSAO off and adds the alpha layer's
+        # counts: its light-space extent and one count per peel
+        assert set(row.counts) == (set(profiler.TRACE_COUNTS) - (
+            {"ssao_tiles"} if name == "fence" else set())) | (
+            set(profiler.ALPHA_COUNTS[:1 + r.cfg.alpha_peels])
+            if name == "fence" else set())
 
 
 def _exact_tiles(r, consts):
