@@ -11,9 +11,9 @@ them: the raster kernel (csrc/raster.cu) of both raster launches and the
 soft PCF kernel (csrc/pcf.cu). Phases, each printed as it ends:
 
 1. the card's name and power limit (nvidia-smi);
-2. the kernels built from the checkout's sources (raster, soft PCF and
-   resolve libraries), one nvcc each, started together, and their build
-   times;
+2. the kernels built from the checkout's sources (raster, soft PCF,
+   resolve and alpha peel libraries), one nvcc each, started together,
+   and their build times;
 3. the Renderer at 1080p, with the capacities it sized (the atlas pair
    count is what the atlas binning expands; the tile capacities of the
    compacted passes beside their grids), and which of config 4's
@@ -295,6 +295,18 @@ soft PCF kernel (csrc/pcf.cu). Phases, each printed as it ends:
    the host's launch time) beside the bound; then 1 + 5
    frames through Renderer.render, one K7 launch per frame and one per
    replay of the graph (app/graphs.CompiledFrame.launches).
+31. the alpha layer's depth-peel kernel (K8, csrc/alpha_peel.cu) on the
+   benchmark's fence cell (c4fence-static-q3's scene, its synthetic
+   asset set written under build/, the reference pose) at 1920x1080: the
+   main view and the four cascades' 640^2 punch windows, each through K8
+   against depth_peel_plain (depth, ids and the per-peel unresolved
+   counts torch.equal); per view the kernel's ms a peel round (CUDA
+   events around 20 back-to-back wrapper calls, 2 launches a round) and
+   device ms (torch.profiler, the search and the test kernels apart)
+   beside the bound (K8_*_OPS below, the rounds' live and tested pixels
+   counted on these inputs) and the plain version's ms; then 1 + 5
+   frames through Renderer.render, 2 x alpha_peels launches per view or
+   window and per replay, and profile_frame's alpha stages.
 
 Renderer.render replays a CUDA graph: a Renderer's first render, and the
 first after its cfg is replaced, runs one eager frame before it captures
@@ -412,6 +424,23 @@ OLD_F32_OPS_S = 67e12
 # blend and the sums), 9 for the normalisation of the sums, 92 for the
 # material, the TBN transform and the view-space normal
 K7_OPS_PER_PIXEL = 3 * 39 + 79 + 26 + 2 * 364 + 9 + 92
+# K8's f32 operations, counted from csrc/alpha_peel.cu: the search's 26
+# per (pixel, triangle) its loop visits (three edges of 2 products, 2
+# sums and 2 compares, the depth plane's 2 products and 2 sums, 4
+# compares), 52 per pixel for the origin and the record's weights and uv;
+# the test's 75 per pixel it samples (the differences, the footprint and
+# its log2, the class lod, the addressing and the two alpha bilerps of a
+# dual row, the blend, the material and the clip)
+K8_SEARCH_OPS = 26
+K8_RECORD_OPS = 52
+K8_TEST_OPS = 75
+# K8's bytes per pixel and round: the search reads the floor and writes
+# (u, v, z, id); the test reads them and the result, writes the result
+# and the floor
+K8_BYTES_PER_PIXEL = 4 + 16 + 16 + 4 + 12
+# the benchmark's fence cell, whose scene, assets and pose phase 31 uses
+FENCE_CELL = "c4fence-static-q3"
+FENCE_SEED = 2 ** 31 + 21
 # K6's scalar path on config 4's 1080p receivers at S = 520 before the
 # window-ready map (every receiver: its 1,040-byte rows had no texture),
 # device ms on an NVIDIA H100 80GB HBM3 at 700.00 W, quoted in phase 19
@@ -496,7 +525,8 @@ def main():
         raise SystemExit("chip_smoke: no CUDA device; nothing was run")
     from crychic_renderer_tpu_torch.app.renderer import Renderer
     from crychic_renderer_tpu_torch.models.scenes_baseline import CONFIGS
-    from crychic_renderer_tpu_torch.ops import build, pcf, raster, resolve
+    from crychic_renderer_tpu_torch.ops import (alpha_peel, build, pcf,
+                                                raster, resolve)
     from crychic_renderer_tpu_torch.ops import rasterizer as rz
     from crychic_renderer_tpu_torch.ops import shading, shadows
     from crychic_renderer_tpu_torch.passes import frame as fr
@@ -514,7 +544,7 @@ def main():
     print(smi, flush=True)
 
     # 2. the kernels, built from the checkout, one nvcc each, in parallel
-    libs = (raster.LIBRARY, pcf.LIBRARY, resolve.LIBRARY)
+    libs = (raster.LIBRARY, pcf.LIBRARY, resolve.LIBRARY, alpha_peel.LIBRARY)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         for f in [pool.submit(lib.load, True) for lib in libs]:
@@ -834,6 +864,12 @@ def main():
     phase(f"[30] phase 30 took {t12 - t11:.1f} s; the script "
           f"{t12 - t_script:.1f} s, kernel builds included")
 
+    # 31: K8, the alpha layer's depth peel, against its plain version
+    kernels.extend(alpha_peel_runs(dev, launches, smi))
+    t13 = time.perf_counter()
+    phase(f"[31] phase 31 took {t13 - t12:.1f} s; the script "
+          f"{t13 - t_script:.1f} s, kernel builds included")
+
     kernels.sort(key=lambda k: k["name"])
     for k in kernels:
         variant = k.pop("variant")
@@ -930,6 +966,184 @@ def resolve_kernel_runs(dev, assets, launches, card):
         r.close()
         del r
     return entries
+
+
+def fence_cell_renderer(dev, root):
+    """A Renderer of the benchmark's fence cell (FENCE_CELL: its scene,
+    its full synthetic asset set written under root from FENCE_SEED, its
+    first pose), capacities sized at that pose."""
+    from benchmark.harness import sides, spec
+    from benchmark.harness import traffic as traffic_mod
+    from benchmark.scenes import synthetic_assets as sa
+    from crychic_renderer_tpu_torch.app.renderer import Renderer
+
+    bench = spec.benchmark()
+    workload = spec.workload(bench, FENCE_CELL)
+    config = spec.config(bench, workload["config"])
+    paths = sa.write_asset_set(root, sa.FULL, seed=FENCE_SEED)
+    port = sides.program()
+    scene, cfg, lights = sides.build(port, config, paths["models"])
+    tr = traffic_mod.from_spec(spec.traffic(workload["traffic"]),
+                               FENCE_SEED)
+    cam = traffic_mod.camera(port.Camera, tr, tr.pose(0),
+                             cfg.width / cfg.height)
+    r = Renderer(scene, cfg, camera=cam, lights=lights,
+                 asset_dir=paths["textures"],
+                 sky_cubemap_path=paths["sky_cube"], device=dev)
+    r.ensure_capacity(0.0)
+    return r
+
+
+def k8_device_ms(fn, reps, n_per_call):
+    """Mean device ms per call of fn(), which launches each of K8's
+    search and test kernels n_per_call times: (search, test) from
+    torch.profiler's records, each None where the profiler kept fewer
+    than half of them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = []
+    for name in ("search_kernel", "test_kernel"):
+        times = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and name in e.name]
+        out.append(sum(times) / len(times) * n_per_call / 1000.0
+                   if 2 * len(times) >= reps * n_per_call else None)
+    return tuple(out)
+
+
+def alpha_peel_runs(dev, launches, card):
+    """Phase 31 (see the module doc). Returns the kernels-line entries of
+    K8 on the fence cell's main view and its four punch windows."""
+    from crychic_renderer_tpu_torch.app import profiler
+    from crychic_renderer_tpu_torch.ops import alpha_peel
+    from crychic_renderer_tpu_torch.passes import frame as fr
+
+    phase(f"[31] card: {card}")
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "fence_cell_assets")
+    shutil.rmtree(root, ignore_errors=True)
+    r = fence_cell_renderer(dev, root)
+    s, cfg = r.device_scene, r.cfg
+    consts = r.frame_constants(0.0)
+    n_peels, thr = cfg.alpha_peels, cfg.alpha_clip
+    a_tris, a_attr = fr.alpha_view_tris(s, consts, cfg)
+    views = [("main view", a_tris, a_attr[:, :, 13:15], a_attr[:, 0, 15],
+              cfg.height, cfg.width, 0, 0)]
+    tw, uv, mat = fr.alpha_shadow_geom(s, consts)
+    Wn = fr.alpha_window(cfg)
+    for c in range(cfg.num_cascades):
+        t = fr._alpha_light_tris(cfg, tw, consts.cascade_view_projs[c])
+        _, _, oy, ox = fr._punch_window(s, cfg, t, uv, mat)
+        views.append((f"cascade {c} window", t, uv, mat, Wn, Wn, oy, ox))
+
+    entries = []
+    for name, t, uv_t, mat_t, rows, cols, oy, ox in views:
+        args = (s, t, uv_t, mat_t, rows, cols, oy, ox, n_peels, thr)
+        got = fr.depth_peel(*args, counted=True)
+        want = fr.depth_peel_plain(*args, counted=True)
+        for a, b, what in zip(got, want, ("z", "id", "unresolved")):
+            assert torch.equal(a, b), f"K8 {name}: {what} differs"
+        table = alpha_peel.peel_table(fr._peel_setup(t, uv_t, mat_t),
+                                      t.valid)
+
+        def k8():
+            return alpha_peel.peel(table, rows, cols, oy, ox, s.pair_data,
+                                   s.n_big_pairs, s.mat_albedo, s.mat_pair,
+                                   n_peels, thr)
+
+        assert torch.equal(k8()[1], want[1]), name
+        ms = cuda_ms(k8, 2 * DECOMP_REPS)
+        search_ms, test_ms = k8_device_ms(k8, 2 * DECOMP_REPS, n_peels)
+        plain_ms = cuda_ms(lambda: fr.depth_peel_plain(*args), 3)
+        stage_ms = cuda_ms(lambda: fr.depth_peel(*args), 2 * DECOMP_REPS)
+
+        # the work these inputs need: per round, the pixels whose floor
+        # lets the search loop run (every pixel in round 0, then those
+        # that found a fragment the round before), and the pixels the
+        # test samples (a fragment found, not yet resolved)
+        T = t.xy.shape[0]
+        pixels = rows * cols
+        live, tested = _k8_work(args)
+        ops = (sum(live) * T * K8_SEARCH_OPS
+               + n_peels * pixels * K8_RECORD_OPS
+               + sum(tested) * K8_TEST_OPS)
+        nbytes = (n_peels * pixels * K8_BYTES_PER_PIXEL
+                  + T * alpha_peel.TABLE_FLOATS * 4)
+        keys, note = bound(nbytes, ops)
+        dev_ms = (None if search_ms is None or test_ms is None
+                  else search_ms + test_ms)
+        share = None if dev_ms is None else keys["bound_ms"] / dev_ms
+        entries.append(dict(
+            name=f"K8 alpha peel {name} {cols}x{rows}", variant="alpha_peel",
+            runs=["p31_frames"], kernel_ms=ms, kernel_ms_per_round=ms / n_peels,
+            device_ms=dev_ms, search_device_ms=search_ms,
+            test_device_ms=test_ms, plain_ms=plain_ms, stage_eager_ms=stage_ms,
+            **keys, device_share_of_bound=share, triangles=T,
+            live_pixels=live, tested_pixels=tested, bytes=nbytes, ops=ops,
+            unresolved=[int(v) for v in want[2]]))
+        dev_note = ("not kept by the profiler" if dev_ms is None else
+                    f"{dev_ms:.4f} ms (search {search_ms:.4f}, test "
+                    f"{test_ms:.4f}; {100.0 * share:.1f}% of the bound)")
+        phase(f"[31] K8 {name} {cols}x{rows}, {T} triangle slots, "
+              f"{n_peels} peels: z, ids and unresolved "
+              f"{[int(v) for v in want[2]]} torch.equal to "
+              f"depth_peel_plain; live pixels per round {live}, tested "
+              f"{tested}; kernel {ms:.4f} ms ({ms / n_peels:.4f} a round), "
+              f"device {dev_note}, {note}; plain {plain_ms:.3f} ms; the "
+              f"peel with its set-up, eager {stage_ms:.4f} ms")
+
+    # frames through Renderer.render: 2 x alpha_peels launches per view
+    frames = 5
+    alpha_peel.reset_launches()
+    for i in range(frames + 1):
+        r.render(0.0)
+    torch.cuda.synchronize()
+    per_replay = r.compiled_frame.launches[3]
+    want_per = 2 * n_peels * (1 + cfg.num_cascades)
+    assert per_replay == want_per and \
+        alpha_peel.LAUNCHES == want_per * (frames + 2), \
+        (per_replay, alpha_peel.LAUNCHES)
+    launches["p31_frames"] = {"alpha_peel": alpha_peel.LAUNCHES}
+    report = profiler.profile_frame(r, reps=PROFILE_REPS)
+    phase(f"[31] 1 + {frames} frames: {alpha_peel.LAUNCHES} K8 launches, "
+          f"{per_replay} per replay; profile_frame: alpha_merge_main "
+          f"{report['alpha_merge_main']:.3f} ms, alpha_merge_shadow "
+          f"{report['alpha_merge_shadow']:.3f} ms, TOTAL_fused "
+          f"{report['TOTAL_fused']:.3f} ms")
+    for e in entries:
+        e["stage_ms"] = {k: report[k] for k in ("alpha_merge_main",
+                                                "alpha_merge_shadow")}
+    r.close()
+    del r
+    return entries
+
+
+def _k8_work(args):
+    """Per peel round of the peel depth_peel(*args) runs: (the pixels
+    whose search loop runs, the pixels the test samples). The floors do
+    not depend on the alpha test, so a peel that passes nothing (clip
+    threshold +inf) counts the pixels each round found a fragment in;
+    the pixels tested are those newly resolved plus those left
+    unresolved."""
+    from crychic_renderer_tpu_torch.passes import frame as fr
+
+    *head, n_peels, thr = args
+    rows, cols = head[4], head[5]
+    found = fr.depth_peel(*head, n_peels, float("inf"), counted=True)[2]
+    live = [rows * cols] + [int(v) for v in found[:-1]]
+    tested, resolved = [], 0
+    for k in range(1, n_peels + 1):
+        _, idx, n = fr.depth_peel(*head, k, thr, counted=True)
+        now = int((idx >= 0).sum())
+        tested.append(now - resolved + int(n[-1]))
+        resolved = now
+    return live, tested
 
 
 def band_launches(name, variant, n, tris, W, H, cap, xrange, full):
@@ -2649,7 +2863,8 @@ def band_graph_runs(r, consts, band_cfg, dev, frame_ms, launches, p22,
                 total[key] += out["launches"][key]
             if compiled:
                 assert out["graph"]["launches"] == (
-                    {"band_ids": 1, "band_depth": 1}, want["pcf"] // n, 1), \
+                    {"band_ids": 1, "band_depth": 1}, want["pcf"] // n, 1,
+                    0), \
                     (rank, k, out["graph"]["launches"])
     launches["p25_gloo"] = total
 

@@ -27,8 +27,8 @@ the eager frame.
 The kernel wrappers count a launch when they are called, so the counts
 the capture adds are taken back and added again on every replay
 (``ops/raster.add_launches``, ``ops/pcf.add_launches``,
-``ops/resolve.add_launches``): the counters count the kernels the card
-ran, the eager frame's included.
+``ops/resolve.add_launches``, ``ops/alpha_peel.add_launches``): the
+counters count the kernels the card ran, the eager frame's included.
 
 The graph's intermediate tensors live in its private memory pool
 (``pool_bytes``, measured as the device memory the capture reserved).
@@ -50,7 +50,7 @@ import time
 
 import torch
 
-from ..ops import pcf, raster, resolve
+from ..ops import alpha_peel, pcf, raster, resolve
 
 # Captures in this process. Each ran one eager frame first, whose kernel
 # launches the counters hold.
@@ -75,15 +75,17 @@ def _same_leaves(a: list, b: list) -> bool:
 
 
 def _tally():
-    return dict(raster.LAUNCHES_BY_VARIANT), pcf.LAUNCHES, resolve.LAUNCHES
+    return (dict(raster.LAUNCHES_BY_VARIANT), pcf.LAUNCHES, resolve.LAUNCHES,
+            alpha_peel.LAUNCHES)
 
 
 def add_launches(launches):
     """Count one replay of a capture's launches ((by variant, pcf,
-    resolve))."""
+    resolve, alpha peel))."""
     raster.add_launches(launches[0])
     pcf.add_launches(launches[1])
     resolve.add_launches(launches[2])
+    alpha_peel.add_launches(launches[3])
 
 
 class Pieces:
@@ -140,7 +142,8 @@ def capture(fn, device, maps: pcf.OwnedMaps, pieces: Pieces,
     the capture alone (the band frame's split_gathers). Returns (fn's
     output in the capture, capture ms on the host clock, the device
     memory the capture reserved, the launches it captured: (by variant,
-    pcf, resolve)), after taking those launches back from the counters."""
+    pcf, resolve, alpha peel)), after taking those launches back from the
+    counters."""
     global CAPTURES
     device = torch.device(device)
     stream = torch.cuda.Stream(device)
@@ -164,25 +167,26 @@ def capture(fn, device, maps: pcf.OwnedMaps, pieces: Pieces,
             finally:
                 pieces.end()
     finally:
-        counts, n_pcf, n_resolve = _tally()
+        counts, n_pcf, n_resolve, n_peel = _tally()
         by_variant = {k: counts[k] - before[0][k] for k in counts}
         raster.add_launches({k: -n for k, n in by_variant.items()})
         pcf.add_launches(before[1] - n_pcf)
         resolve.add_launches(before[2] - n_resolve)
+        alpha_peel.add_launches(before[3] - n_peel)
     torch.cuda.current_stream(device).wait_stream(stream)
     capture_ms = 1000.0 * (time.perf_counter() - t0)
     pool_bytes = torch.cuda.memory_reserved(device) - reserved
     CAPTURES += 1
     return out, capture_ms, pool_bytes, (
         {k: n for k, n in by_variant.items() if n}, n_pcf - before[1],
-        n_resolve - before[2])
+        n_resolve - before[2], n_peel - before[3])
 
 
 class CompiledFrame:
     """fn(scene, *inputs) captured into a CUDA graph (see the module doc).
     After a capture: ``capture_ms`` (host time of the capture alone),
     ``pool_bytes``, ``launches`` (per replay: the raster kernel's count by
-    variant, the soft PCF's and the resolve kernel's).
+    variant, the soft PCF's, the resolve kernel's and the alpha peel's).
 
     A traced Renderer's fn (app/profiler.FrameTrace) queues its marks and
     counts only while it is being captured, so the eager frame before a
@@ -199,7 +203,7 @@ class CompiledFrame:
         self.outputs = ()
         self.single = True
         self.scene_leaves = []
-        self.launches = ({}, 0, 0)
+        self.launches = ({}, 0, 0, 0)
         self.capture_ms = None
         self.pool_bytes = None
 

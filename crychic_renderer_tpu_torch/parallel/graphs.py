@@ -74,7 +74,7 @@ class CompiledBandFrame:
         self.outputs = ()
         self.flags = ()
         self.key = None
-        self.launches = ({}, 0, 0)
+        self.launches = ({}, 0, 0, 0)
         # the gathers inside the graph (NCCL), counted per replay
         self.graph_gathers = (0, 0)
         self.capture_ms = None

@@ -29,9 +29,10 @@ settings, single-mip pool, cubemap sky, debug views). With
 ``ops.raster``; with it False the frame takes the JAX package's pure-XLA
 path, the binned tensor raster of ``ops.rasterizer`` on 32-row tiles
 truncated at ``bin_cap``, per cascade for the shadow maps. The soft PCF
-goes through ``ops.pcf`` and the G-buffer resolve through ``ops.resolve``
-(CUDA kernels on the card, their plain PyTorch versions on the CPU); the
-rest is tensor code. A draw without static corner tables
+goes through ``ops.pcf``, the G-buffer resolve through ``ops.resolve``
+and the alpha layer's depth peel through ``ops.alpha_peel`` (CUDA kernels
+on the card, their plain PyTorch versions on the CPU); the rest is tensor
+code. A draw without static corner tables
 (``strip_draw_statics``, or a scene built without
 ``attach_draw_statics``) renders through the per-vertex stage
 (``vertex_stage``, ``build_tri_attrs``) with the same records. With
@@ -54,7 +55,8 @@ import torch
 import torch.nn.functional as F
 
 from ..config import RenderConfig
-from ..ops import clipping, raster, resolve, sampling, shading, shadows
+from ..ops import (alpha_peel, clipping, raster, resolve, sampling,
+                   shading, shadows)
 from ..ops import rasterizer as rz
 from ..ops import ssao as ssao_ops
 from ..ops.consts import device_constant
@@ -1213,6 +1215,23 @@ def alpha_view_tris(scene: DeviceScene, consts: FrameConstants,
                       scene.mat_transform, consts, cfg)
 
 
+def _peel_setup(tris: rz.ScreenTris, uv_tri, mat_tri):
+    """The peel's per-triangle set-up, over the T triangles: the edge
+    coefficients A, B, C (T, 3) and top-left flags of rz._edge_coeffs,
+    the depth plane zA, zB, zC (T,), and the 16-wide record xy(6) inv_w(3)
+    uv(6) mat(1), one row gather per pixel per peel recovering the
+    winner's interpolation data."""
+    A, B, C, area2, top_left = rz._edge_coeffs(tris.xy)
+    inv_a2 = 1.0 / torch.where(area2 == 0, torch.ones_like(area2), area2)
+    zA = (A * tris.z * inv_a2[:, None]).sum(-1)
+    zB = (B * tris.z * inv_a2[:, None]).sum(-1)
+    zC = (C * tris.z * inv_a2[:, None]).sum(-1)
+    rec = torch.cat([tris.xy.reshape(-1, 6), tris.inv_w, uv_tri[:, 0],
+                     uv_tri[:, 1], uv_tri[:, 2],
+                     mat_tri.to(torch.float32)[:, None]], dim=-1)
+    return A, B, C, top_left, zA, zB, zC, rec
+
+
 def _alpha_peel(tris: rz.ScreenTris, uv_tri, mat_tri, scene: DeviceScene,
                 px, py, n_peels: int, clip_thr: float, unresolved=None):
     """Dense small-N rasterization of alpha-tested triangles with depth
@@ -1231,7 +1250,8 @@ def _alpha_peel(tris: rz.ScreenTris, uv_tri, mat_tri, scene: DeviceScene,
     of triangles are evaluated as dense (chunk, rows, columns) tensors
     (PEEL_CHUNK_ELEMS elements at most), with the same arithmetic and the
     same strict ``<``: the earliest triangle wins a depth tie, as in the
-    sequential order.
+    sequential order. This is the plain version of the kernel K8
+    (ops/alpha_peel.py), which depth_peel launches for CUDA tensors.
 
     tris: (T,) screen triangles; uv_tri: (T, 3, 2); mat_tri: (T,).
     px/py: pixel-center coordinate grids (broadcastable to the output).
@@ -1240,22 +1260,12 @@ def _alpha_peel(tris: rz.ScreenTris, uv_tri, mat_tri, scene: DeviceScene,
     fragment failed the clip), 0-d int64: a pixel the last peel counts
     may hold a passing fragment behind it that is dropped.
     Returns (z, idx): idx -1 where no passing fragment."""
-    A, B, C, area2, top_left = rz._edge_coeffs(tris.xy)
-    inv_a2 = 1.0 / torch.where(area2 == 0, torch.ones_like(area2), area2)
-    zA = (A * tris.z * inv_a2[:, None]).sum(-1)
-    zB = (B * tris.z * inv_a2[:, None]).sum(-1)
-    zC = (C * tris.z * inv_a2[:, None]).sum(-1)
+    A, B, C, top_left, zA, zB, zC, rec = _peel_setup(tris, uv_tri, mat_tri)
     T = tris.xy.shape[0]
     shape = torch.broadcast_shapes(px.shape, py.shape)
     pxb, pyb = px.expand(shape), py.expand(shape)
     dev = pxb.device
     inf = float("inf")
-
-    # 16-wide per-triangle record: xy(6) inv_w(3) uv(6) mat(1) — one row
-    # gather per pixel per peel recovers the winner's interpolation data
-    rec = torch.cat([tris.xy.reshape(-1, 6), tris.inv_w, uv_tri[:, 0],
-                     uv_tri[:, 1], uv_tri[:, 2],
-                     mat_tri.to(torch.float32)[:, None]], dim=-1)
     chunk = max(1, PEEL_CHUNK_ELEMS // max(1, shape[0] * shape[1]))
 
     def nearest_above(zfloor):
@@ -1321,6 +1331,47 @@ def _alpha_peel(tris: rz.ScreenTris, uv_tri, mat_tri, scene: DeviceScene,
     return res_z, res_id
 
 
+def depth_peel(scene: DeviceScene, tris: rz.ScreenTris, uv_tri, mat_tri,
+               rows: int, cols: int, oy, ox, n_peels: int, clip_thr: float,
+               counted: bool = False):
+    """The alpha layer's depth peel over the rows x cols pixel grid whose
+    first pixel is (oy, ox): ints, or 0-d int64 tensors on the device (a
+    punch window's origin; no host read).
+
+    CUDA tensors launch K8 (ops/alpha_peel.py, two launches a peel
+    round), which gives depth_peel_plain's result bit for bit; CPU
+    tensors take depth_peel_plain. Returns (z, idx, unresolved):
+    unresolved is, with counted, the (n_peels,) int64 per-peel count of
+    _alpha_peel's ``unresolved``, else None."""
+    if not tris.xy.is_cuda:
+        return depth_peel_plain(scene, tris, uv_tri, mat_tri, rows, cols, oy,
+                                ox, n_peels, clip_thr, counted)
+    table = alpha_peel.peel_table(_peel_setup(tris, uv_tri, mat_tri),
+                                  tris.valid)
+    return alpha_peel.peel(table, rows, cols, oy, ox, scene.pair_data,
+                           scene.n_big_pairs, scene.mat_albedo,
+                           scene.mat_pair, n_peels, clip_thr, counted)
+
+
+def depth_peel_plain(scene: DeviceScene, tris: rz.ScreenTris, uv_tri,
+                     mat_tri, rows: int, cols: int, oy, ox, n_peels: int,
+                     clip_thr: float, counted: bool = False):
+    """depth_peel's plain version: _alpha_peel at the pixel centres (o +
+    i) + 0.5 of both axes."""
+    dev = tris.xy.device
+
+    def centres(o, n):
+        o = o.to(torch.float32) if isinstance(o, torch.Tensor) else float(o)
+        return (o + torch.arange(n, dtype=torch.float32, device=dev)) + 0.5
+
+    unresolved = [] if counted else None
+    z, idx = _alpha_peel(tris, uv_tri, mat_tri, scene,
+                         centres(ox, cols)[None, :],
+                         centres(oy, rows)[:, None], n_peels, clip_thr,
+                         unresolved)
+    return z, idx, torch.stack(unresolved) if counted else None
+
+
 def alpha_merge_main(scene: DeviceScene, consts: FrameConstants,
                      cfg: RenderConfig, depth, tid, tris, tri_attr,
                      row_offset: int = 0, occupancy: dict = None):
@@ -1335,17 +1386,13 @@ def alpha_merge_main(scene: DeviceScene, consts: FrameConstants,
     int64: per peel, the pixels it found a fragment in that are still
     unresolved after it (_alpha_peel's unresolved)."""
     H, W = depth.shape
-    dev = depth.device
     a_tris, a_attr = alpha_view_tris(scene, consts, cfg)
-    px = (torch.arange(W, dtype=torch.float32, device=dev) + 0.5)[None, :]
-    py = (float(row_offset) + torch.arange(H, dtype=torch.float32,
-                                           device=dev) + 0.5)[:, None]
-    unresolved = None if occupancy is None else []
-    az, aid = _alpha_peel(a_tris, a_attr[:, :, 13:15], a_attr[:, 0, 15],
-                          scene, px, py, cfg.alpha_peels, cfg.alpha_clip,
-                          unresolved)
+    az, aid, unresolved = depth_peel(
+        scene, a_tris, a_attr[:, :, 13:15], a_attr[:, 0, 15], H, W,
+        row_offset, 0, cfg.alpha_peels, cfg.alpha_clip,
+        counted=occupancy is not None)
     if occupancy is not None:
-        occupancy["alpha_unresolved"] = torch.stack(unresolved)
+        occupancy["alpha_unresolved"] = unresolved
     t_base = tris.xy.shape[0]
     win = (aid >= 0) & (az < depth)
     depth = torch.where(win, az, depth)
@@ -1421,11 +1468,8 @@ def _punch_window(scene: DeviceScene, cfg: RenderConfig, t, uv_tri,
     lo = _alpha_light_corner(t)
     oy, ox = (torch.clamp(_window_start(lo[k], S), max=float(S - Wn)).long()
               for k in (1, 0))
-    ramp = torch.arange(Wn, dtype=torch.float32, device=t.xy.device)
-    px = (ox.to(torch.float32) + ramp + 0.5)[None, :]
-    py = (oy.to(torch.float32) + ramp + 0.5)[:, None]
-    az, aid = _alpha_peel(t, uv_tri, mat_tri, scene, px, py,
-                          cfg.alpha_peels, cfg.alpha_clip)
+    az, aid, _ = depth_peel(scene, t, uv_tri, mat_tri, Wn, Wn, oy, ox,
+                            cfg.alpha_peels, cfg.alpha_clip)
     return az, aid, oy, ox
 
 

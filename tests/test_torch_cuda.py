@@ -810,7 +810,7 @@ def test_replay_launch_tally(cuda):
     assert (raster.LAUNCHES_BY_VARIANT["ids"],
             raster.LAUNCHES_BY_VARIANT["depth"], pcf.LAUNCHES,
             resolve.LAUNCHES) == (2, 2, 2, 2)
-    assert r.compiled_frame.launches == ({"ids": 1, "depth": 1}, 1, 1)
+    assert r.compiled_frame.launches == ({"ids": 1, "depth": 1}, 1, 1, 0)
     raster.reset_launches()
     pcf.reset_launches()
     resolve.reset_launches()
@@ -932,7 +932,7 @@ def test_compiled_band_frame_gloo_replay_equals_eager(cuda):
             assert np.array_equal(graph["img"], eager["img"])
             assert graph["graph"]["graphs"] == eager["gathers"] + 1
             per = {"band_ids": 1, "band_depth": 1}
-            assert graph["graph"]["launches"] == (per, 1 if k else 0, 1)
+            assert graph["graph"]["launches"] == (per, 1 if k else 0, 1, 0)
             n = graph["frames"] + 1
             assert graph["launches"]["band_ids"] == n
             assert graph["launches"]["pcf"] == (n if k else 0)

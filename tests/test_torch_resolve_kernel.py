@@ -184,12 +184,12 @@ def test_graph_tally_counts_k7():
     and the soft PCF's."""
     resolve.reset_launches()
     before = dict(raster.LAUNCHES_BY_VARIANT)
-    graphs.add_launches(({}, 0, 3))
+    graphs.add_launches(({}, 0, 3, 0))
     assert resolve.LAUNCHES == 3
     assert dict(raster.LAUNCHES_BY_VARIANT) == before
     resolve.reset_launches()
     frame = graphs.CompiledFrame(lambda scene: None, "cpu")
-    assert frame.launches == ({}, 0, 0)
+    assert frame.launches == ({}, 0, 0, 0)
 
 
 # ---------------------------------------------------------------------------
