@@ -386,6 +386,7 @@ FRAME_RUNS = ["config4", "soft", "soft_fast", "sharded", "profiler",
                   "p29_aniso_quality", "p29_gallery"]
 ZERO = dict(ids=0, depth=0, band_ids=0, band_depth=0, field_ids=0,
             field_depth=0, pcf=0)
+_COUNTED = None  # the tally's snapshot at the last reset_counts
 PIX_BOUND = 0.005
 SHARD_FRAC = 1e-3  # tests/test_multichip.py's sharded-frame bound
 PCF_TOL = 1e-5
@@ -889,7 +890,7 @@ def resolve_kernel_runs(dev, assets, launches, card):
     K7 on config 4's and config 5's inputs."""
     from crychic_renderer_tpu_torch.app.renderer import Renderer
     from crychic_renderer_tpu_torch.models import scenes_baseline as sb
-    from crychic_renderer_tpu_torch.ops import raster, resolve
+    from crychic_renderer_tpu_torch.ops import raster, resolve, tally
     from crychic_renderer_tpu_torch.passes import frame as fr
 
     phase(f"[30] card: {card}")
@@ -939,14 +940,14 @@ def resolve_kernel_runs(dev, assets, launches, card):
 
         # frames through Renderer.render: one K7 launch per frame
         frames = 5
-        resolve.reset_launches()
+        before = tally.snapshot()
         for i in range(frames + 1):
             r.render(i / 60.0)
         torch.cuda.synchronize()
-        per_replay = r.compiled_frame.launches[2]
-        assert per_replay == 1 and resolve.LAUNCHES == frames + 2, \
-            (per_replay, resolve.LAUNCHES)
-        launches[f"p30_{name}"] = {"resolve": resolve.LAUNCHES}
+        per_replay = r.compiled_frame.launches["resolve"]
+        n_k7 = tally.since(before).get("resolve", 0)
+        assert per_replay == 1 and n_k7 == frames + 2, (per_replay, n_k7)
+        launches[f"p30_{name}"] = {"resolve": n_k7}
         entries.append(dict(
             name=f"K7 resolve {name} {W}x{H}", variant="resolve",
             runs=[f"p30_{name}"], kernel_ms=ms, device_ms=dev_ms,
@@ -961,7 +962,7 @@ def resolve_kernel_runs(dev, assets, launches, card):
               f"{100.0 * keys['bound_ms'] / dev_ms:.1f}%), plain version "
               f"{plain_ms:.3f} ms, the whole stage run eagerly "
               f"{eager_ms:.4f} ms; 1 + "
-              f"{frames} frames: {resolve.LAUNCHES} K7 launches, "
+              f"{frames} frames: {n_k7} K7 launches, "
               f"{per_replay} per replay")
         r.close()
         del r
@@ -1021,7 +1022,7 @@ def alpha_peel_runs(dev, launches, card):
     """Phase 31 (see the module doc). Returns the kernels-line entries of
     K8 on the fence cell's main view and its four punch windows."""
     from crychic_renderer_tpu_torch.app import profiler
-    from crychic_renderer_tpu_torch.ops import alpha_peel
+    from crychic_renderer_tpu_torch.ops import alpha_peel, tally
     from crychic_renderer_tpu_torch.passes import frame as fr
 
     phase(f"[31] card: {card}")
@@ -1100,18 +1101,18 @@ def alpha_peel_runs(dev, launches, card):
 
     # frames through Renderer.render: 2 x alpha_peels launches per view
     frames = 5
-    alpha_peel.reset_launches()
+    before = tally.snapshot()
     for i in range(frames + 1):
         r.render(0.0)
     torch.cuda.synchronize()
-    per_replay = r.compiled_frame.launches[3]
+    per_replay = r.compiled_frame.launches["alpha_peel"]
+    n_k8 = tally.since(before).get("alpha_peel", 0)
     want_per = 2 * n_peels * (1 + cfg.num_cascades)
-    assert per_replay == want_per and \
-        alpha_peel.LAUNCHES == want_per * (frames + 2), \
-        (per_replay, alpha_peel.LAUNCHES)
-    launches["p31_frames"] = {"alpha_peel": alpha_peel.LAUNCHES}
+    assert per_replay == want_per and n_k8 == want_per * (frames + 2), \
+        (per_replay, n_k8)
+    launches["p31_frames"] = {"alpha_peel": n_k8}
     report = profiler.profile_frame(r, reps=PROFILE_REPS)
-    phase(f"[31] 1 + {frames} frames: {alpha_peel.LAUNCHES} K8 launches, "
+    phase(f"[31] 1 + {frames} frames: {n_k8} K8 launches, "
           f"{per_replay} per replay; profile_frame: alpha_merge_main "
           f"{report['alpha_merge_main']:.3f} ms, alpha_merge_shadow "
           f"{report['alpha_merge_shadow']:.3f} ms, TOTAL_fused "
@@ -1289,16 +1290,20 @@ def sharded_frame(r, consts, band_cfg, dev):
 
 
 def launch_counts():
-    from crychic_renderer_tpu_torch.ops import pcf, raster
+    """ZERO's counts since the last reset_counts, read from the port's
+    tally: the raster kernel's launches by variant and K6's ("pcf")."""
+    from crychic_renderer_tpu_torch.ops import tally
 
-    return dict(raster.LAUNCHES_BY_VARIANT, pcf=pcf.LAUNCHES)
+    ran = tally.since(_COUNTED)
+    return {k: ran.get(k if k == "pcf" else "raster." + k, 0) for k in ZERO}
 
 
 def reset_counts():
-    from crychic_renderer_tpu_torch.ops import pcf, raster
+    """Count launch_counts from now: a snapshot of the port's tally."""
+    from crychic_renderer_tpu_torch.ops import tally
 
-    raster.reset_launches()
-    pcf.reset_launches()
+    global _COUNTED
+    _COUNTED = tally.snapshot()
 
 
 def captures():
@@ -1544,10 +1549,7 @@ def run_frames(r, per_frame):
     counts (per_frame launches of each kernel per frame, and per eager
     frame before a capture), overflow and the last frame; returns (median
     ms/frame, counts)."""
-    from crychic_renderer_tpu_torch.ops import pcf, raster
-
-    raster.reset_launches()
-    pcf.reset_launches()
+    reset_counts()
     c0 = captures()
     n = FRAMES_WARMUP + FRAMES_TIMED
     times = []
@@ -1999,17 +2001,15 @@ def full_size_runs(dev, frame_ms, launches, card):
 def uncounted(fn):
     """fn() with the launches it makes taken back out of the counts: a
     kernel held against its plain version is no launch of the path."""
-    from crychic_renderer_tpu_torch.ops import pcf, raster
+    from crychic_renderer_tpu_torch.ops import tally
 
     torch.cuda.synchronize()
-    by_variant, total, k6 = (dict(raster.LAUNCHES_BY_VARIANT),
-                             raster.LAUNCHES, pcf.LAUNCHES)
+    before = tally.snapshot()
     try:
         return fn()
     finally:
         torch.cuda.synchronize()
-        raster.LAUNCHES_BY_VARIANT.update(by_variant)
-        raster.LAUNCHES, pcf.LAUNCHES = total, k6
+        tally.add({k: -n for k, n in tally.since(before).items()})
 
 
 @contextlib.contextmanager
@@ -2862,9 +2862,11 @@ def band_graph_runs(r, consts, band_cfg, dev, frame_ms, launches, p22,
             for key in total:
                 total[key] += out["launches"][key]
             if compiled:
-                assert out["graph"]["launches"] == (
-                    {"band_ids": 1, "band_depth": 1}, want["pcf"] // n, 1,
-                    0), \
+                per_replay = {"raster.band_ids": 1, "raster.band_depth": 1,
+                              "resolve": 1}
+                if want["pcf"]:
+                    per_replay["pcf"] = 1
+                assert out["graph"]["launches"] == per_replay, \
                     (rank, k, out["graph"]["launches"])
     launches["p25_gloo"] = total
 

@@ -24,11 +24,11 @@ runs in CUDA's global capture mode, PyTorch's default: a host sync or an
 unsafe call inside the frame makes it raise, and nothing falls back to
 the eager frame.
 
-The kernel wrappers count a launch when they are called, so the counts
-the capture adds are taken back and added again on every replay
-(``ops/raster.add_launches``, ``ops/pcf.add_launches``,
-``ops/resolve.add_launches``, ``ops/alpha_peel.add_launches``): the
-counters count the kernels the card ran, the eager frame's included.
+The kernel wrappers count a launch in the tally (``ops/tally.py``) when
+they are called, and a band gather counts itself when it is made, so
+``capture`` takes back what the capture counted and each replay adds it
+again with one ``tally.add``: the tally counts what the card ran, the
+eager frame's included.
 
 The graph's intermediate tensors live in its private memory pool
 (``pool_bytes``, measured as the device memory the capture reserved).
@@ -50,10 +50,10 @@ import time
 
 import torch
 
-from ..ops import alpha_peel, pcf, raster, resolve
+from ..ops import pcf, tally
 
 # Captures in this process. Each ran one eager frame first, whose kernel
-# launches the counters hold.
+# launches the tally holds.
 CAPTURES = 0
 
 
@@ -72,20 +72,6 @@ def _same_leaves(a: list, b: list) -> bool:
     return len(a) == len(b) and all(
         x is y if isinstance(x, torch.Tensor) or isinstance(y, torch.Tensor)
         else x == y for x, y in zip(a, b))
-
-
-def _tally():
-    return (dict(raster.LAUNCHES_BY_VARIANT), pcf.LAUNCHES, resolve.LAUNCHES,
-            alpha_peel.LAUNCHES)
-
-
-def add_launches(launches):
-    """Count one replay of a capture's launches ((by variant, pcf,
-    resolve, alpha peel))."""
-    raster.add_launches(launches[0])
-    pcf.add_launches(launches[1])
-    resolve.add_launches(launches[2])
-    alpha_peel.add_launches(launches[3])
 
 
 class Pieces:
@@ -141,9 +127,9 @@ def capture(fn, device, maps: pcf.OwnedMaps, pieces: Pieces,
     (see the module doc). `during`, a context manager, is entered around
     the capture alone (the band frame's split_gathers). Returns (fn's
     output in the capture, capture ms on the host clock, the device
-    memory the capture reserved, the launches it captured: (by variant,
-    pcf, resolve, alpha peel)), after taking those launches back from the
-    counters."""
+    memory the capture reserved, what the capture counted in the tally:
+    {key: count} of the keys it moved, which it takes back from the
+    tally and a replay adds again)."""
     global CAPTURES
     device = torch.device(device)
     stream = torch.cuda.Stream(device)
@@ -156,7 +142,7 @@ def capture(fn, device, maps: pcf.OwnedMaps, pieces: Pieces,
     torch.cuda.synchronize(device)
     torch.cuda.empty_cache()
     reserved = torch.cuda.memory_reserved(device)
-    before = _tally()
+    before = tally.snapshot()
     t0 = time.perf_counter()
     try:
         with pcf.owned_maps(maps), torch.cuda.stream(stream), \
@@ -167,26 +153,20 @@ def capture(fn, device, maps: pcf.OwnedMaps, pieces: Pieces,
             finally:
                 pieces.end()
     finally:
-        counts, n_pcf, n_resolve, n_peel = _tally()
-        by_variant = {k: counts[k] - before[0][k] for k in counts}
-        raster.add_launches({k: -n for k, n in by_variant.items()})
-        pcf.add_launches(before[1] - n_pcf)
-        resolve.add_launches(before[2] - n_resolve)
-        alpha_peel.add_launches(before[3] - n_peel)
+        launches = tally.since(before)
+        tally.add({k: -n for k, n in launches.items()})
     torch.cuda.current_stream(device).wait_stream(stream)
     capture_ms = 1000.0 * (time.perf_counter() - t0)
     pool_bytes = torch.cuda.memory_reserved(device) - reserved
     CAPTURES += 1
-    return out, capture_ms, pool_bytes, (
-        {k: n for k, n in by_variant.items() if n}, n_pcf - before[1],
-        n_resolve - before[2], n_peel - before[3])
+    return out, capture_ms, pool_bytes, launches
 
 
 class CompiledFrame:
     """fn(scene, *inputs) captured into a CUDA graph (see the module doc).
     After a capture: ``capture_ms`` (host time of the capture alone),
-    ``pool_bytes``, ``launches`` (per replay: the raster kernel's count by
-    variant, the soft PCF's, the resolve kernel's and the alpha peel's).
+    ``pool_bytes``, ``launches`` (what a replay adds to the tally, by key;
+    {} before a capture).
 
     A traced Renderer's fn (app/profiler.FrameTrace) queues its marks and
     counts only while it is being captured, so the eager frame before a
@@ -203,7 +183,7 @@ class CompiledFrame:
         self.outputs = ()
         self.single = True
         self.scene_leaves = []
-        self.launches = ({}, 0, 0, 0)
+        self.launches = {}
         self.capture_ms = None
         self.pool_bytes = None
 
@@ -214,7 +194,7 @@ class CompiledFrame:
             for s, x in zip(self.static, inputs):
                 s.copy_(x)
         self.graph.replay()
-        add_launches(self.launches)
+        tally.add(self.launches)
         out = tuple(o.clone() for o in self.outputs)
         return out[0] if self.single else out
 

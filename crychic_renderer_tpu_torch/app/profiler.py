@@ -65,7 +65,7 @@ import warnings
 import numpy as np
 import torch
 
-from ..ops import clipping, pcf, raster
+from ..ops import clipping, pcf, raster, tally
 from ..ops import rasterizer as rz
 from ..ops.build import KernelLibrary
 from ..passes import frame as fr
@@ -155,7 +155,7 @@ def _graph_time(fn, reps: int, device: torch.device):
 
         def replay():
             pieces.replay()
-            graphs.add_launches(launches)
+            tally.add(launches)
 
         return out, _time(replay, reps, device)
     finally:
@@ -214,8 +214,7 @@ _MARK_COLS = 2 + len(fr.FRAME_STAGES)
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
 LIBRARY = KernelLibrary("frame_trace.cu", "crychic_frame_trace", {
     "crychic_frame_mark": ([_vp, _vp, _vp, _ci, _ci, _ci, _ci, _vp], _ci),
-    "crychic_frame_trace_error": ([_ci], ctypes.c_char_p),
-})
+}, error="crychic_frame_trace_error")
 
 
 @dataclasses.dataclass
@@ -285,15 +284,11 @@ class FrameTrace:
 
     # -- device side ------------------------------------------------------
     def _launch(self, counter, row, ring, rows: int, col: int, start: bool):
-        lib = LIBRARY.load()
-        with torch.cuda.device(self.device):
-            stream = torch.cuda.current_stream(self.device).cuda_stream
-            rc = lib.crychic_frame_mark(
-                counter.data_ptr(), row.data_ptr(), ring.data_ptr(), rows,
-                ring.shape[1], col, int(start), stream)
-        if rc != 0:
-            raise RuntimeError("frame mark launch failed: "
-                               + lib.crychic_frame_trace_error(rc).decode())
+        """One mark kernel, not counted in the tally: a traced frame's
+        launches equal an untraced one's."""
+        LIBRARY.launch("crychic_frame_mark", self.device, counter.data_ptr(),
+                       row.data_ptr(), ring.data_ptr(), rows, ring.shape[1],
+                       col, int(start), key=None)
 
     def _recording(self) -> bool:
         """Whether the frame now issued is one the trace records: on the

@@ -683,37 +683,38 @@ class Renderer:
         output, so frames queue back to back until something reads one.
         A cfg replaced since the last bind is bound first. A traced
         Renderer records the four parts of this call (HOST_PARTS of
-        app/profiler.py) as the frame's host spans."""
-        if self.trace is not None:
-            return self._render_traced(total_time)
-        if self.cfg != self._bound_cfg:
-            self.rebind_frame_fn()
-        self._animate_materials(total_time)
-        packed = fr.upload(self._pack_frame_constants(
-            self.frame_constants_np(total_time)), self.device)
-        return self._frame_fn(self.device_scene, packed)
-
-    def _render_traced(self, total_time: float) -> torch.Tensor:
-        """render() in its four parts, each a span of the trace."""
+        app/profiler.py) as the frame's host spans; untraced, each part's
+        span is a context that does nothing."""
         trace = self.trace
-        trace.begin_frame()
-        with trace.part("constants"):
+        span = _no_span if trace is None else trace.part
+        if trace is not None:
+            trace.begin_frame()
+        with span("constants"):
             if self.cfg != self._bound_cfg:
                 self.rebind_frame_fn()
             c = self._view_constants(total_time)
-        with trace.part("cull"):
+        with span("cull"):
             c.update(self._visibilities())
-        with trace.part("upload"):
+        with span("upload"):
             self._animate_materials(total_time)
             packed = fr.upload(self._pack_frame_constants(c), self.device)
-        with trace.part("launch"):
+        with span("launch"):
             img = self._frame_fn(self.device_scene, packed)
-        trace.end_frame()
+        if trace is not None:
+            trace.end_frame()
         return img
 
     def render_np(self, total_time: float = 0.0) -> np.ndarray:
         img = self.render(total_time).cpu().numpy()
         return np.clip(img, 0.0, 1.0)
+
+
+def _no_span(part: str):
+    """An untraced render()'s span of one of its parts: nothing."""
+    return _NO_SPAN
+
+
+_NO_SPAN = contextlib.nullcontext()
 
 
 def check_counts(cfg, main_pairs: int, shadow_pairs: int, shade_tiles: int,

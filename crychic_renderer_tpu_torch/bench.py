@@ -122,13 +122,12 @@ def frame_rounds(r, n: int, rounds: int):
     queued back to back with one read back at the end. Checks the
     overflow flags after the rounds. Returns (ms/frame of each round, host
     clock; the hand kernels' launches over all 1 + n * rounds frames and,
-    on the card, the eager frame before the capture, each count set to 0
-    just before the warm-up frame: K1 "ids", K2 "depth", K6 "pcf"; 0 on
-    the CPU, which runs their plain versions)."""
-    from .ops import pcf, raster
+    on the card, the eager frame before the capture, read from the tally
+    (ops/tally.py): K1 "ids", K2 "depth", K6 "pcf"; 0 on the CPU, which
+    runs their plain versions)."""
+    from .ops import tally
 
-    raster.reset_launches()
-    pcf.reset_launches()
+    before = tally.snapshot()
     read_back(r.render(0.0))
     out = []
     for _ in range(rounds):
@@ -139,9 +138,9 @@ def frame_rounds(r, n: int, rounds: int):
         read_back(img)
         out.append(1000.0 * (time.perf_counter() - t0) / n)
     r.check_overflow()
-    launches = dict(ids=raster.LAUNCHES_BY_VARIANT["ids"],
-                    depth=raster.LAUNCHES_BY_VARIANT["depth"],
-                    pcf=pcf.LAUNCHES)
+    ran = tally.since(before)
+    launches = dict(ids=ran.get("raster.ids", 0),
+                    depth=ran.get("raster.depth", 0), pcf=ran.get("pcf", 0))
     return out, launches
 
 

@@ -100,9 +100,9 @@ def queued_event_ms(fn, reps: int, sleep_cycles: int = 4_000_000) -> float:
     return total / reps
 
 
-# the C entries of the eager wrapper: an older checkout's pcf.cu lacks
-# the compiled frame's texture entries
-PCF_ENTRIES = ("crychic_soft_pcf", "crychic_soft_pcf_error")
+# the C entry of the eager wrapper (beside the error entry): an older
+# checkout's pcf.cu lacks the compiled frame's texture entries
+PCF_ENTRIES = ("crychic_soft_pcf",)
 # the eager entry of a pcf.cu that reads the unpadded (C, S, S) map:
 # (map, params, m, C, S, radius, out, stream)
 _LEGACY_PCF = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
@@ -121,11 +121,12 @@ def libraries(root: str):
     if not window_ready:
         sigs["crychic_soft_pcf"] = _LEGACY_PCF
     lib = build.KernelLibrary(os.path.join(csrc, "pcf.cu"), pcf.LIBRARY.name,
-                              sigs)
+                              sigs, pcf.LIBRARY.error)
     lib.window_ready = window_ready
     return (build.KernelLibrary(os.path.join(csrc, "raster.cu"),
                                 raster.LIBRARY.name,
-                                raster.LIBRARY.signatures), lib)
+                                raster.LIBRARY.signatures,
+                                raster.LIBRARY.error), lib)
 
 
 @contextlib.contextmanager

@@ -1,5 +1,6 @@
 """The alpha-tested layer's depth-peel kernel K8 (``csrc/alpha_peel.cu``):
-its wrapper, its launch count and the per-triangle table it reads.
+its wrapper and the per-triangle table it reads. Its launches count in
+the tally (ops/tally.py) under "alpha_peel", two a peel round.
 
 The kernel runs the peel rounds of passes/frame.py's ``_alpha_peel``, two
 launches a round (the search for each pixel's nearest fragment above its
@@ -26,18 +27,12 @@ from .build import KernelLibrary
 COEFS = 16
 TABLE_FLOATS = 32
 
-# Launches of the kernel since import (or since a caller reset it): two a
-# peel round. Incremented by peel where it launches, and by add_launches
-# for each replay of a CUDA graph that holds its launches (app/graphs.py).
-LAUNCHES = 0
-
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
 LIBRARY = KernelLibrary("alpha_peel.cu", "crychic_alpha_peel", {
     "crychic_alpha_peel": ([_vp, _ci, _vp, _ci, _ci, _vp, _vp, _ci, _ci, _ci,
                             _ci, _ci, _vp, _vp, _ci, ctypes.c_float, _vp,
                             _vp, _vp, _vp, _vp, _vp], _ci),
-    "crychic_alpha_peel_error": ([_ci], ctypes.c_char_p),
-})
+}, error="crychic_alpha_peel_error")
 
 
 def peel_table(setup, valid) -> torch.Tensor:
@@ -79,7 +74,6 @@ def peel(table: torch.Tensor, rows: int, cols: int, oy, ox,
     int32; mat_albedo (M, 4) f32, mat_pair (M,) int32. Raises ValueError
     for anything else, CPU tensors included (the CPU takes the plain
     version), and RuntimeError for a refused launch."""
-    global LAUNCHES
     dev = table.device
     if dev.type != "cuda":
         raise ValueError("K8 runs on CUDA tensors; the CPU takes "
@@ -120,30 +114,12 @@ def peel(table: torch.Tensor, rows: int, cols: int, oy, ox,
     found = torch.empty((rows, cols, 4), dtype=torch.float32, device=dev)
     counts = (torch.empty((n_peels,), dtype=torch.int64, device=dev)
               if counted else None)
-    lib = LIBRARY.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.crychic_alpha_peel(
-            table.data_ptr(), table.shape[0], pool_data.data_ptr(), lanes,
-            int(n_big), mat_albedo.data_ptr(), mat_pair.data_ptr(), n_mat,
-            rows, cols, oy0, ox0, oy_ptr, ox_ptr, n_peels, float(clip_thr),
-            res_z.data_ptr(), res_id.data_ptr(), zfloor.data_ptr(),
-            found.data_ptr(), None if counts is None else counts.data_ptr(),
-            stream)
-    if rc != 0:
-        raise RuntimeError("alpha peel kernel launch failed: "
-                           + lib.crychic_alpha_peel_error(rc).decode())
-    LAUNCHES += 2 * n_peels
+    LIBRARY.launch(
+        "crychic_alpha_peel", dev, table.data_ptr(), table.shape[0],
+        pool_data.data_ptr(), lanes, int(n_big), mat_albedo.data_ptr(),
+        mat_pair.data_ptr(), n_mat, rows, cols, oy0, ox0, oy_ptr, ox_ptr,
+        n_peels, float(clip_thr), res_z.data_ptr(), res_id.data_ptr(),
+        zfloor.data_ptr(), found.data_ptr(),
+        None if counts is None else counts.data_ptr(), key="alpha_peel",
+        n=2 * n_peels)
     return res_z, res_id, counts
-
-
-def reset_launches():
-    global LAUNCHES
-    LAUNCHES = 0
-
-
-def add_launches(n: int):
-    """Count n launches made without the wrapper: a CUDA graph's replay
-    of the launches it captured."""
-    global LAUNCHES
-    LAUNCHES += n

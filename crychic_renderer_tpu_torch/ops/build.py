@@ -16,6 +16,10 @@ import shutil
 import subprocess
 import time
 
+import torch
+
+from . import tally
+
 CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -42,12 +46,21 @@ class KernelLibrary:
     C functions with the given ctypes signatures and returns the CDLL;
     ``build_seconds`` is the nvcc wall time of the last build in this
     process (None when the library was already on disk) and
-    ``build_log`` its compiler output (ptxas' resource report)."""
+    ``build_log`` its compiler output (ptxas' resource report).
 
-    def __init__(self, source: str, name: str, signatures: dict):
+    Every C entry returns 0 or an error code, which the entry named
+    ``error`` turns into the library's text. ``call`` calls an entry and
+    ``launch`` launches a kernel on a device's current stream and counts
+    it in the tally (ops/tally.py); both raise on a non-zero return."""
+
+    def __init__(self, source: str, name: str, signatures: dict,
+                 error: str):
         self.source = os.path.join(CSRC, source)
         self.name = name
-        self.signatures = signatures  # fn name -> (argtypes, restype)
+        self.error = error
+        # fn name -> (argtypes, restype)
+        self.signatures = {**signatures,
+                           error: ([ctypes.c_int], ctypes.c_char_p)}
         self.build_seconds = None
         self.build_log = None
         self._lib = None
@@ -82,3 +95,28 @@ class KernelLibrary:
             getattr(lib, fn).restype = restype
         self._lib = lib
         return lib
+
+    def _raise(self, lib, entry: str, rc: int):
+        if rc != 0:
+            raise RuntimeError(f"{entry} failed: "
+                               + getattr(lib, self.error)(rc).decode())
+
+    def call(self, entry: str, *args):
+        """Call the C entry `entry` with args (an entry that launches no
+        kernel); raise RuntimeError with the library's error text where
+        it returns non-zero."""
+        lib = self.load()
+        self._raise(lib, entry, getattr(lib, entry)(*args))
+
+    def launch(self, entry: str, device, *args, key, n: int = 1):
+        """Launch the kernel entry `entry` on the CUDA `device`: args, then
+        the device's current stream, inside torch.cuda.device(device).
+        Raises like call; else adds n launches to the tally under `key`
+        (None: not counted)."""
+        lib = self.load()
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            rc = getattr(lib, entry)(*args, stream)
+        self._raise(lib, entry, rc)
+        if key is not None:
+            tally.add({key: n})

@@ -72,10 +72,6 @@ PARAMS = 6  # cx, cy, dq, cos, sin, cascade
 WINDOW_PAD = 8
 PITCH_TEXELS = 16
 
-# Launches of the CUDA kernel since import (or since a caller reset it).
-# Incremented by soft_pcf where it launches, and by add_launches for each
-# replay of a CUDA graph that holds its launches (app/graphs.py).
-LAUNCHES = 0
 # The OwnedMaps of the compiled frame being run or captured (owned_maps).
 _OWNED = None
 
@@ -253,7 +249,6 @@ _u64 = ctypes.c_ulonglong
 LIBRARY = KernelLibrary("pcf.cu", "crychic_pcf", {
     "crychic_soft_pcf": ([_vp, _vp, _ci, _ci, _ci, _ci, ctypes.c_float, _vp,
                           _vp], _ci),
-    "crychic_soft_pcf_error": ([_ci], ctypes.c_char_p),
     "crychic_soft_pcf_cache_fills": ([], _ci),
     "crychic_soft_pcf_limits": ([ctypes.POINTER(_ci)], _ci),
     "crychic_soft_pcf_texture": ([_vp, _ci, _ci, _ci, ctypes.POINTER(_u64),
@@ -261,14 +256,7 @@ LIBRARY = KernelLibrary("pcf.cu", "crychic_pcf", {
     "crychic_soft_pcf_texture_destroy": ([_u64], _ci),
     "crychic_soft_pcf_owned": ([_u64, _ci, _vp, _vp, _ci, _ci, _ci, _ci,
                                 ctypes.c_float, _vp, _vp], _ci),
-})
-
-
-def _check(lib, rc: int, what: str):
-    """Raise with CUDA's message where the C entry returned an error."""
-    if rc != 0:
-        raise RuntimeError(f"{what}: "
-                           + lib.crychic_soft_pcf_error(rc).decode())
+}, error="crychic_soft_pcf_error")
 
 
 def texture_limits(device) -> dict:
@@ -277,10 +265,9 @@ def texture_limits(device) -> dict:
     as the kernel reads them. A buffer with C * (S + 8) rows above
     max_height (or S + 8 above max_width, 2 * P above max_pitch) takes
     the kernel's scalar path."""
-    lib = LIBRARY.load()
     out = (_ci * 5)()
     with torch.cuda.device(device):
-        _check(lib, lib.crychic_soft_pcf_limits(out), "texture limits")
+        LIBRARY.call("crychic_soft_pcf_limits", out)
     return dict(zip(("pitch_align", "base_align", "max_width", "max_height",
                      "max_pitch"), out))
 
@@ -292,20 +279,16 @@ def make_texture(qmap: torch.Tensor):
     pitch or address is off the card's texture alignment, or CUDA
     refuses."""
     S = map_size(qmap)
-    lib = LIBRARY.load()
     tex, has_tex = _u64(0), _ci(0)
     with torch.cuda.device(qmap.device):
-        rc = lib.crychic_soft_pcf_texture(qmap.data_ptr(), qmap.shape[0], S,
-                                          qmap.shape[2], ctypes.byref(tex),
-                                          ctypes.byref(has_tex))
-    _check(lib, rc, "soft PCF texture object")
+        LIBRARY.call("crychic_soft_pcf_texture", qmap.data_ptr(),
+                     qmap.shape[0], S, qmap.shape[2], ctypes.byref(tex),
+                     ctypes.byref(has_tex))
     return tex.value, has_tex.value
 
 
 def destroy_texture(tex: int):
-    lib = LIBRARY.load()
-    _check(lib, lib.crychic_soft_pcf_texture_destroy(tex),
-           "soft PCF texture object")
+    LIBRARY.call("crychic_soft_pcf_texture_destroy", tex)
 
 
 class OwnedMaps:
@@ -400,7 +383,6 @@ def soft_pcf(qmap: torch.Tensor, params: torch.Tensor,
                          f"{params.device}")
     if params.device.type == "cpu":
         return soft_pcf_plain(qmap, params, radius_texels)
-    global LAUNCHES
     if (params.dtype != torch.float32 or params.dim() != 2
             or params.shape[0] != PARAMS or not params.is_contiguous()):
         raise ValueError(f"params must be a contiguous ({PARAMS}, M) float32 "
@@ -416,17 +398,11 @@ def soft_pcf(qmap: torch.Tensor, params: torch.Tensor,
                            "maps the frame owns (quantize_map inside "
                            "owned_maps); the texture cache cannot be "
                            "captured")
-    lib = LIBRARY.load()
-    args = (qmap.data_ptr(), params.data_ptr(), m, qmap.shape[0], size,
-            qmap.shape[2], float(radius_texels), out.data_ptr())
-    with torch.cuda.device(params.device):
-        stream = torch.cuda.current_stream(params.device).cuda_stream
-        if owned is None:
-            rc = lib.crychic_soft_pcf(*args, stream)
-        else:
-            rc = lib.crychic_soft_pcf_owned(*owned, *args, stream)
-    _check(lib, rc, "soft PCF kernel launch failed")
-    LAUNCHES += 1
+    LIBRARY.launch(
+        "crychic_soft_pcf" if owned is None else "crychic_soft_pcf_owned",
+        params.device, *(owned or ()), qmap.data_ptr(), params.data_ptr(), m,
+        qmap.shape[0], size, qmap.shape[2], float(radius_texels),
+        out.data_ptr(), key="pcf")
     return out
 
 
@@ -436,15 +412,3 @@ def cache_fills() -> int:
     the device, out of sight of torch.cuda.set_sync_debug_mode, so a
     queued frame loop must keep this at 0. Builds the library if needed."""
     return LIBRARY.load().crychic_soft_pcf_cache_fills()
-
-
-def reset_launches():
-    global LAUNCHES
-    LAUNCHES = 0
-
-
-def add_launches(n: int):
-    """Count n launches made without the wrapper: a CUDA graph's replay
-    of the launches it captured."""
-    global LAUNCHES
-    LAUNCHES += n

@@ -55,18 +55,6 @@ REC_ROWS = 16
 WARP_W = 16
 WARPS = TILE_W // WARP_W
 
-# Launches of the CUDA kernel since import (or since a caller reset them),
-# in all and per variant: "ids" (depth + triangle id, the main view, K1),
-# "depth" (depth only, the shadow atlas, K2), their band launches
-# "band_ids" and "band_depth" (K3, the band-sharded frame), and the
-# field-major launches "field_ids" and "field_depth" (K4, the layout
-# probe; no frame launches them). Incremented by raster_tiles and
-# raster_tiles_field where they launch, and by add_launches for each
-# replay of a CUDA graph that holds their launches (app/graphs.py).
-LAUNCHES = 0
-LAUNCHES_BY_VARIANT = {"ids": 0, "depth": 0, "band_ids": 0,
-                       "band_depth": 0, "field_ids": 0, "field_depth": 0}
-
 
 def tri_records(tris: rz.ScreenTris, xrange=None) -> torch.Tensor:
     """Per-TRIANGLE records (T, 16) f32 with global-origin planes and the
@@ -385,8 +373,7 @@ LIBRARY = KernelLibrary("raster.cu", "crychic_raster", {
                         _ci, _vp], _ci),
     "crychic_raster_field": ([_vp, _ci, _vp, _vp, _ci, _ci, _ci, _ci, _vp,
                               _vp, _ci, _vp], _ci),
-    "crychic_raster_error": ([_ci], ctypes.c_char_p),
-})
+}, error="crychic_raster_error")
 
 
 def _check_cuda_inputs(fn: str, records: torch.Tensor, field_axis: int,
@@ -416,25 +403,17 @@ def _check_cuda_inputs(fn: str, records: torch.Tensor, field_axis: int,
 
 def _launch(entry: str, variant: str, records: torch.Tensor, args,
             width: int, height: int, with_ids: bool, with_xrange: bool):
-    """Allocate the outputs, call the C entry (records pointer, then
-    args, then the output pointers, the column-guard flag and the
-    stream), raise on a refused launch, count it. Returns (depth, tid)."""
-    global LAUNCHES
-    lib = LIBRARY.load()
+    """Allocate the outputs and launch the C entry (records pointer, then
+    args, then the output pointers and the column-guard flag), counted in
+    the tally as "raster.<variant>" (ops/tally.RASTER_VARIANTS). Returns
+    (depth, tid)."""
     dev = records.device
     depth = torch.empty((height, width), dtype=torch.float32, device=dev)
     tid = (torch.empty((height, width), dtype=torch.int32, device=dev)
            if with_ids else None)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = getattr(lib, entry)(
-            records.data_ptr(), *args, depth.data_ptr(),
-            tid.data_ptr() if with_ids else None, int(with_xrange), stream)
-    if rc != 0:
-        raise RuntimeError("raster kernel launch failed: "
-                           + lib.crychic_raster_error(rc).decode())
-    LAUNCHES += 1
-    LAUNCHES_BY_VARIANT[variant] += 1
+    LIBRARY.launch(entry, dev, records.data_ptr(), *args, depth.data_ptr(),
+                   tid.data_ptr() if with_ids else None, int(with_xrange),
+                   key="raster." + variant)
     return depth, tid
 
 
@@ -482,19 +461,3 @@ def raster_tiles_field(records_t: torch.Tensor, starts: torch.Tensor,
                    (records_t.shape[1], starts.data_ptr(), counts.data_ptr(),
                     grid, ntx, width, height), width, height, with_ids,
                    with_xrange)
-
-
-def reset_launches():
-    global LAUNCHES
-    LAUNCHES = 0
-    for k in LAUNCHES_BY_VARIANT:
-        LAUNCHES_BY_VARIANT[k] = 0
-
-
-def add_launches(by_variant: dict):
-    """Count launches made without the wrapper, per variant: a CUDA
-    graph's replay of the launches it captured."""
-    global LAUNCHES
-    for k, n in by_variant.items():
-        LAUNCHES_BY_VARIANT[k] += n
-        LAUNCHES += n

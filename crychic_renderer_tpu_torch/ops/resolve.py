@@ -1,5 +1,6 @@
-"""The G-buffer resolve kernel K7 (``csrc/resolve.cu``): its wrapper, its
-launch count and the record table it reads.
+"""The G-buffer resolve kernel K7 (``csrc/resolve.cu``): its wrapper and
+the record table it reads. Its launches count in the tally
+(ops/tally.py) under "resolve".
 
 The kernel computes passes/frame.py's per-pixel resolve (``_resolve_core``
 over the shade tiles ``_resolve_compacted`` keeps, or over every pixel) in
@@ -30,18 +31,12 @@ TILE_W = 128
 # the kernel's sampler modes (csrc/resolve.cu)
 TRILINEAR, ANISO, ANISO_REF = 0, 1, 2
 
-# Launches of the kernel since import (or since a caller reset it).
-# Incremented by resolve where it launches, and by add_launches for each
-# replay of a CUDA graph that holds its launches (app/graphs.py).
-LAUNCHES = 0
-
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
 LIBRARY = KernelLibrary("resolve.cu", "crychic_resolve", {
     "crychic_resolve": ([_vp, _vp, _ci, _vp, _vp, _ci, _ci, _vp, _vp, _vp,
                          _vp, _ci, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _ci,
                          _ci, _vp, _vp], _ci),
-    "crychic_resolve_error": ([_ci], ctypes.c_char_p),
-})
+}, error="crychic_resolve_error")
 
 
 def sampler_mode(anisotropy: int, aniso_probes: int) -> int:
@@ -78,7 +73,6 @@ def resolve(rec: torch.Tensor, tid: torch.Tensor, rows: int,
     view matrix. Raises ValueError for anything else, CPU tensors
     included (the CPU takes the plain version), and RuntimeError for a
     refused launch."""
-    global LAUNCHES
     dev = tid.device
     if dev.type != "cuda":
         raise ValueError("K7 runs on CUDA tensors; the CPU takes "
@@ -121,30 +115,12 @@ def resolve(rec: torch.Tensor, tid: torch.Tensor, rows: int,
         inv_ptr = inv.data_ptr()
     mode = sampler_mode(anisotropy, aniso_probes)
     out = torch.empty((rows, W, CHANNELS), dtype=torch.float32, device=dev)
-    lib = LIBRARY.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.crychic_resolve(
-            tid.data_ptr(), inv_ptr, int(capacity), rec.data_ptr(),
-            pool_data.data_ptr(), lanes, int(n_big), mat_albedo.data_ptr(),
-            mat_roughness.data_ptr(), mat_metalness.data_ptr(),
-            mat_pair.data_ptr(), n_mat, view.data_ptr(), view.stride(0),
-            view.stride(1), W, rows, int(row_offset), mode, int(anisotropy),
-            int(aniso_probes), out.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError("resolve kernel launch failed: "
-                           + lib.crychic_resolve_error(rc).decode())
-    LAUNCHES += 1
+    LIBRARY.launch(
+        "crychic_resolve", dev, tid.data_ptr(), inv_ptr, int(capacity),
+        rec.data_ptr(), pool_data.data_ptr(), lanes, int(n_big),
+        mat_albedo.data_ptr(), mat_roughness.data_ptr(),
+        mat_metalness.data_ptr(), mat_pair.data_ptr(), n_mat,
+        view.data_ptr(), view.stride(0), view.stride(1), W, rows,
+        int(row_offset), mode, int(anisotropy), int(aniso_probes),
+        out.data_ptr(), key="resolve")
     return out
-
-
-def reset_launches():
-    global LAUNCHES
-    LAUNCHES = 0
-
-
-def add_launches(n: int):
-    """Count n launches made without the wrapper: a CUDA graph's replay
-    of the launches it captured."""
-    global LAUNCHES
-    LAUNCHES += n

@@ -9,12 +9,14 @@ whose cfg, scene tensors or constants' shapes differ from those it bound,
 runs the frame once eagerly, captures it in CUDA's global capture mode on
 its own copies of the constants and replays it; every other call copies
 the constants in and replays. It returns a clone of the frame (and
-clones of the overflow flags in ``stats``); the launch counts the
-capture took are added per replay; K6 reads the window-ready map
-buffers and texture objects of the frame's ``ops/pcf.OwnedMaps``, made
-in the eager frame, never the eager texture cache; ``release()`` frees
-everything after a synchronize. A host sync left in the frame makes the capture raise, and
-nothing falls back to the eager frame.
+clones of the overflow flags in ``stats``); what the capture counted in
+the tally is added per replay (on NCCL the gathers inside the graph; on
+gloo each replay's host gathers count themselves); K6 reads the
+window-ready map buffers and texture objects of the frame's
+``ops/pcf.OwnedMaps``, made in the eager frame, never the eager texture
+cache; ``release()`` frees everything after a synchronize. A host sync
+left in the frame makes the capture raise, and nothing falls back to the
+eager frame.
 
 Its mode follows the band group's backend:
 
@@ -34,14 +36,13 @@ Its mode follows the band group's backend:
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 
 import torch
 import torch.distributed as dist
 
 from ..app import graphs as app_graphs
-from ..ops import pcf
+from ..ops import pcf, tally
 from . import sharded
 
 
@@ -62,7 +63,7 @@ class CompiledBandFrame:
     """render(scene, consts, cfg, mesh, stats) of this rank captured into
     CUDA graphs (see the module doc). After a capture: ``graphs`` (1 on
     NCCL, the gathers + 1 on gloo), ``capture_ms``, ``pool_bytes``,
-    ``launches`` (per replay)."""
+    ``launches`` (what a replay adds to the tally, by key)."""
 
     def __init__(self, render, mesh: sharded.BandMesh, device):
         self.render = render
@@ -74,9 +75,7 @@ class CompiledBandFrame:
         self.outputs = ()
         self.flags = ()
         self.key = None
-        self.launches = ({}, 0, 0, 0)
-        # the gathers inside the graph (NCCL), counted per replay
-        self.graph_gathers = (0, 0)
+        self.launches = {}
         self.capture_ms = None
         self.pool_bytes = None
 
@@ -94,9 +93,7 @@ class CompiledBandFrame:
                 if isinstance(v, torch.Tensor):
                     getattr(self.static, f.name).copy_(v)
         self.pieces.replay()
-        app_graphs.add_launches(self.launches)
-        sharded.GATHERS += self.graph_gathers[0]
-        sharded.GATHERED_BYTES += self.graph_gathers[1]
+        tally.add(self.launches)
         img, *flags = (o.clone() for o in self.outputs)
         if stats is not None:
             stats.update(zip(self.flags, flags))
@@ -106,20 +103,6 @@ class CompiledBandFrame:
         cfg, leaves, shapes = key
         return (cfg == self.key[0] and shapes == self.key[2]
                 and app_graphs._same_leaves(leaves, self.key[1]))
-
-    @contextlib.contextmanager
-    def _captured_gathers(self, pieces, nccl: bool):
-        """Around the capture: split the gathers (gloo), and take back the
-        gathers the capture counted (NCCL: they are in the graph)."""
-        before = sharded.GATHERS, sharded.GATHERED_BYTES
-        try:
-            with (contextlib.nullcontext() if nccl
-                  else sharded.split_gathers(pieces.split)):
-                yield
-        finally:
-            self.graph_gathers = (sharded.GATHERS - before[0],
-                                  sharded.GATHERED_BYTES - before[1])
-            sharded.GATHERS, sharded.GATHERED_BYTES = before
 
     def _capture(self, scene, consts, cfg, key):
         self.release()
@@ -135,7 +118,8 @@ class CompiledBandFrame:
         nccl = dist.get_backend(self.mesh.group) == "nccl"
         out, self.capture_ms, self.pool_bytes, self.launches = \
             app_graphs.capture(frame, self.device, self.maps, pieces,
-                               self._captured_gathers(pieces, nccl))
+                               None if nccl
+                               else sharded.split_gathers(pieces.split))
         self.outputs = out
         self.flags = tuple(sorted(stats))
         self.key = key

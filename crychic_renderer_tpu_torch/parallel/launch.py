@@ -36,7 +36,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-from ..ops import pcf, raster
+from ..ops import pcf, tally
 from ..passes import frame as fr
 from . import sharded
 from .graphs import CompiledBandFrame
@@ -196,11 +196,12 @@ def frame_worker(scenes: list, consts: list, runs: list, device,
     every rank waits for the slowest), issue_ms: host ms until each
     timed frame's call returned, launches: this rank's raster launches by
     variant and soft PCF launches ("pcf") over all the run's frames,
-    counted through the replay tally, frames: how many frames that is,
+    read from the tally (ops/tally.py), frames: how many frames that is,
     gathers and gathered_bytes: per timed frame, overflowed: whether any
     frame dropped pairs), and on a compiled run graph: dict(graphs,
-    pool_bytes, capture_ms, launches per replay); on the card also
-    cache_fills (K6's texture cache over the run) and profile."""
+    pool_bytes, capture_ms, launches: what a replay adds to the tally); on
+    the card also cache_fills (K6's texture cache over the run) and
+    profile."""
     if timed < 1:
         raise ValueError(f"timed {timed}: a run times at least one frame")
     device = torch.device(device)
@@ -234,13 +235,12 @@ def frame_worker(scenes: list, consts: list, runs: list, device,
                 return compiled(scene, c, cfg, stats)
             return render(scene, c, cfg, mesh, stats)
 
-        raster.reset_launches()
-        pcf.reset_launches()
+        counted = tally.snapshot()
         fills = pcf.cache_fills() if cuda else 0
         ms, issue_ms, over, img, gathered = [], [], False, None, None
         for i in range(warmup + timed):
             if i == warmup:
-                gathered = sharded.GATHERS, sharded.GATHERED_BYTES
+                gathered = tally.snapshot()
             stats = {}
             t0 = time.perf_counter()
             img = frame(stats)
@@ -251,16 +251,19 @@ def frame_worker(scenes: list, consts: list, runs: list, device,
                 issue_ms.append(1000.0 * (t1 - t0))
                 ms.append(1000.0 * (time.perf_counter() - t0))
             over = over or any(bool(v) for v in stats.values())
+        gathered = tally.since(gathered)
         res = dict(img=img.cpu().numpy(), ms=ms, issue_ms=issue_ms,
                    overflowed=over, frames=warmup + timed,
-                   gathers=(sharded.GATHERS - gathered[0]) / timed,
-                   gathered_bytes=(sharded.GATHERED_BYTES - gathered[1])
-                   / timed)
+                   gathers=gathered.get("gathers", 0) / timed,
+                   gathered_bytes=gathered.get("gathered_bytes", 0) / timed)
         if opts.get("profile") and cuda:
             res["profile"] = _profile_frames(lambda: frame({}),
                                              opts["profile"])
             res["frames"] += opts["profile"]
-        res["launches"] = dict(raster.LAUNCHES_BY_VARIANT, pcf=pcf.LAUNCHES)
+        counted = tally.since(counted)
+        res["launches"] = {v: counted.get("raster." + v, 0)
+                           for v in tally.RASTER_VARIANTS}
+        res["launches"]["pcf"] = counted.get("pcf", 0)
         if cuda:
             res["cache_fills"] = pcf.cache_fills() - fills
         if compiled is not None:

@@ -89,17 +89,12 @@ import torch
 import torch.distributed as dist
 
 from ..config import RenderConfig
-from ..ops import clipping, pcf, raster, shading, shadows
+from ..ops import clipping, pcf, raster, shading, shadows, tally
 from ..ops import rasterizer as rz
 from ..ops import ssao as ssao_ops
 from ..ops.consts import device_constant
 from ..passes import frame as fr
 
-# The gathers this process made since import (or since a caller reset
-# them), and the bytes they received: each gather made on the host, and
-# for each replay of a CUDA graph the gathers it holds (parallel/graphs.py)
-GATHERS = 0
-GATHERED_BYTES = 0
 # The split of the piecewise capture in progress (split_gathers), or None
 _SPLIT = None
 
@@ -180,14 +175,14 @@ class _Comm:
 
     def gather_into(self, out: torch.Tensor, x: torch.Tensor):
         """Gather every rank's x into the rows of out, (n_dev, ...):
-        NCCL's all_gather_into_tensor, or gloo's list form."""
-        global GATHERS, GATHERED_BYTES
+        NCCL's all_gather_into_tensor, or gloo's list form; counted in the
+        tally (ops/tally.py) as "gathers" and "gathered_bytes"."""
         if dist.get_backend(self.group) == "nccl":
             dist.all_gather_into_tensor(out, x, group=self.group)
         else:
             dist.all_gather(list(out.unbind(0)), x, group=self.group)
-        GATHERS += 1
-        GATHERED_BYTES += out.numel() * out.element_size()
+        tally.add({"gathers": 1,
+                   "gathered_bytes": out.numel() * out.element_size()})
 
 
 @contextlib.contextmanager

@@ -8,8 +8,7 @@ triangles with depth ties, which pins the sequential earliest-triangle
 rule K8's loop follows; depth_peel_plain's pixel centres are the ones
 the stages used before; the alpha stages take the plain path for CPU
 tensors and never reach the wrapper, which refuses CPU tensors; the
-table K8 reads holds the set-up's values; the graph tally carries K8's
-launches.
+table K8 reads holds the set-up's values.
 
 On the card (``cuda``; no tolerance, torch.equal on depth, ids and the
 per-peel unresolved counts): the benchmark's fence cell
@@ -34,11 +33,11 @@ import numpy as np
 import pytest
 import torch
 
-from crychic_renderer_tpu_torch.app import graphs
 from crychic_renderer_tpu_torch.app.renderer import (Renderer,
                                                      synthetic_wire_fence)
 from crychic_renderer_tpu_torch.models import scenes_baseline as sb
-from crychic_renderer_tpu_torch.ops import alpha_peel, raster, sampling
+from crychic_renderer_tpu_torch.ops import (alpha_peel, raster, sampling,
+                                            tally)
 from crychic_renderer_tpu_torch.ops import rasterizer as rz
 from crychic_renderer_tpu_torch.passes import frame as fr
 from torch_threads import cap_torch_threads
@@ -171,7 +170,7 @@ def test_stages_take_the_plain_path_on_the_cpu(small_fence, monkeypatch):
         raise AssertionError("the CPU reached the K8 wrapper")
 
     monkeypatch.setattr(alpha_peel, "peel", refuse)
-    alpha_peel.reset_launches()
+    before = tally.snapshot()
     tris, attr = fr.main_view_tris(s, consts, cfg)
     depth, tid, _ = raster.rasterize(tris, cfg.width, cfg.height,
                                      cfg.pair_capacity)
@@ -180,7 +179,7 @@ def test_stages_take_the_plain_path_on_the_cpu(small_fence, monkeypatch):
                         occupancy=occ)
     maps = fr.render_shadow_maps(s, consts, cfg)
     fr.alpha_merge_shadow(s, consts, cfg, maps)
-    assert alpha_peel.LAUNCHES == 0
+    assert "alpha_peel" not in tally.since(before)
 
     a_tris, a_attr = fr.alpha_view_tris(s, consts, cfg)
     H, W = depth.shape
@@ -235,16 +234,6 @@ def test_k8_table():
         assert torch.equal(table[:, col], want)
     assert torch.equal(table[:, alpha_peel.COEFS:], rec)
     assert rec.shape == (40, 16) and torch.equal(rec[:, 15], mat.float())
-
-
-def test_graph_tally_counts_k8():
-    """A replay's tally carries K8's launches beside the other kernels'."""
-    alpha_peel.reset_launches()
-    before = dict(raster.LAUNCHES_BY_VARIANT)
-    graphs.add_launches(({}, 0, 0, 30))
-    assert alpha_peel.LAUNCHES == 30
-    assert dict(raster.LAUNCHES_BY_VARIANT) == before
-    alpha_peel.reset_launches()
 
 
 # ---------------------------------------------------------------------------
@@ -435,12 +424,12 @@ def test_compiled_frame_goes_through_k8(cell):
     rendered eagerly with the plain peel."""
     r = cell[0]
     r.render(0.0)
-    alpha_peel.reset_launches()
+    before = tally.snapshot()
     img = r.render(0.0)
     torch.cuda.synchronize()
     want_launches = 2 * r.cfg.alpha_peels * (1 + r.cfg.num_cascades)
-    assert r.compiled_frame.launches[3] == want_launches
-    assert alpha_peel.LAUNCHES == want_launches
+    assert r.compiled_frame.launches["alpha_peel"] == want_launches
+    assert tally.since(before)["alpha_peel"] == want_launches
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(fr, "depth_peel", fr.depth_peel_plain)
         want = fr.render_frame(r.device_scene, r.frame_constants(0.0), r.cfg)

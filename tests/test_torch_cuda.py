@@ -59,7 +59,7 @@ import numpy as np
 import pytest
 import torch
 
-from crychic_renderer_tpu_torch.ops import pcf, raster, resolve
+from crychic_renderer_tpu_torch.ops import pcf, raster, tally
 from crychic_renderer_tpu_torch.ops import rasterizer as rz
 from torch_threads import cap_torch_threads
 
@@ -175,7 +175,7 @@ def cuda():
 def _check(rec, starts, counts, W, H, ids, xrange, field=False):
     """One launch (field: K4 on the (16, P) transpose) against
     rasterize_plain, and its count."""
-    before = dict(raster.LAUNCHES_BY_VARIANT)
+    before = tally.snapshot()
     if field:
         d, t = raster.raster_tiles_field(rec.t().contiguous(), starts,
                                          counts, W, H, with_ids=ids,
@@ -184,8 +184,9 @@ def _check(rec, starts, counts, W, H, ids, xrange, field=False):
         d, t = raster.raster_tiles(rec, starts, counts, W, H, with_ids=ids,
                                    with_xrange=xrange)
     torch.cuda.synchronize()
-    key = ("field_" if field else "") + ("ids" if ids else "depth")
-    assert raster.LAUNCHES_BY_VARIANT[key] == before[key] + 1
+    key = "raster." + ("field_" if field else "") + ("ids" if ids
+                                                     else "depth")
+    assert tally.since(before) == {key: 1}
     d0, t0 = raster.rasterize_plain(rec, starts, counts, W, H, with_ids=ids,
                                     with_xrange=xrange)
     assert torch.equal(d, d0)
@@ -321,11 +322,11 @@ def test_band_kernel_equals_plain_config4_small(cuda, view, n):
                                                   **kw)
         assert not bool(over)
         off, rows = raster.band_grid(W, H, row_stride=(n, d))
-        before = dict(raster.LAUNCHES_BY_VARIANT)
+        before = tally.snapshot()
         dk, tk = raster.raster_tiles(rec, st, cn, W, rows, ids, not ids, off)
         torch.cuda.synchronize()
-        key = "band_ids" if ids else "band_depth"
-        assert raster.LAUNCHES_BY_VARIANT[key] == before[key] + 1
+        key = "raster.band_ids" if ids else "raster.band_depth"
+        assert tally.since(before) == {key: 1}
         dp, tp = raster.rasterize_plain(rec, st, cn, W, rows, ids, not ids,
                                         off)
         assert torch.equal(dk, dp) and (not ids or torch.equal(tk, tp))
@@ -343,16 +344,17 @@ def test_band_kernel_rejects_malformed_grid(cuda):
     rows is refused before anything launches."""
     rec = torch.zeros((128, 16), device=cuda)
     keys = torch.zeros(45, dtype=torch.int32, device=cuda)
-    before = raster.LAUNCHES
+    before = tally.snapshot()
     for off, rows in ((30, 16), (7, 8), (-15, 8), (15, 12)):
         with pytest.raises(ValueError, match="band of"):
             raster.raster_tiles(rec, keys, keys, 1920, rows,
                                 tile_offset=off)
-    assert raster.LAUNCHES == before
+    assert tally.since(before) == {}
     d, _ = raster.raster_tiles(rec, keys, keys, 1920, 8, with_ids=False,
                                tile_offset=30)
     torch.cuda.synchronize()
-    assert raster.LAUNCHES == before + 1 and bool((d == 1.0).all())
+    assert tally.since(before) == {"raster.band_depth": 1}
+    assert bool((d == 1.0).all())
 
 
 @pytest.mark.cuda
@@ -409,10 +411,10 @@ def _pcf_inputs(device, n=50000, S=256, seed=0):
 @pytest.mark.cuda
 def test_pcf_kernel_equals_plain(cuda):
     qmap, params = _pcf_inputs(cuda)
-    before = pcf.LAUNCHES
+    before = tally.snapshot()
     got = pcf.soft_pcf(qmap, params, 2.5)
     torch.cuda.synchronize()
-    assert pcf.LAUNCHES == before + 1
+    assert tally.since(before) == {"pcf": 1}
     ref = pcf.soft_pcf_plain(qmap, params, 2.5)
     assert float((got - ref).abs().max()) <= 1e-5
     assert 0.1 < float(((ref > 0) & (ref < 1)).float().mean())
@@ -497,12 +499,12 @@ def test_cuda_inputs_never_reach_the_plain_versions(cuda, monkeypatch):
     scene, cfg, lights = CONFIGS[4]()
     cfg = dataclasses.replace(cfg, width=240, height=135, shadow_map_size=256,
                               pcf_radius_texels=2.5)
-    before = pcf.LAUNCHES
+    before = tally.snapshot()
     img = Renderer(scene, cfg, lights=lights).render(0.0)
     torch.cuda.synchronize()
     assert img.is_cuda and bool(torch.isfinite(img).all())
     # the first render: the eager frame before the capture, then a replay
-    assert pcf.LAUNCHES == before + 2
+    assert tally.since(before)["pcf"] == 2
 
 
 @pytest.mark.cuda
@@ -516,10 +518,10 @@ def test_pcf_kernel_untexturable_maps(cuda):
         tex, has_tex = pcf.make_texture(qmap)
         assert has_tex == 1
         pcf.destroy_texture(tex)
-        before = pcf.LAUNCHES
+        before = tally.snapshot()
         got = pcf.soft_pcf(qmap, params, 2.5)
         torch.cuda.synchronize()
-        assert pcf.LAUNCHES == before + 1
+        assert tally.since(before) == {"pcf": 1}
         ref = pcf.soft_pcf_plain(qmap, params, 2.5)
         assert float((got - ref).abs().max()) <= 1e-5
     qmap, params = _pcf_inputs(cuda)
@@ -527,10 +529,10 @@ def test_pcf_kernel_untexturable_maps(cuda):
     shifted = buf[1:].view(qmap.shape)
     shifted.copy_(qmap)
     assert shifted.data_ptr() % 512 != 0 and shifted.is_contiguous()
-    before = pcf.LAUNCHES
+    before = tally.snapshot()
     with pytest.raises(RuntimeError, match="misaligned"):
         pcf.soft_pcf(shifted, params, 2.5)
-    assert pcf.LAUNCHES == before
+    assert tally.since(before) == {}
 
 
 @pytest.mark.cuda
@@ -634,10 +636,10 @@ def test_xla_and_no_statics_frames_on_card(cuda, case):
     if case == "xla":
         xcfg = dataclasses.replace(cfg, use_pallas=False)
         r = tren.Renderer(scene, xcfg, lights=lights, device=cuda)
-        raster.reset_launches()
+        before = tally.snapshot()
         got = r.render(0.0)
         torch.cuda.synchronize()
-        assert raster.LAUNCHES == 0
+        assert not any(k.startswith("raster.") for k in tally.since(before))
         cpu = tren.Renderer(scene, xcfg, lights=lights,
                             device="cpu").render_np(0.0)
         for ref in (want, torch.from_numpy(cpu).to(cuda)):
@@ -802,24 +804,19 @@ def test_replay_launch_tally(cuda):
     cfg = dataclasses.replace(cfg, width=480, height=270,
                               pcf_radius_texels=2.5)
     r = Renderer(scene, cfg, lights=lights, device=cuda)
-    raster.reset_launches()
-    pcf.reset_launches()
-    resolve.reset_launches()
+    before = tally.snapshot()
     r.render(0.0)
     torch.cuda.synchronize()
-    assert (raster.LAUNCHES_BY_VARIANT["ids"],
-            raster.LAUNCHES_BY_VARIANT["depth"], pcf.LAUNCHES,
-            resolve.LAUNCHES) == (2, 2, 2, 2)
-    assert r.compiled_frame.launches == ({"ids": 1, "depth": 1}, 1, 1, 0)
-    raster.reset_launches()
-    pcf.reset_launches()
-    resolve.reset_launches()
+    assert tally.since(before) == {"raster.ids": 2, "raster.depth": 2,
+                                   "pcf": 2, "resolve": 2}
+    assert r.compiled_frame.launches == {"raster.ids": 1, "raster.depth": 1,
+                                         "pcf": 1, "resolve": 1}
+    before = tally.snapshot()
     for i in range(3):
         r.render(i / 60.0)
     torch.cuda.synchronize()
-    assert raster.LAUNCHES == 6 and pcf.LAUNCHES == 3
-    assert resolve.LAUNCHES == 3
-    assert raster.LAUNCHES_BY_VARIANT["ids"] == 3
+    assert tally.since(before) == {"raster.ids": 3, "raster.depth": 3,
+                                   "pcf": 3, "resolve": 3}
     r.check_overflow()
     pool = r.compiled_frame.pool_bytes
     assert pool > 0
@@ -931,8 +928,11 @@ def test_compiled_band_frame_gloo_replay_equals_eager(cuda):
             graph, eager = rank_runs[k], rank_runs[k + 1]
             assert np.array_equal(graph["img"], eager["img"])
             assert graph["graph"]["graphs"] == eager["gathers"] + 1
-            per = {"band_ids": 1, "band_depth": 1}
-            assert graph["graph"]["launches"] == (per, 1 if k else 0, 1, 0)
+            per = {"raster.band_ids": 1, "raster.band_depth": 1,
+                   "resolve": 1}
+            if k:
+                per["pcf"] = 1
+            assert graph["graph"]["launches"] == per
             n = graph["frames"] + 1
             assert graph["launches"]["band_ids"] == n
             assert graph["launches"]["pcf"] == (n if k else 0)

@@ -5,7 +5,7 @@ On the CPU (counted in the tier-1 run): resolve_gbuffer takes the plain
 version for CPU tensors, and its compacted, dense and band G-buffers
 equal _resolve_core's dense one; the padded record table K7 reads holds
 _build_resolve_records' values; the sampler mode follows the config; the
-wrapper refuses CPU tensors; the graph tally carries K7's launches.
+wrapper refuses CPU tensors.
 
 On the card (``cuda``; no tolerance, torch.equal on every plane): config
 4 at 1920x1080 at the reference pose; config 5 from the full synthetic
@@ -28,11 +28,10 @@ import math
 import pytest
 import torch
 
-from crychic_renderer_tpu_torch.app import graphs
 from crychic_renderer_tpu_torch.app.renderer import Renderer
 from crychic_renderer_tpu_torch.models import scenes_baseline as sb
 from crychic_renderer_tpu_torch.models.camera import Camera
-from crychic_renderer_tpu_torch.ops import raster, resolve
+from crychic_renderer_tpu_torch.ops import raster, resolve, tally
 from crychic_renderer_tpu_torch.passes import frame as fr
 from torch_threads import cap_torch_threads
 
@@ -179,19 +178,6 @@ def test_kernel_refuses_cpu_tensors(small4):
                         s.mat_metalness, s.mat_pair, consts.view, 8, 2)
 
 
-def test_graph_tally_counts_k7():
-    """A replay's tally carries K7's launches beside the raster kernel's
-    and the soft PCF's."""
-    resolve.reset_launches()
-    before = dict(raster.LAUNCHES_BY_VARIANT)
-    graphs.add_launches(({}, 0, 3, 0))
-    assert resolve.LAUNCHES == 3
-    assert dict(raster.LAUNCHES_BY_VARIANT) == before
-    resolve.reset_launches()
-    frame = graphs.CompiledFrame(lambda scene: None, "cpu")
-    assert frame.launches == ({}, 0, 0, 0)
-
-
 # ---------------------------------------------------------------------------
 # The card
 # ---------------------------------------------------------------------------
@@ -329,10 +315,11 @@ def test_compiled_frame_goes_through_k7(cuda, monkeypatch):
     scene, cfg, lights = sb.CONFIGS[4]()
     r = Renderer(scene, cfg, lights=lights, device=cuda)
     r.render(0.0)
-    resolve.reset_launches()
+    before = tally.snapshot()
     img = r.render(0.0)
     torch.cuda.synchronize()
-    assert r.compiled_frame.launches[2] == 1 and resolve.LAUNCHES == 1
+    assert r.compiled_frame.launches["resolve"] == 1
+    assert tally.since(before)["resolve"] == 1
     monkeypatch.setattr(fr, "resolve_gbuffer", fr.resolve_gbuffer_plain)
     want = fr.render_frame(r.device_scene, r.frame_constants(0.0), r.cfg)
     assert torch.equal(img, want)

@@ -33,7 +33,7 @@ import torch
 from crychic_renderer_tpu_torch.app import graphs, profiler
 from crychic_renderer_tpu_torch.app import renderer as tren
 from crychic_renderer_tpu_torch.models import scenes_baseline as tsb
-from crychic_renderer_tpu_torch.ops import pcf, raster
+from crychic_renderer_tpu_torch.ops import pcf, raster, tally
 from crychic_renderer_tpu_torch.parallel import launch, sharded
 from crychic_renderer_tpu_torch.passes import frame as fr
 from test_torch_app import _jax_profiler_keys
@@ -85,12 +85,12 @@ def _piecewise(render, scene, c, cfg, mesh):
 
         pieces.split(logged, out, x)
 
-    n0 = sharded.GATHERS
+    before = tally.snapshot()
     pieces.begin()
     with sharded.split_gathers(split):
         img = render(scene, c, cfg, mesh)
     pieces.end()
-    made = sharded.GATHERS - n0
+    made = tally.since(before).get("gathers", 0)
     captured = list(log)
     log.clear()
     pieces.replay()
