@@ -12,7 +12,8 @@ soft PCF kernel (csrc/pcf.cu). Phases, each printed as it ends:
 
 1. the card's name and power limit (nvidia-smi);
 2. the kernels built from the checkout's sources (raster, soft PCF,
-   resolve and alpha peel libraries), one nvcc each, started together,
+   resolve, alpha peel and SSAO libraries), one nvcc each, started
+   together,
    and their build times;
 3. the Renderer at 1080p, with the capacities it sized (the atlas pair
    count is what the atlas binning expands; the tile capacities of the
@@ -307,6 +308,18 @@ soft PCF kernel (csrc/pcf.cu). Phases, each printed as it ends:
    counted on these inputs) and the plain version's ms; then 1 + 5
    frames through Renderer.render, 2 x alpha_peels launches per view or
    window and per replay, and profile_frame's alpha stages.
+32. the SSAO kernel (K9, csrc/ssao.cu) on config 4's and config 5's
+   1080p inputs (config 5 from the phase-20 files): the whole ssao_pass
+   through K9 (one occlusion launch over the compacted frame's SSAO tile
+   table, three blur launches) against ssao_pass_plain, the map, the
+   overflow flag and the tile count torch.equal; each launch alone
+   against its plain version (the compacted occlusion, one blur
+   iteration), torch.equal, with the kernel's ms (CUDA events around 20
+   back-to-back wrapper calls) and device ms (torch.profiler) beside
+   the bound (K9_*_OPS below, the kept pixels counted on these inputs)
+   and the plain version's ms; then 1 + 5 frames through
+   Renderer.render, one occlusion and three blur launches per frame and
+   per replay.
 
 Renderer.render replays a CUDA graph: a Renderer's first render, and the
 first after its cfg is replaced, runs one eager frame before it captures
@@ -322,7 +335,8 @@ rate with every operation rounded on its own, as the kernels are built
 (-fmad=false): for the raster kernel the warp-level reject's test of
 every (record, warp) pair and the pixel tests of the pairs it keeps,
 for K6 460 per receiver-cascade, for K7 about 1,050 per covered pixel of
-a resolved tile) and, last, the device line. Any
+a resolved tile, for K9 about 2,000 per kept SSAO pixel and 306 per
+pixel and blur iteration) and, last, the device line. Any
 failed phase raises, so the script exits non-zero and prints no result;
 so does a machine without CUDA, and a directory without the repository.
 """
@@ -439,6 +453,24 @@ K8_TEST_OPS = 75
 # (u, v, z, id); the test reads them and the result, writes the result
 # and the floor
 K8_BYTES_PER_PIXEL = 4 + 16 + 16 + 4 + 12
+# K9's f32 operations, counted from csrc/ssao.cu (a division or a square
+# root counted once): the occlusion's 62 per kept pixel for the view ray
+# (uv, the 4x4 row transform of 32), the position and the normalized
+# normal, 137 per tap (the reflection 13, the flip 9, the offset point 6,
+# the projection 32 + 8, the bilinear border-white tap 34, the view depth
+# and the reconstructed point 10, the range and the angle terms 16, the
+# falloff and the sum 7) and 20 for the mean, the clamp and the pow; the
+# blur's 2 per pixel for the view depth and 152 per pixel and pass (the
+# centre weight, 10 taps of 15: the normal dot and its stop 7, the depth
+# stop 3, their and 1, the weight and the two sums 4; the division)
+K9_OCCLUSION_OPS = 62 + 14 * 137 + 20
+K9_BLUR_OPS = 2 + 2 * 152
+# K9's bytes: the occlusion reads each kept pixel's depth, normal and
+# random vector and the full-res depth its taps sample, and writes the
+# whole map; a blur iteration reads the map, the normals and the depth
+# and writes the map
+K9_KEPT_BYTES = 4 + 12 + 12
+K9_BLUR_BYTES = 4 + 12 + 4 + 4
 # the benchmark's fence cell, whose scene, assets and pose phase 31 uses
 FENCE_CELL = "c4fence-static-q3"
 FENCE_SEED = 2 ** 31 + 21
@@ -527,7 +559,7 @@ def main():
     from crychic_renderer_tpu_torch.app.renderer import Renderer
     from crychic_renderer_tpu_torch.models.scenes_baseline import CONFIGS
     from crychic_renderer_tpu_torch.ops import (alpha_peel, build, pcf,
-                                                raster, resolve)
+                                                raster, resolve, ssao_kernel)
     from crychic_renderer_tpu_torch.ops import rasterizer as rz
     from crychic_renderer_tpu_torch.ops import shading, shadows
     from crychic_renderer_tpu_torch.passes import frame as fr
@@ -545,7 +577,8 @@ def main():
     print(smi, flush=True)
 
     # 2. the kernels, built from the checkout, one nvcc each, in parallel
-    libs = (raster.LIBRARY, pcf.LIBRARY, resolve.LIBRARY, alpha_peel.LIBRARY)
+    libs = (raster.LIBRARY, pcf.LIBRARY, resolve.LIBRARY, alpha_peel.LIBRARY,
+            ssao_kernel.LIBRARY)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         for f in [pool.submit(lib.load, True) for lib in libs]:
@@ -871,6 +904,12 @@ def main():
     phase(f"[31] phase 31 took {t13 - t12:.1f} s; the script "
           f"{t13 - t_script:.1f} s, kernel builds included")
 
+    # 32: K9, the SSAO occlusion and blur, against their plain version
+    kernels.extend(ssao_kernel_runs(dev, assets, launches, smi))
+    t14 = time.perf_counter()
+    phase(f"[32] phase 32 took {t14 - t13:.1f} s; the script "
+          f"{t14 - t_script:.1f} s, kernel builds included")
+
     kernels.sort(key=lambda k: k["name"])
     for k in kernels:
         variant = k.pop("variant")
@@ -964,6 +1003,125 @@ def resolve_kernel_runs(dev, assets, launches, card):
               f"{eager_ms:.4f} ms; 1 + "
               f"{frames} frames: {n_k7} K7 launches, "
               f"{per_replay} per replay")
+        r.close()
+        del r
+    return entries
+
+
+def ssao_kernel_runs(dev, assets, launches, card):
+    """Phase 32 (see the module doc). Returns the kernels-line entries of
+    K9's occlusion and blur on config 4's and config 5's inputs."""
+    from crychic_renderer_tpu_torch.app.renderer import Renderer
+    from crychic_renderer_tpu_torch.models import scenes_baseline as sb
+    from crychic_renderer_tpu_torch.ops import raster, ssao_kernel, tally
+    from crychic_renderer_tpu_torch.passes import frame as fr
+
+    phase(f"[32] card: {card}")
+    entries = []
+    for name, kw in (("config4", {}), ("config5", assets)):
+        scene, cfg, lights = sb.CONFIGS[int(name[-1])]()
+        r = Renderer(scene, cfg, lights=lights, device=dev, **kw)
+        s, cfg = r.device_scene, r.cfg
+        consts = r.frame_constants(0.0)
+        tris, attr = fr.main_view_tris(s, consts, cfg)
+        depth, tid, _ = raster.rasterize(tris, cfg.width, cfg.height,
+                                         cfg.pair_capacity)
+        g = fr.resolve_gbuffer(s, consts, cfg, tris, depth, tid, attr)
+        valid = tid >= 0
+        runs = []
+        for fn in (fr.ssao_pass, fr.ssao_pass_plain):
+            stats, occ = {}, {}
+            runs.append((fn(s, consts, cfg, g["normal_v"], depth,
+                            valid=valid, stats=stats, occupancy=occ),
+                         stats, occ))
+        (got, stats, occ), (want, stats0, occ0) = runs
+        assert torch.equal(got, want), f"{name}: K9's access map differs"
+        for k in stats:
+            assert torch.equal(stats[k], stats0[k]), (name, k)
+        for k in occ:
+            assert torch.equal(occ[k], occ0[k]), (name, k)
+
+        # each launch alone, on the inputs the frame hands it
+        n_half, d_half = fr.ssao_inputs_half(cfg, g["normal_v"], depth)
+        h, w = d_half.shape
+        _, inv, _, _ = fr._compact(fr._ssao_occupied(cfg, h, w, valid),
+                                   cfg.ssao_tile_capacity)
+        cb = min(cfg.ssao_tile_capacity, inv.shape[0])
+        plain_occ, _ = fr._ssao_occlusion_compacted(s, consts, cfg, n_half,
+                                                    d_half, depth, valid)
+
+        def occlusion():
+            return ssao_kernel.occlusion(
+                n_half, d_half, consts.proj, consts.inv_proj, s.ssao_offsets,
+                random_field=s.ssao_random_field, tap_depth=depth, inv=inv,
+                capacity=cb)
+
+        def blur():
+            return ssao_kernel.blur(plain_occ, n_half, d_half,
+                                    s.ssao_blur_weights, consts.proj)
+
+        one = dataclasses.replace(cfg, ssao_blur_count=1)
+
+        def blur_plain():
+            return fr.ssao_blur_plain(s, consts, one, plain_occ, n_half,
+                                      d_half)
+
+        assert torch.equal(occlusion(), plain_occ), name
+        assert torch.equal(blur(), blur_plain()), name
+        # the kept tiles' pixels inside the map
+        tiles = fr._tiles(torch.ones_like(d_half), fr.SSAO_TILE_H,
+                          fr.SSAO_TILE_W, 0.0)[0][..., 0]
+        kept_px = int(tiles[inv < cb].sum())
+        H, W = depth.shape
+        found = {}
+        for what, fn, plain_fn, kernel, nbytes, ops in (
+                ("occlusion", occlusion,
+                 lambda: fr._ssao_occlusion_compacted(
+                     s, consts, cfg, n_half, d_half, depth, valid),
+                 "occlusion_kernel",
+                 kept_px * K9_KEPT_BYTES + (H * W + h * w) * 4,
+                 kept_px * K9_OCCLUSION_OPS),
+                ("blur", blur, blur_plain, "blur_kernel",
+                 h * w * K9_BLUR_BYTES, h * w * K9_BLUR_OPS)):
+            ms = cuda_ms(fn, 2 * DECOMP_REPS)
+            dev_ms = device_ms(fn, 2 * DECOMP_REPS, kernel)
+            plain_ms = cuda_ms(plain_fn, 3)
+            keys, note = bound(nbytes, ops)
+            found[what] = (ms, dev_ms, plain_ms, keys, note)
+            entries.append(dict(
+                name=f"K9 ssao {what} {name} {w}x{h}",
+                variant=f"ssao.{what}", runs=[f"p32_{name}"], kernel_ms=ms,
+                device_ms=dev_ms, plain_ms=plain_ms, **keys,
+                device_share_of_bound=keys["bound_ms"] / dev_ms,
+                kept_tiles=cb, kept_pixels=kept_px, bytes=nbytes, ops=ops))
+
+        # frames through Renderer.render: one occlusion and
+        # ssao_blur_count blur launches per frame
+        frames = 5
+        before = tally.snapshot()
+        for i in range(frames + 1):
+            r.render(i / 60.0)
+        torch.cuda.synchronize()
+        per_replay = r.compiled_frame.launches
+        moved = tally.since(before)
+        n_occ = moved.get("ssao.occlusion", 0)
+        n_blur = moved.get("ssao.blur", 0)
+        nb = cfg.ssao_blur_count
+        assert (per_replay["ssao.occlusion"], per_replay["ssao.blur"]) == (
+            1, nb), per_replay
+        assert (n_occ, n_blur) == (frames + 2, nb * (frames + 2)), moved
+        launches[f"p32_{name}"] = {"ssao.occlusion": n_occ,
+                                   "ssao.blur": n_blur}
+        line = "; ".join(
+            f"{what} kernel {ms:.4f} ms, device {dev_ms:.4f} ms ({note}: "
+            f"{100.0 * keys['bound_ms'] / dev_ms:.1f}%), plain version "
+            f"{plain_ms:.3f} ms"
+            for what, (ms, dev_ms, plain_ms, keys, note) in found.items())
+        phase(f"[32] K9 {name} {w}x{h}, {int(occ['ssao_tiles'])} SSAO tiles "
+              f"needed, {cb} of {inv.shape[0]} kept ({kept_px} pixels): the "
+              f"map, flag and count torch.equal to ssao_pass_plain; {line}; "
+              f"1 + {frames} frames: {n_occ} occlusion and {n_blur} blur "
+              f"launches, 1 and {nb} per replay")
         r.close()
         del r
     return entries
@@ -2863,7 +3021,8 @@ def band_graph_runs(r, consts, band_cfg, dev, frame_ms, launches, p22,
                 total[key] += out["launches"][key]
             if compiled:
                 per_replay = {"raster.band_ids": 1, "raster.band_depth": 1,
-                              "resolve": 1}
+                              "resolve": 1, "ssao.occlusion": 1,
+                              "ssao.blur": cfg.ssao_blur_count}
                 if want["pcf"]:
                     per_replay["pcf"] = 1
                 assert out["graph"]["launches"] == per_replay, \

@@ -5,7 +5,8 @@ Keys (``KEYS``): ``raster.<variant>`` for the raster kernel's variants
 (``RASTER_VARIANTS``: "ids" K1 the main view, "depth" K2 the shadow
 atlas, "band_ids" and "band_depth" K3 the band-sharded frame,
 "field_ids" and "field_depth" K4 the layout probe), "pcf" (K6),
-"resolve" (K7), "alpha_peel" (K8, two a peel round), "gathers" and
+"resolve" (K7), "alpha_peel" (K8, two a peel round), "ssao.occlusion"
+and "ssao.blur" (K9, one a frame and one a blur iteration), "gathers" and
 "gathered_bytes" (the band frame's all-gathers and the bytes they
 received, ``parallel/sharded._Comm.gather_into``).
 
@@ -20,7 +21,8 @@ from __future__ import annotations
 RASTER_VARIANTS = ("ids", "depth", "band_ids", "band_depth", "field_ids",
                    "field_depth")
 KEYS = tuple(f"raster.{v}" for v in RASTER_VARIANTS) + (
-    "pcf", "resolve", "alpha_peel", "gathers", "gathered_bytes")
+    "pcf", "resolve", "alpha_peel", "ssao.occlusion", "ssao.blur", "gathers",
+    "gathered_bytes")
 
 _COUNTS = dict.fromkeys(KEYS, 0)
 

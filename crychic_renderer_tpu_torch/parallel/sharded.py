@@ -92,6 +92,7 @@ from ..config import RenderConfig
 from ..ops import clipping, pcf, raster, shading, shadows, tally
 from ..ops import rasterizer as rz
 from ..ops import ssao as ssao_ops
+from ..ops import ssao_kernel
 from ..ops.consts import device_constant
 from ..passes import frame as fr
 
@@ -454,7 +455,10 @@ def _band_ssao(scene: fr.DeviceScene, consts: fr.FrameConstants,
     depth_all = comm.all_gather(depth).reshape(n * band_h, W)[:H]
     # padded bands read random-field rows past the true height: don't-care
     field = _pad_rows(scene.ssao_random_field, n * bh)
-    access = ssao_ops.ssao_occlusion(
+    # K9's dense mode on the card, the plain occlusion on the CPU
+    occlusion = (ssao_kernel.occlusion if d_half.is_cuda
+                 else ssao_ops.ssao_occlusion)
+    access = occlusion(
         n_half, d_half, consts.proj, consts.inv_proj, scene.ssao_offsets,
         random_field=field[d * bh:(d + 1) * bh], tap_depth=depth_all,
         row_offset=d * bh, full_height=true_h)

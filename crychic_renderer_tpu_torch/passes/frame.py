@@ -59,6 +59,7 @@ from ..ops import (alpha_peel, clipping, raster, resolve, sampling,
                    shading, shadows)
 from ..ops import rasterizer as rz
 from ..ops import ssao as ssao_ops
+from ..ops import ssao_kernel
 from ..ops.consts import device_constant
 
 # ---------------------------------------------------------------------------
@@ -939,7 +940,25 @@ def ssao_inputs_half(cfg: RenderConfig, normal_v: torch.Tensor,
 def ssao_blur(scene: DeviceScene, consts: FrameConstants, cfg: RenderConfig,
               access: torch.Tensor, n_half: torch.Tensor,
               d_half: torch.Tensor) -> torch.Tensor:
-    """N two-pass (horizontal + vertical) bilateral blurs."""
+    """N two-pass (horizontal + vertical) bilateral blurs.
+
+    CUDA tensors go through K9 (ops/ssao_kernel.blur), one launch an
+    iteration, which gives the same map bit for bit; CPU tensors take
+    ssao_blur_plain."""
+    if not access.is_cuda:
+        return ssao_blur_plain(scene, consts, cfg, access, n_half, d_half)
+    for _ in range(cfg.ssao_blur_count):
+        access = ssao_kernel.blur(access, n_half, d_half,
+                                  scene.ssao_blur_weights, consts.proj)
+    return access
+
+
+def ssao_blur_plain(scene: DeviceScene, consts: FrameConstants,
+                    cfg: RenderConfig, access: torch.Tensor,
+                    n_half: torch.Tensor,
+                    d_half: torch.Tensor) -> torch.Tensor:
+    """ssao_blur's plain version (PyTorch ops on any device): the CPU's
+    path, and what the card tests hold K9 against."""
     A, B = consts.proj[2, 2], consts.proj[3, 2]
     d_view = ssao_ops.ndc_depth_to_view(d_half, A, B)
     # off-screen neighbor taps read the white depth border (NDC 1 = the
@@ -973,6 +992,17 @@ def _ssao_tile_occupancy(valid_half: torch.Tensor, nty: int,
     return _dilate(tv, *_SSAO_DILATE_TILES).reshape(-1)
 
 
+def _ssao_occupied(cfg: RenderConfig, h: int, w: int,
+                   valid: torch.Tensor) -> torch.Tensor:
+    """(NT,) bool: the (8, 32) tiles of the (h, w) SSAO map the compacted
+    occlusion evaluates (_ssao_tile_occupancy of the half-res validity:
+    any covered full-res pixel in the k x k block)."""
+    k = cfg.ssao_scale
+    vh = valid[:h * k, :w * k].reshape(h, k, w, k).any(dim=3).any(dim=1)
+    return _ssao_tile_occupancy(vh, -(-h // SSAO_TILE_H),
+                                -(-w // SSAO_TILE_W))
+
+
 def _ssao_occlusion_compacted(scene: DeviceScene, consts: FrameConstants,
                               cfg: RenderConfig, n_half, d_half, depth,
                               valid, occupancy: dict = None):
@@ -993,11 +1023,8 @@ def _ssao_occlusion_compacted(scene: DeviceScene, consts: FrameConstants,
     occupancy (optional dict) receives "ssao_tiles", _compact's needed."""
     TH, TW = SSAO_TILE_H, SSAO_TILE_W
     h, w = d_half.shape
-    k = cfg.ssao_scale
     nty, ntx = -(-h // TH), -(-w // TW)
-    # half-res validity: any covered full-res pixel in the k x k block
-    vh = valid[:h * k, :w * k].reshape(h, k, w, k).any(dim=3).any(dim=1)
-    kept, inv, over, needed = _compact(_ssao_tile_occupancy(vh, nty, ntx),
+    kept, inv, over, needed = _compact(_ssao_occupied(cfg, h, w, valid),
                                        cfg.ssao_tile_capacity)
     # ONE packed (depth, normal, random field) tile table + the fill row:
     # depth 1, normal (0, 0, 1), field 0
@@ -1035,7 +1062,39 @@ def ssao_pass(scene: DeviceScene, consts: FrameConstants, cfg: RenderConfig,
     (_ssao_occlusion_compacted) and stats (optional dict) receives
     "ssao_tiles_overflowed", a 0-d bool tensor, occupancy (optional dict)
     "ssao_tiles", the tiles evaluated (0-d int64), what
-    ssao_tile_capacity bounds; the blurs stay dense."""
+    ssao_tile_capacity bounds; the blurs stay dense.
+
+    CUDA tensors go through K9 (ops/ssao_kernel.py): one occlusion launch
+    over _compact's tile -> slot table (every pixel for the dense pass)
+    that writes the (h, w) map, then ssao_blur's launches; the same map
+    bit for bit. CPU tensors take ssao_pass_plain."""
+    if not depth.is_cuda:
+        return ssao_pass_plain(scene, consts, cfg, normal_v, depth, valid,
+                               stats, occupancy)
+    n_half, d_half = ssao_inputs_half(cfg, normal_v, depth)
+    inv, capacity = None, 0
+    if cfg.ssao_tile_capacity and valid is not None:
+        _, inv, over, needed = _compact(
+            _ssao_occupied(cfg, *d_half.shape, valid), cfg.ssao_tile_capacity)
+        capacity = min(int(cfg.ssao_tile_capacity), inv.shape[0])
+        if stats is not None:
+            stats["ssao_tiles_overflowed"] = over
+        if occupancy is not None:
+            occupancy["ssao_tiles"] = needed
+    access = ssao_kernel.occlusion(
+        n_half, d_half, consts.proj, consts.inv_proj, scene.ssao_offsets,
+        random_field=scene.ssao_random_field, tap_depth=depth.contiguous(),
+        inv=inv, capacity=capacity)
+    return ssao_blur(scene, consts, cfg, access, n_half, d_half)
+
+
+def ssao_pass_plain(scene: DeviceScene, consts: FrameConstants,
+                    cfg: RenderConfig, normal_v: torch.Tensor,
+                    depth: torch.Tensor, valid: torch.Tensor = None,
+                    stats: dict = None,
+                    occupancy: dict = None) -> torch.Tensor:
+    """ssao_pass's plain version (PyTorch ops on any device): the CPU's
+    path, and what the card tests hold K9 against."""
     n_half, d_half = ssao_inputs_half(cfg, normal_v, depth)
     if cfg.ssao_tile_capacity and valid is not None:
         access, over = _ssao_occlusion_compacted(
@@ -1046,7 +1105,7 @@ def ssao_pass(scene: DeviceScene, consts: FrameConstants, cfg: RenderConfig,
         access = ssao_ops.ssao_occlusion(
             n_half, d_half, consts.proj, consts.inv_proj, scene.ssao_offsets,
             random_field=scene.ssao_random_field, tap_depth=depth)
-    return ssao_blur(scene, consts, cfg, access, n_half, d_half)
+    return ssao_blur_plain(scene, consts, cfg, access, n_half, d_half)
 
 
 def _upsample_bilinear(img: torch.Tensor, H: int, W: int) -> torch.Tensor:

@@ -804,19 +804,19 @@ def test_replay_launch_tally(cuda):
     cfg = dataclasses.replace(cfg, width=480, height=270,
                               pcf_radius_texels=2.5)
     r = Renderer(scene, cfg, lights=lights, device=cuda)
+    per_frame = {"raster.ids": 1, "raster.depth": 1, "pcf": 1,
+                 "resolve": 1, "ssao.occlusion": 1,
+                 "ssao.blur": r.cfg.ssao_blur_count}
     before = tally.snapshot()
     r.render(0.0)
     torch.cuda.synchronize()
-    assert tally.since(before) == {"raster.ids": 2, "raster.depth": 2,
-                                   "pcf": 2, "resolve": 2}
-    assert r.compiled_frame.launches == {"raster.ids": 1, "raster.depth": 1,
-                                         "pcf": 1, "resolve": 1}
+    assert tally.since(before) == {k: 2 * n for k, n in per_frame.items()}
+    assert r.compiled_frame.launches == per_frame
     before = tally.snapshot()
     for i in range(3):
         r.render(i / 60.0)
     torch.cuda.synchronize()
-    assert tally.since(before) == {"raster.ids": 3, "raster.depth": 3,
-                                   "pcf": 3, "resolve": 3}
+    assert tally.since(before) == {k: 3 * n for k, n in per_frame.items()}
     r.check_overflow()
     pool = r.compiled_frame.pool_bytes
     assert pool > 0
@@ -918,8 +918,9 @@ def test_compiled_band_frame_gloo_replay_equals_eager(cuda):
     """2 gloo ranks sharing the card: the compiled band frame, captured in
     pieces (the gathers + 1 graphs), is torch.equal to the eager band
     frame on every rank, with the zero radius and the soft disk; per
-    replay one K3 launch of each kind (and one K6 with the soft disk),
-    and the eager frame before the capture adds one of each."""
+    replay one K3 launch of each kind, one K7, K9's occlusion once and
+    its blur three times (and one K6 with the soft disk), and the eager
+    frame before the capture adds one of each."""
     soft = dict(pcf_radius_texels=2.5)
     runs = [({}, {}), ({}, dict(compiled=False)), (soft, {}),
             (soft, dict(compiled=False))]
@@ -929,7 +930,7 @@ def test_compiled_band_frame_gloo_replay_equals_eager(cuda):
             assert np.array_equal(graph["img"], eager["img"])
             assert graph["graph"]["graphs"] == eager["gathers"] + 1
             per = {"raster.band_ids": 1, "raster.band_depth": 1,
-                   "resolve": 1}
+                   "resolve": 1, "ssao.occlusion": 1, "ssao.blur": 3}
             if k:
                 per["pcf"] = 1
             assert graph["graph"]["launches"] == per
