@@ -7,8 +7,12 @@ on its own, with the JAX profiler's keys so the two reports line up:
 view), ``raster_main`` (bin + records + K1), ``resolve_gbuffer``,
 ``shadow_maps_x4`` (``render_shadow_maps``: the atlas's bin + records +
 K2), ``ssao``, ``lighting`` (with the debug overlay) and ``TOTAL_fused``
-(the Renderer's frame whole). ``bin_main`` is also inside ``raster_main``,
-so the stages sum to more than the frame. With ``cfg.use_pallas`` False
+(the Renderer's frame whole), and two stages the JAX profiler times
+inside its ``lighting``: ``shadow_factor`` (light 0's PCF factor, with
+shadows on) and ``direct_light`` (the light loops, PBR or Blinn-Phong)
+before ``lighting``, which keeps the SSAO upsample, the ambient, the
+tonemap, the sky and the overlay. ``bin_main`` is also inside
+``raster_main``, so the stages sum to more than the frame. With ``cfg.use_pallas`` False
 the stages are the JAX profiler's XLA branch: no ``bin_main``,
 ``raster_main`` the pure-tensor binned raster (``binned_raster``) and
 ``shadow_maps_x4`` the per-cascade renders of ``render_shadow_maps``. A frame with the alpha-tested
@@ -16,8 +20,8 @@ layer adds two stages the JAX profiler does not have:
 ``alpha_merge_main`` (the layer's vertex stage, depth peel and merge
 into the visibility buffer) after ``raster_main``, and
 ``alpha_merge_shadow`` (the shadow punch) after ``shadow_maps_x4``.
-Forward and Blinn-Phong frames keep the JAX keys (the forward path's
-shadow quad is inside ``lighting``).
+Forward and Blinn-Phong frames have the same stages (the forward
+path's shadow quad is inside ``lighting``).
 
 The JAX profiler jits every stage and times the compiled stage; on the
 card each stage here is compiled the same way, captured as its own CUDA
@@ -116,16 +120,27 @@ def run_stages(scene: fr.DeviceScene, consts: fr.FrameConstants, cfg,
     else:
         shadow_maps = torch.ones((cfg.num_cascades, 2, 2),
                                  dtype=torch.float32, device=dev)
+    access = None
     if cfg.ssao_enabled:
         access = stage("ssao", lambda: fr.ssao_pass(
             scene, consts, cfg, g["normal_v"], depth, valid=tid >= 0))
-        ambient_access = fr._upsample_bilinear(access, H, W)
-    else:
-        ambient_access = torch.ones((H, W), dtype=torch.float32, device=dev)
-    return stage("lighting", lambda: fr.apply_debug_overlay(
-        consts, cfg, fr.lighting_pass(scene, consts, cfg, g, shadow_maps,
-                                      ambient_access, depth),
-        shadow_maps, g["pos_w"]))
+    sf = None
+    if cfg.shadows_enabled:
+        sf = stage("shadow_factor", lambda: fr.shadow_factor_pass(
+            consts, cfg, g, shadow_maps))
+    lit = stage("direct_light", lambda: fr.direct_light(scene, consts, cfg,
+                                                        g, sf))
+
+    def lighting():
+        ambient_access = (
+            fr._upsample_bilinear(access, H, W) if access is not None
+            else torch.ones((H, W), dtype=torch.float32, device=dev))
+        return fr.apply_debug_overlay(
+            consts, cfg, fr.finish_lighting(scene, consts, cfg, g, lit,
+                                            ambient_access),
+            shadow_maps, g["pos_w"])
+
+    return stage("lighting", lighting)
 
 
 def _time(fn, reps: int, device: torch.device) -> float:
@@ -207,6 +222,12 @@ TRACE_PEELS = 8
 ALPHA_COUNTS = ("alpha_window",) + tuple(f"alpha_unresolved.{p}"
                                          for p in range(TRACE_PEELS))
 SPAN_PREFIX = "crychic.render."  # the host parts' profiler ranges
+# the light loop's counts, made by frames that shade local lights with
+# Blinn-Phong (render_frame's): the (local light, covered pixel) pairs
+# within the light's falloff_end, and the covered pixels
+LIGHT_COUNTS = ("light_reach_pairs", "covered_pixels")
+# the count columns of the ring, in order
+_COUNT_KEYS = (*TRACE_COUNTS, *ALPHA_COUNTS, *LIGHT_COUNTS)
 # the marks' ring: column 0 the frame, 1 the start mark, 2 + k the end
 # mark of fr.FRAME_STAGES[k] (csrc/frame_trace.cu)
 _MARK_COLS = 2 + len(fr.FRAME_STAGES)
@@ -222,9 +243,9 @@ class FrameRow:
     """One traced frame. host_ns: perf_counter_ns at render()'s start and
     at the end of each of HOST_PARTS; stage_ms: the device ms of each
     stage the frame ran, between its mark and the one before, in frame
-    order (host ms on the CPU); counts: TRACE_COUNTS' and ALPHA_COUNTS'
-    counts the frame made. A frame whose marks the ring no longer holds
-    has no stages and no counts."""
+    order (host ms on the CPU); counts: TRACE_COUNTS', ALPHA_COUNTS' and
+    LIGHT_COUNTS' counts the frame made. A frame whose marks the ring no
+    longer holds has no stages and no counts."""
     frame: int
     host_ns: tuple
     stage_ms: dict
@@ -269,7 +290,7 @@ class FrameTrace:
             return torch.zeros(shape, dtype=torch.int64, device=self.device)
 
         self.marks = zeros(R, _MARK_COLS)
-        self.counts = zeros(R, len(TRACE_COUNTS) + len(ALPHA_COUNTS))
+        self.counts = zeros(R, len(_COUNT_KEYS))
         self.counter = zeros(1)  # frames the device has started
         self.row = zeros(1)  # the ring row of the frame in progress
         self._absent = torch.full((TRACE_PEELS,), -1, dtype=torch.int64,
@@ -325,10 +346,12 @@ class FrameTrace:
         peels = (self._absent if peels is None else torch.cat(
             [peels[:TRACE_PEELS].to(torch.int64),
              self._absent[peels.shape[0]:]]))
-        vals = torch.cat([stats[k].to(torch.int64).reshape(1)
-                          if k in stats else one
-                          for k in (*TRACE_COUNTS, ALPHA_COUNTS[0])]
-                         + [peels])
+
+        def count(k):
+            return stats[k].to(torch.int64).reshape(1) if k in stats else one
+
+        vals = torch.cat([count(k) for k in (*TRACE_COUNTS, ALPHA_COUNTS[0])]
+                         + [peels] + [count(k) for k in LIGHT_COUNTS])
         self.counts.index_copy_(0, self.row, vals[None])
 
     # -- host side --------------------------------------------------------
@@ -377,8 +400,8 @@ class FrameTrace:
                     if end:
                         stage_ms[name] = float(end - t) / 1e6
                         t = end
-                made = {k: int(v) for k, v in zip(
-                    (*TRACE_COUNTS, *ALPHA_COUNTS), counts[r]) if v >= 0}
+                made = {k: int(v) for k, v in zip(_COUNT_KEYS, counts[r])
+                        if v >= 0}
             out.append(FrameRow(f, tuple(int(v) for v in self.host[r]),
                                 stage_ms, made))
         return out
@@ -389,7 +412,10 @@ def trace_summary(rows: list, cfg) -> dict:
     part; replay_ms, the median ms of each stage; occupancy, 100 x the
     median of count / capacity (cfg's) of each count the frames made,
     alpha_window's over the punch window; with the alpha layer,
-    alpha_unresolved, the median count of each peel."""
+    alpha_unresolved, the median count of each peel; with local lights
+    shaded by Blinn-Phong, light_reach, the median of 100 x the (local
+    light, covered pixel) pairs within the light's falloff_end / (local
+    lights x covered pixels)."""
     def median(values):
         return statistics.median(values) if values else None
 
@@ -414,6 +440,13 @@ def trace_summary(rows: list, cfg) -> dict:
         "occupancy": {k: v for k, v in occ.items() if v is not None}}
     if peels[0] is not None:
         out["alpha_unresolved"] = [v for v in peels if v is not None]
+    n_local = cfg.num_point_lights + cfg.num_spot_lights
+    reach = median([
+        100.0 * r.counts["light_reach_pairs"]
+        / (n_local * r.counts["covered_pixels"]) for r in rows
+        if r.counts.get("covered_pixels")])
+    if reach is not None:
+        out["light_reach"] = reach
     return out
 
 

@@ -171,14 +171,16 @@ def _local_light(lights, i, pos_w, normal):
 
 
 def compute_lighting(lights, normal, to_eye, pos_w, diffuse_albedo,
-                     fresnel_r0, shininess, shadow_factor):
+                     fresnel_r0, shininess, shadow_factor, in_reach=None):
     """ComputeLighting (LightingUtil.hlsl:156-186): num_dir directional,
     then num_point point, then num_spot spot lights, the light index
     running on across the three loops; only light 0 takes the shadow
     factor, and a local light adds nothing past its falloff_end.
 
     lights: passes.frame._LightsView (the (16, ...) light tensors with
-    static counts). Returns (..., 3) direct light (pre-tonemap)."""
+    static counts). in_reach (optional, (..., 1) float): each local
+    light's in-range mask (1.0 within its falloff_end) is added to it in
+    place. Returns (..., 3) direct light (pre-tonemap)."""
     result = torch.zeros_like(diffuse_albedo[..., :3])
     albedo = diffuse_albedo[..., :3]
     i = 0
@@ -195,6 +197,8 @@ def compute_lighting(lights, normal, to_eye, pos_w, diffuse_albedo,
         contrib = _blinn_phong(strength, lvn, normal, to_eye, albedo,
                                fresnel_r0, shininess)
         result = result + in_range * contrib
+        if in_reach is not None:
+            in_reach.add_(in_range)
         i += 1
     for _ in range(lights.num_spot):
         lvn, strength, in_range = _local_light(lights, i, pos_w, normal)
@@ -203,5 +207,7 @@ def compute_lighting(lights, normal, to_eye, pos_w, diffuse_albedo,
         contrib = _blinn_phong(strength * spot, lvn, normal, to_eye, albedo,
                                fresnel_r0, shininess)
         result = result + in_range * contrib
+        if in_reach is not None:
+            in_reach.add_(in_range)
         i += 1
     return result

@@ -1143,87 +1143,103 @@ def _pcf_factor_compacted(cfg: RenderConfig, pos_w, valid, sf_fn):
     return _untile(fp[inv][..., None], nty, ntx, TH, TW, H, W)[..., 0]
 
 
-def lighting_pass(scene: DeviceScene, consts: FrameConstants,
-                  cfg: RenderConfig, g: dict, shadow_maps, ambient_access,
-                  depth: torch.Tensor, row_offset: int = 0,
-                  full_height: int = None,
-                  shadow_factor: torch.Tensor = None) -> torch.Tensor:
-    """Lighting (DeferredShading.hlsl PS, or the forward Default.hlsl PS
-    with cfg.deferred False; PBRShading, or the Blinn-Phong
-    ComputeLighting with cfg.use_pbr False) + cascade PCF (the compiled
-    zero radius, or the soft disk of cfg.pcf_radius_texels) + sky
-    (procedural, or sampled from the scene's cubemap). With
-    cfg.fast_shadow_factor the PCF factor is evaluated on every other
-    pixel of every other row and upsampled bilinearly.
-
-    Band rendering (parallel.sharded): the rows start at global row
-    ``row_offset`` of a ``full_height``-row screen (the sky ray's NDC y),
-    and ``shadow_factor`` ((H, W)), when given, replaces the PCF
-    evaluation (the sharded fast preset computes it across bands).
-
-    cfg.shade_tile_capacity selects the tile-compacted PCF factor
-    (_pcf_factor_compacted, the same map) on the full-resolution branch
-    of a whole screen; the fast preset's half-res factor and bands stay
-    dense."""
-    H, W = depth.shape
-    dev = depth.device
-    if full_height is None:
-        full_height = H
+def shadow_factor_pass(consts: FrameConstants, cfg: RenderConfig, g: dict,
+                       shadow_maps, row_offset: int = 0,
+                       full_height: int = None) -> torch.Tensor:
+    """Light 0's cascade PCF factor, (H, W): the compiled zero radius, or
+    the soft disk of cfg.pcf_radius_texels. With cfg.fast_shadow_factor
+    it is evaluated on every other pixel of every other row and
+    upsampled bilinearly. cfg.shade_tile_capacity selects the
+    tile-compacted factor (_pcf_factor_compacted, the same map) on the
+    full-resolution branch of a whole screen; the fast preset's half-res
+    factor and bands (rows from global row ``row_offset`` of a
+    ``full_height``-row screen) stay dense."""
     valid = g["valid"]
     pos_w = g["pos_w"]
-    normal = shading.normalize(g["normal_w"])
+    H, W = valid.shape
+    if full_height is None:
+        full_height = H
+
+    def sf_fn(pw, dead):
+        return shadows.cascade_shadow_factor(
+            shadow_maps, consts.shadow_transforms, pw, consts.eye_pos,
+            cfg.shadow_map_size, deferred_blend_quirk=cfg.deferred,
+            soft_radius_texels=cfg.pcf_radius_texels, dead=dead)
+
+    if cfg.fast_shadow_factor:
+        # performance mode: the (smooth) PCF factor on a half-res grid,
+        # upsampled; the quality cost is at shadow silhouettes
+        return _upsample_bilinear(sf_fn(pos_w[::2, ::2], ~valid[::2, ::2]),
+                                  H, W)
+    if cfg.shade_tile_capacity and row_offset == 0 and full_height == H:
+        # one card: the PCF only on the covered tiles (a band's occupancy
+        # is not what the capacity was sized for)
+        return _pcf_factor_compacted(cfg, pos_w, valid, sf_fn)
+    return sf_fn(pos_w, ~valid)
+
+
+def direct_light(scene: DeviceScene, consts: FrameConstants,
+                 cfg: RenderConfig, g: dict,
+                 shadow_factor: torch.Tensor = None,
+                 in_reach: torch.Tensor = None) -> dict:
+    """The light loops: PBRShading (PBR.hlsl:91-149, directional lights
+    only), or the Blinn-Phong ComputeLighting (LightingUtil.hlsl:156-186)
+    with cfg.use_pbr False, over every pixel, with light 0 taking
+    ``shadow_factor`` ((H, W); None: unshadowed). Returns the direct light
+    before the tonemap ("direct", (H, W, 3)) with the surface terms that
+    the rest of the lighting reads ("normal", "view", "fresnel_r0",
+    "shininess"). in_reach (optional, (H, W, 1) float) receives each
+    local light's in-range mask, added in place (shading.compute_lighting;
+    the frame trace's light reach)."""
+    pos_w = g["pos_w"]
     albedo = g["albedo"]
     roughness = g["roughness"]
     metalness = g["metalness"]
+    normal = shading.normalize(g["normal_w"])
     view = shading.normalize(consts.eye_pos - pos_w)
     fresnel_r0 = 0.04 * (1.0 - metalness) + albedo[..., :3] * metalness
-
-    ambient = (ambient_access[..., None] * scene.ambient[None, None, :]
-               * albedo)
-
-    if cfg.shadows_enabled:
-        def sf_fn(pw, dead):
-            return shadows.cascade_shadow_factor(
-                shadow_maps, consts.shadow_transforms, pw, consts.eye_pos,
-                cfg.shadow_map_size, deferred_blend_quirk=cfg.deferred,
-                soft_radius_texels=cfg.pcf_radius_texels, dead=dead)
-
-        if shadow_factor is not None:
-            sf = shadow_factor
-        elif cfg.fast_shadow_factor:
-            # performance mode: the (smooth) PCF factor on a half-res
-            # grid, upsampled; the quality cost is at shadow silhouettes
-            sf = _upsample_bilinear(sf_fn(pos_w[::2, ::2], ~valid[::2, ::2]),
-                                    H, W)
-        elif (cfg.shade_tile_capacity and row_offset == 0
-              and full_height == H):
-            # one card: the PCF only on the covered tiles (a band's
-            # occupancy is not what the capacity was sized for)
-            sf = _pcf_factor_compacted(cfg, pos_w, valid, sf_fn)
-        else:
-            sf = sf_fn(pos_w, ~valid)
-        sf = sf[..., None]
-    else:
-        sf = torch.ones_like(roughness)
-
+    sf = (torch.ones_like(roughness) if shadow_factor is None
+          else shadow_factor[..., None])
     lights = _LightsView(scene, cfg)
     # deferred shininess alpha is gBuffer2.w == 1 (GBuffer.hlsl:28);
     # forward uses the normal map alpha (Default.hlsl:159)
     alpha = (torch.ones_like(roughness) if cfg.deferred
              else g["shininess_alpha"])
     shininess = (1.0 - roughness) * alpha
-
     if cfg.use_pbr:
         direct = shading.pbr_shading(lights, normal, view, pos_w, albedo,
                                      roughness, metalness, sf)
     else:
         direct = shading.compute_lighting(lights, normal, view, pos_w,
-                                          albedo, fresnel_r0, shininess, sf)
-    direct = shading.tonemap_direct(direct)
-    lit = ambient[..., :3] + direct
+                                          albedo, fresnel_r0, shininess, sf,
+                                          in_reach=in_reach)
+    return dict(direct=direct, normal=normal, view=view,
+                fresnel_r0=fresnel_r0, shininess=shininess)
+
+
+def finish_lighting(scene: DeviceScene, consts: FrameConstants,
+                    cfg: RenderConfig, g: dict, lit: dict, ambient_access,
+                    row_offset: int = 0,
+                    full_height: int = None) -> torch.Tensor:
+    """The lighting after its light loops: the ambient term (with the
+    SSAO access), the tonemapped direct light of direct_light's ``lit``
+    and the sky (procedural, or sampled from the scene's cubemap) as the
+    reflection on geometry and as the background. Rows from global row
+    ``row_offset`` of a ``full_height``-row screen (the sky ray's NDC
+    y). Returns the (H, W, 4) image."""
+    valid = g["valid"]
+    albedo = g["albedo"]
+    H, W = valid.shape
+    dev = valid.device
+    if full_height is None:
+        full_height = H
+    ambient = (ambient_access[..., None] * scene.ambient[None, None, :]
+               * albedo)
+    lit_rgb = ambient[..., :3] + shading.tonemap_direct(lit["direct"])
 
     valid3 = valid[..., None]
     if cfg.sky_enabled:
+        normal, view = lit["normal"], lit["view"]
         # sky reflection on geometry (Default.hlsl:176-179) and the sky
         # pass for empty pixels (sky.hlsl:33-47) are exclusive per pixel,
         # so one sky evaluation serves both
@@ -1247,13 +1263,39 @@ def lighting_pass(scene: DeviceScene, consts: FrameConstants,
         else:
             cube_col = sampling.sample_cubemap(scene.cubemap,
                                                cube_dir)[..., :3]
-        fres = shading.schlick_fresnel(fresnel_r0, normal, r)
-        lit = torch.where(valid3, lit + shininess * fres * cube_col,
-                          cube_col)
+        fres = shading.schlick_fresnel(lit["fresnel_r0"], normal, r)
+        lit_rgb = torch.where(valid3,
+                              lit_rgb + lit["shininess"] * fres * cube_col,
+                              cube_col)
 
     alpha_out = torch.where(valid3, albedo[..., 3:4],
                             torch.ones_like(albedo[..., 3:4]))
-    return torch.cat([lit, alpha_out], dim=-1)
+    return torch.cat([lit_rgb, alpha_out], dim=-1)
+
+
+def lighting_pass(scene: DeviceScene, consts: FrameConstants,
+                  cfg: RenderConfig, g: dict, shadow_maps, ambient_access,
+                  depth: torch.Tensor, row_offset: int = 0,
+                  full_height: int = None,
+                  shadow_factor: torch.Tensor = None) -> torch.Tensor:
+    """Lighting (DeferredShading.hlsl PS, or the forward Default.hlsl PS
+    with cfg.deferred False): shadow_factor_pass with shadows on,
+    direct_light, then finish_lighting; render_frame runs the three as
+    stages of their own. depth is not read (the rows lit are g's); it
+    keeps the JAX package's signature.
+
+    Band rendering (parallel.sharded): the rows start at global row
+    ``row_offset`` of a ``full_height``-row screen, and
+    ``shadow_factor`` ((H, W)), when given, replaces the PCF evaluation
+    (the sharded fast preset computes it across bands)."""
+    sf = None
+    if cfg.shadows_enabled:
+        sf = (shadow_factor if shadow_factor is not None
+              else shadow_factor_pass(consts, cfg, g, shadow_maps,
+                                      row_offset, full_height))
+    lit = direct_light(scene, consts, cfg, g, sf)
+    return finish_lighting(scene, consts, cfg, g, lit, ambient_access,
+                           row_offset, full_height)
 
 
 # ---------------------------------------------------------------------------
@@ -1721,7 +1763,8 @@ def capacity_requirements(scene: DeviceScene, consts: FrameConstants,
 # render_frame's stages in frame order, the names its mark hook is called
 # with after each (app/profiler.profile_frame's keys)
 FRAME_STAGES = ("raster_main", "alpha_merge_main", "resolve_gbuffer",
-                "shadow_maps_x4", "alpha_merge_shadow", "ssao", "lighting")
+                "shadow_maps_x4", "alpha_merge_shadow", "ssao",
+                "shadow_factor", "direct_light", "lighting")
 
 def render_frame(scene: DeviceScene, consts: FrameConstants,
                  cfg: RenderConfig, stats: dict = None,
@@ -1749,15 +1792,20 @@ def render_frame(scene: DeviceScene, consts: FrameConstants,
     binning, records and raster), "alpha_merge_main" (with the alpha
     layer), "resolve_gbuffer", "shadow_maps_x4" (the atlas's binning,
     records and raster), "alpha_merge_shadow" (with the alpha layer),
-    "ssao" (occlusion and blurs) and "lighting" (the SSAO upsample, the
-    lighting pass and the debug overlay); a stage the cfg turns off is
+    "ssao" (occlusion and blurs), "shadow_factor" (light 0's PCF factor,
+    with shadows on), "direct_light" (the light loops, direct_light) and
+    "lighting" (the SSAO upsample, the ambient, tonemap and sky of
+    finish_lighting, and the debug overlay); a stage the cfg turns off is
     not marked. With mark, stats also receives the counts the capacities
     bound, under capacity_requirements' keys, as device tensors:
     "main_pairs" and "shadow_pairs" (the pairs binned), and with the
     compacted passes "shade_tiles" and "ssao_tiles" (the tiles they
     evaluate); with the alpha layer "alpha_unresolved" (alpha_merge_main)
-    and "alpha_window" (alpha_merge_shadow). Without mark the frame is
-    the same ops as with it, less the marks and the counts' bookkeeping."""
+    and "alpha_window" (alpha_merge_shadow); with the Blinn-Phong loop
+    over local lights "light_reach_pairs", the (local light, covered
+    pixel) pairs within the light's falloff_end, and "covered_pixels"
+    (direct_light). Without mark the frame is the same ops as with it,
+    less the marks and the counts' bookkeeping."""
     H, W = cfg.height, cfg.width
     dev = consts.view_proj.device
     stats = {} if stats is None else stats
@@ -1811,12 +1859,29 @@ def render_frame(scene: DeviceScene, consts: FrameConstants,
                                 valid=tid >= 0, stats=stats, occupancy=occ)
         if mark is not None:
             mark("ssao")
+
+    sf = None
+    if cfg.shadows_enabled:
+        sf = shadow_factor_pass(consts, cfg, g, shadow_maps)
+        if mark is not None:
+            mark("shadow_factor")
+    reach = None
+    if (mark is not None and not cfg.use_pbr
+            and cfg.num_point_lights + cfg.num_spot_lights):
+        reach = torch.zeros_like(g["roughness"])
+    lit = direct_light(scene, consts, cfg, g, sf, in_reach=reach)
+    if mark is not None:
+        if reach is not None:
+            occ["light_reach_pairs"] = (reach[..., 0].to(torch.int64)
+                                        * g["valid"]).sum()
+            occ["covered_pixels"] = g["valid"].sum()
+        mark("direct_light")
+
+    if cfg.ssao_enabled:
         ambient_access = _upsample_bilinear(access_half, H, W)
     else:
         ambient_access = torch.ones((H, W), dtype=torch.float32, device=dev)
-
-    img = lighting_pass(scene, consts, cfg, g, shadow_maps, ambient_access,
-                        depth)
+    img = finish_lighting(scene, consts, cfg, g, lit, ambient_access)
     img = apply_debug_overlay(consts, cfg, img, shadow_maps, g["pos_w"])
     if mark is not None:
         mark("lighting")

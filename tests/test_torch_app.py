@@ -45,15 +45,26 @@ def _jax_profiler_keys():
         return list(dict.fromkeys(re.findall(r'report\["(\w+)"\]', f.read())))
 
 
+def _profile_keys(shadows: bool = True):
+    """profile_frame's keys: the JAX profiler's, with the two stages its
+    lighting holds timed alone before lighting, shadow_factor (with
+    shadows on) and direct_light."""
+    keys = _jax_profiler_keys()
+    at = keys.index("lighting")
+    return (keys[:at] + ["shadow_factor"] * shadows + ["direct_light"]
+            + keys[at:])
+
+
 def test_profile_frame_reports_every_stage(renderer):
     report = profiler.profile_frame(renderer, reps=1)
-    assert list(report) == _jax_profiler_keys()
+    assert list(report) == _profile_keys()
     assert all(np.isfinite(v) and v > 0 for v in report.values()), report
 
 
 def test_stage_chain_is_render_frame(renderer):
     """The profiler's stages, chained, give render_frame's image bit for
-    bit, in the JAX profiler's stage order."""
+    bit, in the JAX profiler's stage order with the lighting's two
+    stages before lighting."""
     names = []
 
     def stage(name, fn):
@@ -65,7 +76,7 @@ def test_stage_chain_is_render_frame(renderer):
                               stage)
     want = fr.render_frame(renderer.device_scene, consts, renderer.cfg)
     assert torch.equal(img, want)
-    assert names == _jax_profiler_keys()[:-1]
+    assert names == _profile_keys()[:-1]
 
 
 def test_resize_equals_fresh_renderer():

@@ -155,11 +155,11 @@ def test_profile_frame_alpha_stages(fence):
     """profile_frame reports the alpha merge as its own stages, after the
     stages whose outputs they merge into; the chained stages give
     render_frame's image bit for bit."""
-    from test_torch_app import _jax_profiler_keys
+    from test_torch_app import _profile_keys
 
     rt = fence["rt"]
     report = profiler.profile_frame(rt, reps=1)
-    want = [k for k in _jax_profiler_keys() if k != "ssao"]
+    want = [k for k in _profile_keys() if k != "ssao"]
     want.insert(want.index("raster_main") + 1, "alpha_merge_main")
     want.insert(want.index("shadow_maps_x4") + 1, "alpha_merge_shadow")
     assert list(report) == want

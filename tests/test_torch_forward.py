@@ -120,15 +120,16 @@ def test_forward_shadow_quad(frames):
 
 
 def test_profile_frame_keys(frames):
-    """profile_frame reports these frames with the JAX profiler's keys,
-    and its chained stages give render_frame's image bit for bit."""
-    from test_torch_app import _jax_profiler_keys
+    """profile_frame reports these frames with the JAX profiler's keys
+    and the lighting's two stages (test_torch_app._profile_keys), and
+    its chained stages give render_frame's image bit for bit."""
+    from test_torch_app import _profile_keys
 
     _, _, rt, _, got = frames
     report = profiler.profile_frame(rt, reps=1)
     skip = {"shadow_maps_x4": not rt.cfg.shadows_enabled,
             "ssao": not rt.cfg.ssao_enabled}
-    assert list(report) == [k for k in _jax_profiler_keys()
+    assert list(report) == [k for k in _profile_keys(rt.cfg.shadows_enabled)
                             if not skip.get(k)]
     img = profiler.run_stages(rt.device_scene, rt.frame_constants(0.0),
                               rt.cfg, lambda name, fn: fn())

@@ -255,7 +255,8 @@ def test_frame_without_the_hook_gives_no_counts():
     assert set(plain) == {k for k in plain if k.endswith("_overflowed")}
     assert set(marked) == set(plain) | set(profiler.TRACE_COUNTS)
     assert names == ["start", "raster_main", "resolve_gbuffer",
-                     "shadow_maps_x4", "ssao", "lighting"]
+                     "shadow_maps_x4", "ssao", "shadow_factor",
+                     "direct_light", "lighting"]
 
 
 def test_trace_summary():
@@ -285,7 +286,9 @@ def test_profile_line_reads_the_trace(capsys):
     assert line["card"] == "cpu" and line["frame_ms"] == 12.5
     assert "busy_share" not in line and "device_ms_per_frame" not in line
     assert list(line["replay_ms"]) == ["raster_main", "resolve_gbuffer",
-                                       "shadow_maps_x4", "ssao", "lighting"]
+                                       "shadow_maps_x4", "ssao",
+                                       "shadow_factor", "direct_light",
+                                       "lighting"]
     assert list(line["host_ms"]) == list(profiler.HOST_PARTS)
     assert set(line["occupancy"]) == set(profiler.TRACE_COUNTS)
     assert all(0.0 < v <= 100.0 for v in line["occupancy"].values())
@@ -348,7 +351,7 @@ def test_traced_compiled_frame_writes_a_row_per_replay(cuda, in_flight):
     r.check_overflow()
     assert [row.frame for row in rows] == list(range(n))
     stages = ["raster_main", "resolve_gbuffer", "shadow_maps_x4", "ssao",
-              "lighting"]
+              "shadow_factor", "direct_light", "lighting"]
     marks = r.trace.marks.cpu().numpy()
     for row in rows:
         assert list(row.stage_ms) == stages
@@ -438,7 +441,7 @@ def test_untraced_graph_is_the_frame_without_the_hook(cuda):
     n_traced = _node_count(
         lambda: traced.compiled_frame.fn(traced.device_scene, packed), cuda)
     n_counts = _node_count(counts_alone, cuda)
-    marks = 1 + 5  # the start and config 4's five stages
+    marks = 1 + 7  # the start and config 4's seven stages
     assert n_plain == n_before
     assert n_traced == n_plain + marks + n_counts, (n_traced, n_plain,
                                                     n_counts)

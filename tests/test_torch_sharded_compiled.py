@@ -36,7 +36,7 @@ from crychic_renderer_tpu_torch.models import scenes_baseline as tsb
 from crychic_renderer_tpu_torch.ops import pcf, raster, tally
 from crychic_renderer_tpu_torch.parallel import launch, sharded
 from crychic_renderer_tpu_torch.passes import frame as fr
-from test_torch_app import _jax_profiler_keys
+from test_torch_app import _profile_keys
 from test_torch_bench import HostReads
 from torch_threads import cap_torch_threads
 
@@ -310,7 +310,8 @@ def test_piecewise_capture_order(spawned):
 
 
 def test_profile_frame_keeps_keys_and_chain(setup, monkeypatch):
-    """profile_frame reports the JAX profiler's keys, and the chain its
+    """profile_frame reports its keys (the JAX profiler's with the
+    lighting's two stages, test_torch_app._profile_keys), and the chain its
     timed stages hand on gives render_frame's image bit for bit."""
     scene, cfg, lights = tsb.CONFIGS[4]()
     r = tren.Renderer(scene, dataclasses.replace(
@@ -325,7 +326,7 @@ def test_profile_frame_keeps_keys_and_chain(setup, monkeypatch):
 
     monkeypatch.setattr(profiler, "run_stages", spy)
     report = profiler.profile_frame(r, reps=1)
-    assert list(report) == _jax_profiler_keys()
+    assert list(report) == _profile_keys()
     assert all(np.isfinite(v) and v > 0 for v in report.values()), report
     want = fr.render_frame(r.device_scene, r.frame_constants(0.0), r.cfg)
     assert len(chains) == 1 and torch.equal(chains[0], want)

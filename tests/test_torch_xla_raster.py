@@ -46,7 +46,7 @@ from crychic_renderer_tpu_torch.models.scenes_baseline import CONFIGS
 from crychic_renderer_tpu_torch.ops import raster
 from crychic_renderer_tpu_torch.ops import rasterizer as rz
 from crychic_renderer_tpu_torch.passes import frame as fr
-from test_torch_app import _jax_profiler_keys
+from test_torch_app import _profile_keys
 from test_torch_frame import PIX_BOUND, _leaves, _small
 from torch_threads import cap_torch_threads
 
@@ -384,7 +384,7 @@ def test_profiler_xla_stages(frame, frames):
         return fn()
 
     img = profiler.run_stages(rt.device_scene, frame["tc"], rt.cfg, stage)
-    assert names == [k for k in _jax_profiler_keys()[:-1] if k != "bin_main"]
+    assert names == [k for k in _profile_keys()[:-1] if k != "bin_main"]
     assert np.array_equal(np.clip(img.numpy(), 0.0, 1.0), frames["zero"][1])
 
 
