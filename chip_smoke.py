@@ -12,8 +12,8 @@ soft PCF kernel (csrc/pcf.cu). Phases, each printed as it ends:
 
 1. the card's name and power limit (nvidia-smi);
 2. the kernels built from the checkout's sources (raster, soft PCF,
-   resolve, alpha peel and SSAO libraries), one nvcc each, started
-   together,
+   resolve, alpha peel, SSAO and light-loop libraries), one nvcc each,
+   started together,
    and their build times;
 3. the Renderer at 1080p, with the capacities it sized (the atlas pair
    count is what the atlas binning expands; the tile capacities of the
@@ -322,6 +322,17 @@ soft PCF kernel (csrc/pcf.cu). Phases, each printed as it ends:
    and the plain version's ms; then 1 + 5 frames through
    Renderer.render, one occlusion and three blur launches per frame and
    per replay.
+33. the light-loop kernel (K10, csrc/light.cu) alone on config 3's
+   (Blinn-Phong over 16 point lights, from the phase-20 files) and
+   config 4's (PBR over 3 directional lights, light 0's zero-radius
+   factor) 1080p inputs, as the frame hands them to direct_light:
+   direct_light through K10 against direct_light_plain on the same
+   inputs, its five outputs and the reach counts torch.equal; the
+   kernel's ms (CUDA events around 20 back-to-back wrapper calls) and
+   device ms (torch.profiler) beside the bound (K10_*_OPS below, the
+   (local light, pixel) pairs in reach counted by the kernel on these
+   inputs) and the plain version's ms; then 1 + 5 frames through
+   Renderer.render, one K10 launch per frame and per replay.
 
 Renderer.render replays a CUDA graph: a Renderer's first render, and the
 first after its cfg is replaced, runs one eager frame before it captures
@@ -338,7 +349,8 @@ rate with every operation rounded on its own, as the kernels are built
 every (record, warp) pair and the pixel tests of the pairs it keeps,
 for K6 460 per receiver-cascade, for K7 about 1,050 per covered pixel of
 a resolved tile, for K9 about 2,000 per kept SSAO pixel and 306 per
-pixel and blur iteration) and, last, the device line. Any
+pixel and blur iteration, for K10 35 per pixel and about 100 per light
+it evaluates) and, last, the device line. Any
 failed phase raises, so the script exits non-zero and prints no result;
 so does a machine without CUDA, and a directory without the repository.
 """
@@ -473,6 +485,31 @@ K9_BLUR_OPS = 2 + 2 * 152
 # and writes the map
 K9_KEPT_BYTES = 4 + 12 + 12
 K9_BLUR_BYTES = 4 + 12 + 4 + 4
+# K10's f32 operations, counted from csrc/light.cu (a division, square
+# root or pow counted once): 35 per pixel for the unit normal and view
+# vectors (11 and 14), fresnel_r0 (8) and the shininess (2); per PBR
+# light 116 (the half vector 14, the three clamped dots 21, the NDF 8,
+# n.v 7, the geometry term 12, the Fresnel power 3, the shared products
+# 3, 12 a channel for F, the specular and diffuse terms and the BRDF,
+# 4 a channel for the irradiance and the sum); the Blinn-Phong term 59
+# (m 1, the half vector 14, n.h 7, the roughness factor 4, cos 7, the
+# Fresnel power 2, 8 a channel); a Blinn-Phong directional light 78 (its
+# vector 3, n.l 7, the strength 3, the term, the sum 6); a point light
+# in reach 99 (the vector, distance and range tests 12, the unit vector
+# 4, n.l 7, the attenuation 4, the strength 6, the term, the sum 6, the
+# reach count 1; configs 3 and 4 have no spot light, which costs 14
+# more), a local light past its falloff_end 13
+K10_PIXEL_OPS = 11 + 14 + 8 + 2
+K10_PBR_OPS = 14 + 21 + 8 + 7 + 12 + 3 + 3 + 3 * 12 + 3 * 4
+K10_BLINN_OPS = 1 + 14 + 7 + 4 + 7 + 2 + 3 * 8
+K10_DIR_OPS = 3 + 7 + 3 + K10_BLINN_OPS + 6
+K10_POINT_OPS = 12 + 4 + 7 + 4 + 6 + K10_BLINN_OPS + 6 + 1
+K10_PAST_OPS = 13
+# K10's bytes per pixel: what the loops need of the G-buffer (pos_w,
+# normal_w, albedo rgb, roughness, metalness; shininess alpha forward),
+# light 0's factor with shadows, and the five outputs written
+K10_READ_BYTES = 12 + 12 + 12 + 4 + 4
+K10_WRITE_BYTES = 4 * (3 + 3 + 3 + 3 + 1)
 # the benchmark's fence cell, whose scene, assets and pose phase 31 uses
 FENCE_CELL = "c4fence-static-q3"
 FENCE_SEED = 2 ** 31 + 21
@@ -560,8 +597,9 @@ def main():
         raise SystemExit("chip_smoke: no CUDA device; nothing was run")
     from crychic_renderer_tpu_torch.app.renderer import Renderer
     from crychic_renderer_tpu_torch.models.scenes_baseline import CONFIGS
-    from crychic_renderer_tpu_torch.ops import (alpha_peel, build, pcf,
-                                                raster, resolve, ssao_kernel)
+    from crychic_renderer_tpu_torch.ops import (alpha_peel, build,
+                                                light_kernel, pcf, raster,
+                                                resolve, ssao_kernel)
     from crychic_renderer_tpu_torch.ops import rasterizer as rz
     from crychic_renderer_tpu_torch.ops import shading, shadows
     from crychic_renderer_tpu_torch.passes import frame as fr
@@ -580,7 +618,7 @@ def main():
 
     # 2. the kernels, built from the checkout, one nvcc each, in parallel
     libs = (raster.LIBRARY, pcf.LIBRARY, resolve.LIBRARY, alpha_peel.LIBRARY,
-            ssao_kernel.LIBRARY)
+            ssao_kernel.LIBRARY, light_kernel.LIBRARY)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         for f in [pool.submit(lib.load, True) for lib in libs]:
@@ -912,6 +950,12 @@ def main():
     phase(f"[32] phase 32 took {t14 - t13:.1f} s; the script "
           f"{t14 - t_script:.1f} s, kernel builds included")
 
+    # 33: K10, the light loops, against the plain stage
+    kernels.extend(light_kernel_runs(dev, assets, launches, smi))
+    t15 = time.perf_counter()
+    phase(f"[33] phase 33 took {t15 - t14:.1f} s; the script "
+          f"{t15 - t_script:.1f} s, kernel builds included")
+
     kernels.sort(key=lambda k: k["name"])
     for k in kernels:
         variant = k.pop("variant")
@@ -1124,6 +1168,104 @@ def ssao_kernel_runs(dev, assets, launches, card):
               f"map, flag and count torch.equal to ssao_pass_plain; {line}; "
               f"1 + {frames} frames: {n_occ} occlusion and {n_blur} blur "
               f"launches, 1 and {nb} per replay")
+        r.close()
+        del r
+    return entries
+
+
+def light_kernel_runs(dev, assets, launches, card):
+    """Phase 33 (see the module doc). Returns the kernels-line entries of
+    K10 on config 3's and config 4's inputs."""
+    from crychic_renderer_tpu_torch.app.renderer import Renderer
+    from crychic_renderer_tpu_torch.models import scenes_baseline as sb
+    from crychic_renderer_tpu_torch.ops import light_kernel, raster, tally
+    from crychic_renderer_tpu_torch.passes import frame as fr
+
+    phase(f"[33] card: {card}")
+    entries = []
+    for name, kw in (("config3", assets), ("config4", {})):
+        scene, cfg, lights = sb.CONFIGS[int(name[-1])]()
+        r = Renderer(scene, cfg, lights=lights, device=dev, **kw)
+        s, cfg = r.device_scene, r.cfg
+        consts = r.frame_constants(0.0)
+        tris, attr = fr.main_view_tris(s, consts, cfg)
+        depth, tid, _ = raster.rasterize(tris, cfg.width, cfg.height,
+                                         cfg.pair_capacity)
+        g = fr.resolve_gbuffer(s, consts, cfg, tris, depth, tid, attr)
+        sf = None
+        if cfg.shadows_enabled:
+            sf = fr.shadow_factor_pass(
+                consts, cfg, g, fr.render_shadow_maps(s, consts, cfg))
+        view = fr._LightsView(s, cfg)
+        local = 0 if cfg.use_pbr else view.num_point + view.num_spot
+
+        # direct_light through K10 against the plain stage, the reach
+        # counts (Blinn-Phong with local lights) too
+        reach, reach0 = (torch.zeros_like(g["roughness"]) if local else None
+                         for _ in range(2))
+        got = fr.direct_light(s, consts, cfg, g, sf, reach)
+        want = fr.direct_light_plain(s, consts, cfg, g, sf, reach0)
+        assert list(got) == list(want), (name, list(got))
+        for k in want:
+            assert torch.equal(got[k], want[k]), f"{name}: K10's {k} differs"
+        assert reach is None or torch.equal(reach, reach0), name
+
+        def k10():
+            return light_kernel.light(g["buffer"], consts.eye_pos, view,
+                                      cfg.use_pbr, cfg.deferred, sf)
+
+        ms = cuda_ms(k10, 2 * DECOMP_REPS)
+        dev_ms = device_ms(k10, 2 * DECOMP_REPS, "light_kernel")
+        plain_ms = cuda_ms(lambda: fr.direct_light_plain(s, consts, cfg, g,
+                                                         sf), 5)
+
+        # the bound: every pixel's G-buffer terms, factor and outputs; the
+        # operations of the lights each pixel evaluates (the kernel counts
+        # the local lights in reach)
+        H, W = g["pos_w"].shape[:2]
+        px = H * W
+        in_reach = int(reach.sum()) if local else 0
+        nbytes = px * (K10_READ_BYTES + (0 if cfg.deferred else 4)
+                       + (4 if sf is not None else 0) + K10_WRITE_BYTES)
+        per_dir = K10_PBR_OPS if cfg.use_pbr else K10_DIR_OPS
+        ops = (px * (K10_PIXEL_OPS + view.num_dir * per_dir)
+               + in_reach * K10_POINT_OPS
+               + (px * local - in_reach) * K10_PAST_OPS)
+        keys, note = bound(nbytes, ops)
+
+        # frames through Renderer.render: one K10 launch per frame
+        frames = 5
+        before = tally.snapshot()
+        for i in range(frames + 1):
+            r.render(i / 60.0)
+        torch.cuda.synchronize()
+        per_replay = r.compiled_frame.launches["light"]
+        n_k10 = tally.since(before).get("light", 0)
+        assert per_replay == 1 and n_k10 == frames + 2, (per_replay, n_k10)
+        launches[f"p33_{name}"] = {"light": n_k10}
+        brdf = "PBR" if cfg.use_pbr else "Blinn-Phong"
+        entries.append(dict(
+            name=f"K10 light {name} {W}x{H}", variant="light",
+            runs=[f"p33_{name}"], kernel_ms=ms, device_ms=dev_ms,
+            plain_ms=plain_ms, **keys,
+            device_share_of_bound=keys["bound_ms"] / dev_ms, brdf=brdf,
+            lights=[view.num_dir, 0 if cfg.use_pbr else view.num_point,
+                    0 if cfg.use_pbr else view.num_spot],
+            pairs_in_reach=in_reach, bytes=nbytes, ops=ops,
+            launches_per_replay=per_replay))
+        reach_note = ""
+        if local:
+            share = 100.0 * in_reach / (px * local)
+            reach_note = (f", {in_reach} of {px * local} (local light, "
+                          f"pixel) pairs in reach ({share:.2f}%)")
+        phase(f"[33] K10 {name} {W}x{H}, {brdf} over {view.num_dir} "
+              f"directional + {local} local lights{reach_note}: the five "
+              f"outputs{' and the reach counts' if local else ''} "
+              f"torch.equal to direct_light_plain; kernel "
+              f"{ms:.4f} ms, device {dev_ms:.4f} ms ({note}: "
+              f"{100.0 * keys['bound_ms'] / dev_ms:.1f}%), plain version "
+              f"{plain_ms:.3f} ms; 1 + {frames} frames: {n_k10} K10 "
+              f"launches, {per_replay} per replay")
         r.close()
         del r
     return entries
@@ -3031,7 +3173,7 @@ def band_graph_runs(r, consts, band_cfg, dev, frame_ms, launches, p22,
             if compiled:
                 per_replay = {"raster.band_ids": 1, "raster.band_depth": 1,
                               "resolve": 1, "ssao.occlusion": 1,
-                              "ssao.blur": cfg.ssao_blur_count}
+                              "ssao.blur": cfg.ssao_blur_count, "light": 1}
                 if want["pcf"]:
                     per_replay["pcf"] = 1
                 assert out["graph"]["launches"] == per_replay, \

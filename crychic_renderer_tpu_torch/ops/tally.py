@@ -6,7 +6,8 @@ Keys (``KEYS``): ``raster.<variant>`` for the raster kernel's variants
 atlas, "band_ids" and "band_depth" K3 the band-sharded frame,
 "field_ids" and "field_depth" K4 the layout probe), "pcf" (K6),
 "resolve" (K7), "alpha_peel" (K8, two a peel round), "ssao.occlusion"
-and "ssao.blur" (K9, one a frame and one a blur iteration), "gathers" and
+and "ssao.blur" (K9, one a frame and one a blur iteration), "light"
+(K10, one a frame), "gathers" and
 "gathered_bytes" (the band frame's all-gathers and the bytes they
 received, ``parallel/sharded._Comm.gather_into``).
 
@@ -21,8 +22,8 @@ from __future__ import annotations
 RASTER_VARIANTS = ("ids", "depth", "band_ids", "band_depth", "field_ids",
                    "field_depth")
 KEYS = tuple(f"raster.{v}" for v in RASTER_VARIANTS) + (
-    "pcf", "resolve", "alpha_peel", "ssao.occlusion", "ssao.blur", "gathers",
-    "gathered_bytes")
+    "pcf", "resolve", "alpha_peel", "ssao.occlusion", "ssao.blur", "light",
+    "gathers", "gathered_bytes")
 
 _COUNTS = dict.fromkeys(KEYS, 0)
 

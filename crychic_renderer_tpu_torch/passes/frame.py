@@ -29,10 +29,11 @@ settings, single-mip pool, cubemap sky, debug views). With
 ``ops.raster``; with it False the frame takes the JAX package's pure-XLA
 path, the binned tensor raster of ``ops.rasterizer`` on 32-row tiles
 truncated at ``bin_cap``, per cascade for the shadow maps. The soft PCF
-goes through ``ops.pcf``, the G-buffer resolve through ``ops.resolve``
-and the alpha layer's depth peel through ``ops.alpha_peel`` (CUDA kernels
-on the card, their plain PyTorch versions on the CPU); the rest is tensor
-code. A draw without static corner tables
+goes through ``ops.pcf``, the G-buffer resolve through ``ops.resolve``,
+the alpha layer's depth peel through ``ops.alpha_peel``, SSAO through
+``ops.ssao_kernel`` and the light loops through ``ops.light_kernel``
+(CUDA kernels on the card, their plain PyTorch versions on the CPU); the
+rest is tensor code. A draw without static corner tables
 (``strip_draw_statics``, or a scene built without
 ``attach_draw_statics``) renders through the per-vertex stage
 (``vertex_stage``, ``build_tri_attrs``) with the same records. With
@@ -55,8 +56,8 @@ import torch
 import torch.nn.functional as F
 
 from ..config import RenderConfig
-from ..ops import (alpha_peel, clipping, raster, resolve, sampling,
-                   shading, shadows)
+from ..ops import (alpha_peel, clipping, light_kernel, raster, resolve,
+                   sampling, shading, shadows)
 from ..ops import rasterizer as rz
 from ..ops import ssao as ssao_ops
 from ..ops import ssao_kernel
@@ -862,7 +863,8 @@ def resolve_gbuffer(scene: DeviceScene, consts: FrameConstants,
 
     CUDA tensors go through the kernel K7 (ops/resolve.py), which writes
     the same G-buffer bit for bit; the planes are then views into its
-    (rows, W, 16) buffer. CPU tensors take resolve_gbuffer_plain."""
+    (rows, W, 16) buffer, which the dict also holds as "buffer" (what K10
+    reads, direct_light). CPU tensors take resolve_gbuffer_plain."""
     if not tid.is_cuda:
         return resolve_gbuffer_plain(scene, consts, cfg, tris, depth, tid,
                                      tri_attr, row_offset, out_rows, stats,
@@ -891,6 +893,7 @@ def resolve_gbuffer(scene: DeviceScene, consts: FrameConstants,
         g[n] = out[..., o:o + len(clear)]
         o += len(clear)
     g["valid"] = tid[:rows] >= 0
+    g["buffer"] = out
     return g
 
 
@@ -1190,7 +1193,26 @@ def direct_light(scene: DeviceScene, consts: FrameConstants,
     the rest of the lighting reads ("normal", "view", "fresnel_r0",
     "shininess"). in_reach (optional, (H, W, 1) float) receives each
     local light's in-range mask, added in place (shading.compute_lighting;
-    the frame trace's light reach)."""
+    the frame trace's light reach).
+
+    CUDA tensors go through K10 (ops/light_kernel.py), one launch that
+    reads K7's G-buffer in place (g["buffer"], resolve_gbuffer's on the
+    card) and writes the same five outputs bit for bit, contiguous planes
+    of one buffer. CPU tensors take direct_light_plain."""
+    if not g["pos_w"].is_cuda:
+        return direct_light_plain(scene, consts, cfg, g, shadow_factor,
+                                  in_reach)
+    return light_kernel.light(g.get("buffer"), consts.eye_pos,
+                              _LightsView(scene, cfg), cfg.use_pbr,
+                              cfg.deferred, shadow_factor, in_reach)
+
+
+def direct_light_plain(scene: DeviceScene, consts: FrameConstants,
+                       cfg: RenderConfig, g: dict,
+                       shadow_factor: torch.Tensor = None,
+                       in_reach: torch.Tensor = None) -> dict:
+    """direct_light's plain version (PyTorch ops on any device): the CPU's
+    path, and what the card tests hold K10 against."""
     pos_w = g["pos_w"]
     albedo = g["albedo"]
     roughness = g["roughness"]

@@ -806,7 +806,7 @@ def test_replay_launch_tally(cuda):
     r = Renderer(scene, cfg, lights=lights, device=cuda)
     per_frame = {"raster.ids": 1, "raster.depth": 1, "pcf": 1,
                  "resolve": 1, "ssao.occlusion": 1,
-                 "ssao.blur": r.cfg.ssao_blur_count}
+                 "ssao.blur": r.cfg.ssao_blur_count, "light": 1}
     before = tally.snapshot()
     r.render(0.0)
     torch.cuda.synchronize()
@@ -919,8 +919,8 @@ def test_compiled_band_frame_gloo_replay_equals_eager(cuda):
     pieces (the gathers + 1 graphs), is torch.equal to the eager band
     frame on every rank, with the zero radius and the soft disk; per
     replay one K3 launch of each kind, one K7, K9's occlusion once and
-    its blur three times (and one K6 with the soft disk), and the eager
-    frame before the capture adds one of each."""
+    its blur three times, one K10 (and one K6 with the soft disk), and the
+    eager frame before the capture adds one of each."""
     soft = dict(pcf_radius_texels=2.5)
     runs = [({}, {}), ({}, dict(compiled=False)), (soft, {}),
             (soft, dict(compiled=False))]
@@ -930,7 +930,8 @@ def test_compiled_band_frame_gloo_replay_equals_eager(cuda):
             assert np.array_equal(graph["img"], eager["img"])
             assert graph["graph"]["graphs"] == eager["gathers"] + 1
             per = {"raster.band_ids": 1, "raster.band_depth": 1,
-                   "resolve": 1, "ssao.occlusion": 1, "ssao.blur": 3}
+                   "resolve": 1, "ssao.occlusion": 1, "ssao.blur": 3,
+                   "light": 1}
             if k:
                 per["pcf"] = 1
             assert graph["graph"]["launches"] == per

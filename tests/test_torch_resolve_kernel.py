@@ -311,7 +311,8 @@ def test_dense_and_band(c5, band):
 @pytest.mark.cuda
 def test_compiled_frame_goes_through_k7(cuda, monkeypatch):
     """Config 4 at 1080p: the replay launches K7 once and equals the
-    frame rendered eagerly with the plain resolve."""
+    frame rendered eagerly with the plain resolve (and the plain light
+    stage: K10 reads only K7's buffer, and equals the plain stage)."""
     scene, cfg, lights = sb.CONFIGS[4]()
     r = Renderer(scene, cfg, lights=lights, device=cuda)
     r.render(0.0)
@@ -321,6 +322,7 @@ def test_compiled_frame_goes_through_k7(cuda, monkeypatch):
     assert r.compiled_frame.launches["resolve"] == 1
     assert tally.since(before)["resolve"] == 1
     monkeypatch.setattr(fr, "resolve_gbuffer", fr.resolve_gbuffer_plain)
+    monkeypatch.setattr(fr, "direct_light", fr.direct_light_plain)
     want = fr.render_frame(r.device_scene, r.frame_constants(0.0), r.cfg)
     assert torch.equal(img, want)
     r.close()
